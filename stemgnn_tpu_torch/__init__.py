@@ -13,5 +13,7 @@ of a ported path is a hand-written CUDA kernel under ``csrc/``, built with
 its plain PyTorch version.
 
 Ported so far: the serving path, ``python -m stemgnn_tpu_torch.infer
---mode encode`` (2-layer SAGE encoder + multi-head cosine VQ, eval).
+--mode encode`` (2-layer SAGE encoder + multi-head cosine VQ, eval), and
+the full-batch node finetune, ``python -m stemgnn_tpu_torch.finetune``
+(frozen VQ, per-head decoder, forward and backward through the kernels).
 """

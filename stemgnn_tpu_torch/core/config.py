@@ -134,9 +134,9 @@ class FinetuneConfig:
     eval_bf16: bool = False
     eval_batch_size: int = 0
     eval_train_auc: bool = True
-    # Node reordering for gather locality.  Its only consumers are the
-    # windowed-gather kernels, which are not ported yet, so the port builds
-    # layouts as "off" whatever this says.
+    # Node reordering for gather locality (train/graph_setup.
+    # maybe_reorder_dataset): "auto" checks the in-kernel gather gate on the
+    # original graph; the relabelling methods are not ported yet.
     reorder: str = "auto"
 
 

@@ -23,12 +23,12 @@ class SAGEConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_feat=None, edge_mask=None,
                 layout=None, edge_table=None, bf16_messages: bool = True,
-                scatter=None):
+                plain: bool = False):
         """out = lin_l(mean_j relu(x_j + xe)) + lin_r(x)
         (encoder.py:82-87)."""
         agg = sage_aggregate(x, senders, receivers, edge_feat=edge_feat,
                              edge_mask=edge_mask, num_nodes=x.shape[0],
                              reduce="mean", relu=True, layout=layout,
                              edge_table=edge_table,
-                             bf16_messages=bf16_messages, scatter=scatter)
+                             bf16_messages=bf16_messages, plain=plain)
         return self.lin_l(agg) + self.lin_r(x)

@@ -2,8 +2,10 @@
 
 ``num_layers`` SAGE convolutions, each followed by BatchNorm (for any
 ``normalize`` other than 'none', encoder.py:173,313-314), with activation
-and dropout between layers.  Ported: the sage backbone, f32 compute, eval.
-Other backbones, MoE layers and bf16 compute raise ``NotImplementedError``.
+and dropout between layers.  Ported: the sage backbone in f32 compute, in
+eval and in training (BatchNorm batch statistics over the ``node_mask``
+rows, dropout from an explicit ``torch.Generator``).  Other backbones, MoE
+layers and bf16 compute raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,9 +45,12 @@ class Encoder(nn.Module):
         return torch.nn.functional.leaky_relu(z, 0.01)
 
     def forward(self, x, senders, receivers, edge_feat=None, edge_mask=None,
-                layout=None, edge_table=None, scatter=None):
-        """Forward pass (encoder.py:283-323).  ``scatter`` overrides the
-        fused path's tail summation (see ops.fused_sage)."""
+                node_mask=None, layout=None, edge_table=None,
+                plain: bool = False, generator=None):
+        """Forward pass (encoder.py:283-323).  In training mode BatchNorm
+        takes its statistics over the ``node_mask`` rows and dropout draws
+        from ``generator``.  ``plain`` makes the fused path run its kernels'
+        plain versions (see ops.fused_sage)."""
         cfg = self.cfg
         z = x.float()
         for i, layer in enumerate(self.layers):
@@ -57,9 +62,10 @@ class Encoder(nn.Module):
             z = layer(z, senders, receivers, edge_feat=edge_feat,
                       edge_mask=edge_mask, layout=layout,
                       edge_table=edge_table,
-                      bf16_messages=cfg.fused_bf16_messages, scatter=scatter)
+                      bf16_messages=cfg.fused_bf16_messages, plain=plain)
             if cfg.normalize != "none":
-                z = self.norms[i](z)
+                z = self.norms[i](z, mask=node_mask)
             if i < cfg.num_layers - 1:
-                z = dropout(self._act(z), cfg.dropout, training=self.training)
+                z = dropout(self._act(z), cfg.dropout, training=self.training,
+                            generator=generator)
         return z

@@ -1,5 +1,5 @@
-"""Building-block layers: Linear, BatchNorm (eval) and dropout (counterpart
-of ``stemgnn_tpu/nn/layers.py``).
+"""Building-block layers: Linear, BatchNorm and dropout (counterpart of
+``stemgnn_tpu/nn/layers.py``).
 
 Parameter names and layouts follow the JAX package's pytrees so weights
 carry across by name (``utils/convert.py``): ``Linear.w`` is ``[in, out]``
@@ -40,7 +40,15 @@ class Linear(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm1d over the node axis; eval mode (running statistics)."""
+    """BatchNorm1d over the node axis (JAX ``batchnorm_apply``).
+
+    Training normalizes with the batch statistics of the ``mask`` rows
+    (padding excluded) and updates the buffers in place with torch's
+    momentum convention: ``running <- (1 - m) * running + m * batch``, the
+    unbiased variance in the running buffer, ``count`` + 1.  Eval uses the
+    running statistics."""
+
+    momentum = 0.1               # torch BatchNorm1d's default
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -51,15 +59,33 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(dim))
         self.register_buffer("count", torch.zeros((), dtype=torch.int32))
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError("BatchNorm batch statistics come with "
-                                      "the training slice; call .eval()")
-        y = (x.float() - self.mean) * torch.rsqrt(self.var + self.eps)
+    def forward(self, x, mask=None):
+        xf = x.float()               # statistics and normalization in f32
+        if not self.training:
+            y = (xf - self.mean) * torch.rsqrt(self.var + self.eps)
+            return (y * self.scale + self.bias).to(x.dtype)
+        if mask is None:
+            n = torch.tensor(float(x.shape[0]), device=x.device)
+            mean = xf.mean(0)
+            var = ((xf - mean) ** 2).mean(0)
+        else:
+            m = mask.to(xf.dtype)[:, None]
+            n = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(0) / n
+            var = (((xf - mean) ** 2) * m).sum(0) / n
+        with torch.no_grad():
+            unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+            mo = self.momentum
+            self.mean.mul_(1 - mo).add_(mo * mean)
+            self.var.mul_(1 - mo).add_(mo * unbiased)
+            self.count.add_(1)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale + self.bias).to(x.dtype)
 
 
 def dropout(x, rate: float, *, training: bool, generator=None):
+    """Inverted dropout; the keep mask is drawn from ``generator`` (a
+    ``torch.Generator`` on ``x``'s device), so a run is repeatable."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate

@@ -10,10 +10,10 @@ whose constants live here, one profile per device.
     it and build layouts identical to the JAX package's.
   * ``h100`` — a SPEC-DERIVED ESTIMATE (``calibrated=False``): the v5e
     measurements scaled by the H100 SXM data-sheet ratios (3.35 TB/s HBM,
-    989 TF/s dense bf16).  Nothing in it was measured on an H100.  The
-    windowed-gather and local/stray-split gates of the JAX package are OFF
-    under it: their kernel (``gathered_scatter_rows_sorted``) is not ported,
-    so the port's layouts never enable them.
+    989 TF/s dense bf16).  Nothing in it was measured on an H100.  Its
+    ``row_gather_in_kernel`` is set: a kernel reads a row at any address
+    through L2, so the gather-in-kernel gate (``edge_layout._gwin_decide``)
+    prices no windows, only the row reads.
 
 ``build_edge_layout`` takes an explicit ``profile``; else
 :func:`current_profile` picks by ``torch.cuda.get_device_name()``, and
@@ -40,6 +40,9 @@ class ChipProfile:
     mxu_bf16_flops: float
     # spec memory bandwidth (dense count-block reads)
     hbm_bps: float
+    # a kernel gathers rows at any address itself (GPU: through L2); False
+    # for the TPU, whose gathered kernel needs locality windows
+    row_gather_in_kernel: bool = False
     calibrated: bool = False
     provenance: str = ""
 
@@ -53,7 +56,8 @@ V5E = ChipProfile(
     provenance="the JAX package's TPU v5e profile (measured there)")
 
 
-def _scaled(name: str, hbm: float, mxu_peak: float, note: str) -> ChipProfile:
+def _scaled(name: str, hbm: float, mxu_peak: float, note: str,
+            row_gather_in_kernel: bool) -> ChipProfile:
     """Estimate a device's profile by scaling the v5e measurements: memory
     rates by the HBM ratio, the matrix rate by the peak ratio, the fixed
     gather latency kept."""
@@ -67,12 +71,14 @@ def _scaled(name: str, hbm: float, mxu_peak: float, note: str) -> ChipProfile:
         stream_bps=V5E.stream_bps * r,
         mxu_bf16_flops=V5E.mxu_bf16_flops * m,
         hbm_bps=hbm,
+        row_gather_in_kernel=row_gather_in_kernel,
         calibrated=False,
         provenance=f"ESTIMATE scaled from the v5e profile ({note})")
 
 
 H100 = _scaled("h100", 3.35e12, 989e12,
-               "H100 SXM data sheet: 3.35 TB/s, 989 TF/s dense bf16")
+               "H100 SXM data sheet: 3.35 TB/s, 989 TF/s dense bf16",
+               row_gather_in_kernel=True)
 
 # device-name substring (lower case) -> profile; first match wins
 _PROFILES = (("h100", H100),)

@@ -9,10 +9,16 @@ gather-frequency "hub" nodes off into dense count blocks (:class:`HubDense`).
 The finished arrays become tensors on the requested device; the dense count
 blocks are built there from small index arrays.
 
-Not ported yet, and so always ``None``/``False`` here: the windowed-gather
-metadata (``gwin_*``, ``use_gwin_*``), the local/stray splits (``split_*``)
-and the masked kernel's x-windows (``win_*``).  Their kernels are
-``gathered_scatter_rows_sorted`` and ``masked_scatter_rows_sorted``.
+``gwin`` decides per direction (``use_gwin_r``/``use_gwin_s``, on the
+layout and on each hub tail) whether the aggregation gathers its rows inside
+the ``gathered_scatter_rows_sorted`` kernel instead of through an [E, D]
+message tensor (:func:`_gwin_decide`).  The TPU kernel needed per-chunk
+gather windows; the GPU kernel reads rows at any address, so the window
+arrays (``gwin_lo_*``, ``gwin_nsub_*``) stay ``None`` and ``gwin_w`` 0.
+
+Not ported yet, and so always ``None`` here: the local/stray splits
+(``split_*``, JAX ``_build_loc_split``/``_build_merged_split``) and the
+masked kernel's x-windows (``win_*``, for ``masked_scatter_rows_sorted``).
 Typed (T > 1) hub blocks come with the typed-edge slice.
 """
 
@@ -83,7 +89,8 @@ class EdgeLayout:
     perm_s2r: Optional[torch.Tensor] = None
     perm_r2o: Optional[torch.Tensor] = None
     perm_s2o: Optional[torch.Tensor] = None
-    # masked-kernel x-windows and gather windows: not ported (see module doc)
+    # masked-kernel x-windows (not ported) and the TPU gather windows (no
+    # GPU counterpart): always None here (see module doc)
     win_lo_s: Optional[torch.Tensor] = None
     win_nsub_s: Optional[torch.Tensor] = None
     gwin_lo_r: Optional[torch.Tensor] = None
@@ -116,6 +123,54 @@ def _block_ptr(sorted_keys: np.ndarray, n_pad: int, nb: int) -> np.ndarray:
     blocks = np.asarray(sorted_keys, np.int64) // nb
     bounds = np.arange(0, n_pad // nb + 1)
     return np.searchsorted(blocks, bounds, side="left").astype(np.int32)
+
+
+def _chunk_windows(keys: np.ndarray, mask: np.ndarray, edge_chunk: int,
+                   sentinel: int):
+    """Per-chunk node-id window of ``keys``: (lo [C] 8-aligned, span [C]).
+    Only the TPU profile's gate reads them."""
+    num_chunks = keys.shape[0] // edge_chunk
+    k = keys.reshape(num_chunks, edge_chunk)
+    m = mask.reshape(num_chunks, edge_chunk)
+    valid = m.any(axis=1)
+    lo = np.where(valid, np.where(m, k, np.int64(sentinel)).min(axis=1), 0)
+    lo = lo - lo % 8
+    hi = np.where(valid, np.where(m, k, -1).max(axis=1), -1)
+    span = np.maximum(hi - lo + 1, 0)
+    return lo.astype(np.int64), span.astype(np.int64)
+
+
+def _gwin_decide(keys_r, mask_r, keys_s, mask_s, num_nodes_padded: int,
+                 edge_chunk: int, feat_dim: int, prof: ChipProfile):
+    """Gate of the in-kernel row gather, per direction: ``(use_r, use_s)``.
+    ``keys_*`` are the gather-side ids in each direction's scatter order.
+    The gather route it replaces costs per valid edge a row gather + the
+    [E, D] bf16 message write + the scatter kernel's re-read.
+
+    On a profile that gathers rows inside the kernel (the GPU) the in-kernel
+    route does the same row reads and skips the write and re-read, so it
+    opens wherever there is an edge.  On the TPU profile the JAX package's
+    formula stays (JAX ``_gwin_decide``): sequential window DMAs + one-hot
+    matrix products over the chunks' gather windows, one window width shared
+    by both directions, must beat the gather route by 20%."""
+    d = feat_dim
+    n_valid = int(mask_r.sum())
+    row = prof.gather_fixed_s + d * 2.0 / prof.gather_bps
+    gather = n_valid * (row + d * 2.0 / prof.stream_bps
+                        + d * 2.0 / prof.seq_bps)
+    if prof.row_gather_in_kernel:
+        return (n_valid * row < gather,) * 2
+    spans = [_chunk_windows(k, m, edge_chunk, num_nodes_padded)[1]
+             for k, m in ((keys_r, mask_r), (keys_s, mask_s))]
+    gmax = max(int(sp.max(initial=0)) for sp in spans)
+    gwin_w = min(max(round_up(gmax, 128), 128), 512, num_nodes_padded)
+
+    def windowed(span):
+        nsub = np.where(span > 0, -(-span // gwin_w), 0)
+        return float(nsub.sum()) * (gwin_w * d * 2.0 / prof.seq_bps
+                                    + 2.0 * edge_chunk * gwin_w * d
+                                    / prof.mxu_bf16_flops)
+    return tuple(windowed(sp) * 1.2 < gather for sp in spans)
 
 
 def _per_edge_gather_saving(d: int, prof: ChipProfile) -> float:
@@ -164,7 +219,8 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
                      num_nodes_padded: int, hub_size: int, node_block: int,
                      edge_chunk: int, min_coverage: float, tail_e_pad_to: int,
                      feat_dim_hint: int, sc_hub_size: int, xe_ids,
-                     prof: ChipProfile, device) -> Optional[HubDense]:
+                     gwin: str, prof: ChipProfile,
+                     device) -> Optional[HubDense]:
     """Hub-dense decomposition for one direction.  ``gather_by`` names which
     endpoint the gather indexes (the scatter key is the other one): the
     forward scatters by receiver and gathers senders.
@@ -257,8 +313,8 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
         senders[tail], receivers[tail], num_nodes_padded,
         xe_ids=None if xe_ids is None else xe_ids[tail],
         node_block=node_block, edge_chunk=edge_chunk,
-        e_pad_to=tail_e_pad_to, feat_dim_hint=feat_dim_hint, profile=prof,
-        device=device)
+        e_pad_to=tail_e_pad_to, feat_dim_hint=feat_dim_hint, gwin=gwin,
+        profile=prof, device=device)
     return HubDense(
         hub_ids=torch.from_numpy(hub_ids_pad).to(device), cnt=cnt,
         tail=tail_layout, hub_size=h, coverage=coverage,
@@ -273,6 +329,7 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
                       hub_min_coverage: float = 0.1, e_pad_to: int = 0,
                       hub_tail_e_pad_to: int = 0, feat_dim_hint: int = 768,
                       sc_hub_size: int = 0, num_edge_types: int = 1,
+                      gwin: str = "auto",
                       profile: Optional[ChipProfile] = None,
                       device="cpu") -> EdgeLayout:
     """Host numpy prep, tensors on ``device`` out.  ``senders``/``receivers``
@@ -280,10 +337,14 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
     the sentinel and sorted last.
 
     ``hub_size > 0`` also builds hub-dense decompositions per direction
-    (``hub_r``/``hub_s``).  ``profile`` fixes the break-even model's device
-    profile (default: :func:`~stemgnn_tpu_torch.ops.chip_profile.
-    current_profile`)."""
+    (``hub_r``/``hub_s``).  ``gwin`` sets the in-kernel row gather of each
+    direction, here and on the hub tails: "auto" by :func:`_gwin_decide`,
+    "on" forced (tests), "off" never.  ``profile`` fixes the break-even
+    models' device profile (default: :func:`~stemgnn_tpu_torch.ops.
+    chip_profile.current_profile`)."""
     prof = profile or current_profile()
+    if gwin not in ("auto", "on", "off"):
+        raise ValueError(f"gwin must be auto, on or off, got {gwin!r}")
     senders = np.asarray(senders, np.int32)
     receivers = np.asarray(receivers, np.int32)
     e = senders.shape[0]
@@ -346,6 +407,14 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
     deg = np.zeros(num_nodes_padded, np.float32)
     np.add.at(deg, receivers[edge_mask], 1.0)
 
+    use_gwin = (False, False)
+    if gwin == "on":
+        use_gwin = (True, True)
+    elif gwin == "auto":
+        use_gwin = _gwin_decide(fw["a"], fw["m"], bw["b"], bw["m"],
+                                num_nodes_padded, edge_chunk, feat_dim_hint,
+                                prof)
+
     hub_r = hub_s = None
     if hub_size:
         hub_kw = dict(num_nodes_padded=num_nodes_padded, hub_size=hub_size,
@@ -353,7 +422,7 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
                       min_coverage=hub_min_coverage,
                       tail_e_pad_to=hub_tail_e_pad_to,
                       feat_dim_hint=feat_dim_hint, sc_hub_size=sc_hub_size,
-                      xe_ids=xe_ids, prof=prof, device=device)
+                      xe_ids=xe_ids, gwin=gwin, prof=prof, device=device)
         hub_r = _build_hub_dense(senders, receivers, edge_mask, "sender",
                                  **hub_kw)
         hub_s = _build_hub_dense(senders, receivers, edge_mask, "receiver",
@@ -376,4 +445,23 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
         perm_r2o=t(sorted_to_orig(order_r)),
         perm_s2o=t(sorted_to_orig(order_s)),
         hub_r=hub_r, hub_s=hub_s,
-        node_block=node_block, edge_chunk=edge_chunk)
+        node_block=node_block, edge_chunk=edge_chunk,
+        use_gwin_r=bool(use_gwin[0]), use_gwin_s=bool(use_gwin[1]))
+
+
+def gwin_gate(senders, receivers, num_nodes_padded: int, edge_mask=None,
+              feat_dim_hint: int = 768,
+              profile: Optional[ChipProfile] = None):
+    """``(use_gwin_r, use_gwin_s)`` that ``build_edge_layout(gwin="auto")``
+    would give these edges.  On a profile that gathers rows inside the
+    kernel no layout is built: the gate reads only the edge count."""
+    prof = profile or current_profile()
+    mask = (np.ones(len(senders), bool) if edge_mask is None
+            else np.asarray(edge_mask, bool))
+    if prof.row_gather_in_kernel:
+        return _gwin_decide(None, mask, None, mask, num_nodes_padded, 512,
+                            feat_dim_hint, prof)
+    lay = build_edge_layout(senders, receivers, num_nodes_padded,
+                            edge_mask=mask, feat_dim_hint=feat_dim_hint,
+                            profile=prof)
+    return lay.use_gwin_r, lay.use_gwin_s

@@ -11,8 +11,9 @@ paths behind :func:`sage_aggregate`:
   * :func:`gather_scatter_aggregate` — ``index_select`` + ``index_add_``
     over materialized edge features; any device.
   * ``ops.fused_sage.fused_sage_aggregate`` — the layout path (hub-dense
-    matmuls + the ``scatter_rows_sorted`` kernel), taken whenever the graph
-    carries an ``EdgeLayout``.
+    matmuls + the ``gathered_scatter_rows_sorted`` or ``scatter_rows_sorted``
+    kernel, with its backward), taken whenever the graph carries an
+    ``EdgeLayout``.
 """
 
 from __future__ import annotations
@@ -45,18 +46,18 @@ def gather_scatter_aggregate(x, senders, receivers, edge_feat=None,
 def sage_aggregate(x, senders, receivers, edge_feat=None, edge_mask=None,
                    num_nodes: Optional[int] = None, reduce: str = "mean",
                    relu: bool = True, layout=None, edge_table=None,
-                   bf16_messages: bool = True, scatter=None):
+                   bf16_messages: bool = True, plain: bool = False):
     """Dispatching front end: the fused layout path when ``layout`` is given
     (``edge_table`` [T, D] supplies the per-edge-type features), else the
-    gather + scatter path over ``edge_feat``.  ``scatter`` overrides the
-    fused path's tail scatter (default: the kernel wrapper)."""
+    gather + scatter path over ``edge_feat``.  ``plain`` makes the fused
+    path run its kernels' plain versions."""
     if layout is not None:
         if edge_feat is not None and edge_table is None:
             raise ValueError("the layout path takes edge features as "
                              "edge_table + layout ids, not edge_feat")
         return fused_sage_aggregate(x, layout, edge_table, reduce=reduce,
                                     relu=relu, bf16_messages=bf16_messages,
-                                    scatter=scatter)
+                                    plain=plain)
     return gather_scatter_aggregate(
         x, senders, receivers, edge_feat=edge_feat, edge_mask=edge_mask,
         num_nodes=num_nodes, reduce=reduce, relu=relu)

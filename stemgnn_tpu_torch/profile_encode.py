@@ -104,25 +104,37 @@ def main(argv=None):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
 
-    events = prof.key_averages()
-    # the stage annotations span their kernels: keep them out of the sums
-    kernels = sorted((e for e in events
-                      if _on_device(e) and e.key not in STAGES),
-                     key=_device_us, reverse=True)
-    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
-    print(f"profiled {args.reps} forwards: wall {wall_ms:.3f} ms, device "
-          f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-    print(f"{'device ms/forward':>18}  {'calls':>6}  name")
-    for e in kernels[:args.top]:
-        print(f"{_device_us(e) / 1e3 / args.reps:18.3f}  "
-              f"{e.count // args.reps:6d}  {e.key[:100]}")
+    events = kernel_table(prof, args.reps, wall_ms, args.top, "forward")
     for e in events:
         if _on_device(e) and e.key in STAGES:
             ms = _device_us(e) / 1e3 / args.reps
             print(f"stage {e.key}: device {ms:.3f} ms/forward")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
+
+
+def kernel_table(prof, reps: int, wall_ms: float, top: int, unit: str,
+                 ranges=STAGES):
+    """Print the device busy share of a profiled window of ``reps`` runs and
+    its ``top`` kernels by device time per run; return the events.  The
+    annotation ``ranges`` span their kernels and stay out of the sums."""
+    events = prof.key_averages()
+    kernels = sorted((e for e in events
+                      if _on_device(e) and e.key not in ranges),
+                     key=_device_us, reverse=True)
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    print(f"profiled {reps} {unit}s: wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    print(f"{'device ms/' + unit:>18}  {'calls':>6}  name")
+    for e in kernels[:top]:
+        print(f"{_device_us(e) / 1e3 / reps:18.3f}  "
+              f"{e.count // reps:6d}  {e.key[:100]}")
+    return events
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
 
 
 if __name__ == "__main__":

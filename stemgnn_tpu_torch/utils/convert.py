@@ -5,6 +5,7 @@ The port's modules name their parameters and buffers after the JAX pytree
 paths and keep the same layouts (``Linear.w`` is ``[in, out]`` on both
 sides), so a conversion is a rename: ``layers/#0/lin_l/w`` in a checkpoint
 is ``layers.0.lin_l.w`` in ``Encoder.state_dict()``.  Nothing is transposed.
+A finetune task model adds the ``decoder`` tree (``models.task``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stemgnn_tpu_torch.models.task import TaskModel, task_model_init
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
 
@@ -68,6 +70,16 @@ def from_jax_pytree(params_np: dict, state_np: dict, cfg):
     return enc.eval(), vq.eval()
 
 
+def task_model_from_jax(params_np: dict, state_np: dict, cfg) -> TaskModel:
+    """A :class:`~stemgnn_tpu_torch.models.task.TaskModel` from the JAX
+    ``task_model_init`` trees (``{"encoder", "vq", "decoder"}`` params,
+    ``{"encoder", "vq"}`` state); ``cfg`` is a FinetuneConfig."""
+    enc, vq = from_jax_pytree(params_np, state_np, cfg)
+    model = task_model_init(cfg, enc, vq)
+    _load(model.decoder, params_np["decoder"], {})
+    return model
+
+
 def _module_trees(module: torch.nn.Module):
     param_names = {n for n, _ in module.named_parameters()}
     sd = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
@@ -81,3 +93,10 @@ def to_jax_pytree(encoder: Encoder, vq: VectorQuantize):
     ep, es = _module_trees(encoder)
     vp, vs = _module_trees(vq)
     return {"encoder": ep, "vq": vp}, {"encoder": es, "vq": vs}
+
+
+def task_model_to_jax(model: TaskModel):
+    """``(params, state)`` of a task model in the JAX package's form."""
+    params, state = to_jax_pytree(model.encoder, model.vq)
+    params["decoder"] = _module_trees(model.decoder)[0]
+    return params, state

@@ -1,7 +1,7 @@
 """Guards of the port, each in a fresh interpreter where ``import jax``
 fails: the port and ``chip_smoke.py`` import neither JAX nor the JAX
 package, its entry points refuse to slide to the CPU, and the kernel
-wrapper never answers a non-CPU request with its plain version."""
+wrappers never answer a non-CPU request with their plain versions."""
 
 import os
 import subprocess
@@ -31,7 +31,10 @@ def test_port_and_smoke_import_without_jax_or_the_jax_package():
                if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
                or (m.startswith("jax") and sys.modules[m] is not None)]
         assert not bad, bad
-        assert "stemgnn_tpu_torch.ops.scatter" in names, names
+        for mod in ("ops.scatter", "finetune", "train.finetune_loop",
+                    "models.task", "utils.metrics", "utils.early_stop",
+                    "utils.logger"):
+            assert "stemgnn_tpu_torch." + mod in names, names
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
@@ -54,6 +57,18 @@ def test_infer_without_cuda_exits_nonzero_with_a_clear_message():
         import torch
         assert not torch.cuda.is_available()
         from stemgnn_tpu_torch.infer import main
+        main(sys.argv[1:])
+    """, "--finetune_dataset", "cora_synthetic", "--feat_dim", "8")
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "--device cpu" in proc.stderr
+
+
+def test_finetune_without_cuda_exits_nonzero_with_a_clear_message():
+    proc = _run("""
+        import torch
+        assert not torch.cuda.is_available()
+        from stemgnn_tpu_torch.finetune import main
         main(sys.argv[1:])
     """, "--finetune_dataset", "cora_synthetic", "--feat_dim", "8")
     assert proc.returncode != 0
@@ -90,7 +105,23 @@ def test_kernel_wrapper_raises_instead_of_running_the_plain_version():
             print("raised:", ex)
         else:
             raise SystemExit("load_library succeeded without CUDA")
-        assert sc.launch_counts["scatter_rows_sorted"] == 0
+        # kernel 2: the same on non-CPU tensors, and its build refuses
+        x = torch.empty(128, 8, dtype=torch.bfloat16, device="meta")
+        keys = torch.empty(1, 512, dtype=torch.int32, device="meta")
+        try:
+            sc.gathered_scatter_rows_sorted(keys, lrow, bp, x,
+                                            num_nodes_padded=128)
+        except ValueError as ex:
+            print("raised:", ex)
+        else:
+            raise SystemExit("the wrapper returned a result")
+        try:
+            sc.load_library("gathered_scatter_rows_sorted")
+        except RuntimeError as ex:
+            print("raised:", ex)
+        else:
+            raise SystemExit("load_library succeeded without CUDA")
+        assert set(sc.launch_counts.values()) == {0}, sc.launch_counts
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.count("raised:") == 2
+    assert proc.stdout.count("raised:") == 4

@@ -39,7 +39,7 @@ def _layouts(s, r, n_pad, **kw):
         lj = jax_layout(s, r, n_pad, gwin="off", **kw)
     finally:
         jax_profile.set_profile(None)
-    return lj, build_edge_layout(s, r, n_pad, profile=V5E, **kw)
+    return lj, build_edge_layout(s, r, n_pad, profile=V5E, gwin="off", **kw)
 
 
 def _messages(rng, lay, d, dtype):

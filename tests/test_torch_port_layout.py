@@ -1,7 +1,8 @@
 """The port's host-side layout construction
 (stemgnn_tpu_torch/ops/edge_layout.py) against the JAX package's: with the
 v5e gate profile pinned on both sides, every array the port's
-``build_edge_layout`` gives equals JAX's."""
+``build_edge_layout`` gives equals JAX's, and so do the in-kernel gather
+gates (``gwin``)."""
 
 import dataclasses
 
@@ -81,7 +82,8 @@ def test_layout_arrays_equal_jax(hub_mode):
     elif hub_mode == "auto":
         kw.update(hub_size=2048, sc_hub_size=2048, feat_dim_hint=64)
     ref = _jax_layout(s, r, n_pad, **kw)
-    got = port_el.build_edge_layout(s, r, n_pad, profile=V5E, **kw)
+    got = port_el.build_edge_layout(s, r, n_pad, profile=V5E, gwin="off",
+                                    **kw)
     _assert_same(got, ref)
     if hub_mode != "none":
         assert got.hub_r is not None and got.hub_s is not None
@@ -94,7 +96,8 @@ def test_layout_uniform_graph_with_empty_blocks_equals_jax():
     s = rng.integers(0, 200, 700).astype(np.int32)
     r = rng.integers(0, 200, 700).astype(np.int32)
     ref = _jax_layout(s, r, 512, edge_chunk=256)
-    got = port_el.build_edge_layout(s, r, 512, edge_chunk=256, profile=V5E)
+    got = port_el.build_edge_layout(s, r, 512, edge_chunk=256, profile=V5E,
+                                    gwin="off")
     _assert_same(got, ref)
     # two trailing empty node blocks
     assert got.block_ptr_r[2] == got.block_ptr_r[4] == 700
@@ -117,14 +120,65 @@ def test_h100_profile_is_an_uncalibrated_spec_estimate():
 
 
 def test_layout_leaves_unported_gates_off():
+    """The LocSplit gates stay off and the TPU window arrays unset; the
+    in-kernel gather gate opens on the H100 profile (no card here: the
+    default profile) on the layout and on each hub tail that has edges."""
     rng = np.random.default_rng(3)
     s, r = _power_law(rng, 300, 2000)
     lay = port_el.build_edge_layout(s, r, 384, hub_size=128, sc_hub_size=128,
                                     hub_min_coverage=-1.0)
-    for sub in (lay, lay.hub_r.tail):
-        assert not (sub.use_gwin_r or sub.use_gwin_s)
+    for sub in (lay, lay.hub_r.tail, lay.hub_s.tail):
+        assert sub.use_gwin_r == sub.use_gwin_s == bool(sub.mask_r.any())
         assert sub.split_r is None and sub.split_s is None
-        assert sub.gwin_lo_r is None and sub.win_lo_s is None
+        assert sub.gwin_lo_r is None and sub.gwin_nsub_s is None
+        assert sub.win_lo_s is None and sub.gwin_w == 0
+
+
+def _locality(rng, n=600, e=2400, reach=40):
+    """Edges between nearby node ids: narrow gather windows, where the TPU
+    gate opens."""
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = np.clip(s + rng.integers(-reach, reach + 1, e), 0, n - 1)
+    return s, r.astype(np.int32)
+
+
+@pytest.mark.parametrize("gwin", ["auto", "on"])
+@pytest.mark.parametrize("graph", ["locality", "power_law"])
+def test_gwin_gates_equal_jax_on_the_tpu_profile(graph, gwin):
+    """Under the v5e profile the port's gate keeps the JAX formula: the
+    same decisions on the layout and on the hub tails."""
+    rng = np.random.default_rng(4)
+    s, r = _locality(rng) if graph == "locality" else _power_law(rng, 600,
+                                                                 2400)
+    kw = dict(edge_chunk=128, hub_size=8, hub_min_coverage=-1.0,
+              feat_dim_hint=64)
+    jax_profile.set_profile(jax_profile._V5E)
+    try:
+        ref = jax_el.build_edge_layout(s, r, 640, gwin=gwin, **kw)
+    finally:
+        jax_profile.set_profile(None)
+    got = port_el.build_edge_layout(s, r, 640, gwin=gwin, profile=V5E, **kw)
+    for a, b in ((got, ref), (got.hub_r.tail, ref.hub_r.tail),
+                 (got.hub_s.tail, ref.hub_s.tail)):
+        assert (a.use_gwin_r, a.use_gwin_s) == (b.use_gwin_r, b.use_gwin_s)
+    if graph == "locality":
+        assert got.use_gwin_r and got.use_gwin_s
+
+
+def test_gwin_gate_on_the_h100_opens_wherever_there_is_an_edge():
+    rng = np.random.default_rng(5)
+    s, r = _power_law(rng, 300, 2000)
+    h100 = chip_profile.H100
+    lay = port_el.build_edge_layout(s, r, 384, profile=h100, feat_dim_hint=8)
+    assert lay.use_gwin_r and lay.use_gwin_s
+    assert port_el.gwin_gate(s, r, 384, profile=h100) == (True, True)
+    none = np.zeros(len(s), bool)
+    assert port_el.gwin_gate(s, r, 384, edge_mask=none,
+                             profile=h100) == (False, False)
+    off = port_el.build_edge_layout(s, r, 384, profile=h100, gwin="off")
+    assert not (off.use_gwin_r or off.use_gwin_s)
+    with pytest.raises(ValueError):
+        port_el.build_edge_layout(s, r, 384, gwin="sometimes")
 
 
 def test_typed_hubs_are_not_ported():

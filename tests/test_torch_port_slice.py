@@ -134,7 +134,8 @@ def _encode_both(bf16_messages):
         res_pj = vq(torch.from_numpy(np.array(z_j)))   # same z as JAX's
     n = ds_j.num_nodes
     return (np.asarray(z_j)[:n], res_j, z_p[:n].numpy(),
-            {k: v[:n].numpy() for k, v in res_p.items() if k != "distances"},
+            {k: v[:n].numpy() for k, v in res_p.items()
+             if k not in ("distances", "loss")},
             res_pj, n)
 
 
