@@ -5,13 +5,15 @@
 
 Drives the port's two entry points at arxiv scale (``arxiv_synthetic_pl``:
 169,343 nodes, 2,370,802 edges, D = 768, 2-layer SAGE + 4-head cosine VQ,
-random weights from a seeded generator) and holds every CUDA kernel of their
+random weights from a seeded generator) and the typed-edge link finetune on
+``kg_synthetic`` (11 relation types, at its default size and at WN18RR's
+40,943 entities and 93,003 triples), and holds every CUDA kernel of their
 paths against its plain PyTorch version.  Phases, each announced before it
 starts and timed when it ends:
 
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds both kernels from ``stemgnn_tpu_torch/csrc``, one
-               compiler per source, started together;
+  2. build   — nvcc builds the three kernels from ``stemgnn_tpu_torch/csrc``,
+               one compiler per source, started together;
   3. kernel  — ``scatter_rows_sorted`` vs its plain version: small cases
                (sentinel padding, empty node blocks, every relu/init/scale/
                gate combination, bf16/f32 in and out), then the forward and
@@ -21,17 +23,29 @@ starts and timed when it ends:
                f32 out; empty node blocks; sentinel padding over large
                padded rows; both edge orders), then the forward and backward
                hub tails at arxiv shapes;
-  5. slice   — ``stemgnn_tpu_torch.infer.main`` (encode) from a JAX-format
+  5. kernel3 — ``masked_scatter_rows_sorted`` vs its plain version: small
+               cases (no table, T = 1, 5, 11; bf16/f32 dm and out; empty node
+               blocks; sentinel padding over padded rows of 1e30; senders
+               outside the node block), then the sender-order layout of the
+               arxiv graph with 11 random edge types, timed; kernel 2's xe
+               mode on the same graph's receiver order, timed;
+  6. slice   — ``stemgnn_tpu_torch.infer.main`` (encode) from a JAX-format
                checkpoint in a temporary directory: 2 kernel-2 launches and
                no kernel-1 launch; outputs checked; the same encoder on
                ``gwin="off"`` layouts (2 kernel-1 launches) and through the
                plain versions, ``z`` compared;
-  6. train   — ``stemgnn_tpu_torch.finetune.main``, 3 epochs: 3 kernel-2
+  7. train   — ``stemgnn_tpu_torch.finetune.main``, 3 epochs: 3 kernel-2
                launches per training step and 2 per evaluation, finite
                losses, trainable parameters moved and the frozen VQ not,
                one step's gradients against the plain versions and against
                the ``gwin="off"`` route; epoch and step times, peak memory;
-  7. times   — each kernel, its plain version, its bound and its yardsticks
+  8. typed   — the link finetune on typed edges: ``finetune.main`` on
+               ``kg_synthetic``, then ``run_finetune`` at WN18RR's size, 3
+               epochs each: kernel 3 once per step, kernel 2 (xe mode)
+               twice per step and twice per evaluation, kernel 1 never;
+               finite losses, one step's gradients against the plain
+               versions; step ms, epoch walls, peak memory;
+  9. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
                at the main path's shapes, by CUDA events.
 
 Prints the ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -54,6 +68,7 @@ import torch
 
 from stemgnn_tpu_torch.core.config import (EncoderConfig, FinetuneConfig,
                                            VQConfig)
+from stemgnn_tpu_torch import finetune as finetune_cli
 from stemgnn_tpu_torch.data.registry import load_dataset
 from stemgnn_tpu_torch.finetune import main as finetune_main
 from stemgnn_tpu_torch.infer import main as infer_main
@@ -63,10 +78,11 @@ from stemgnn_tpu_torch.ops import scatter as sc
 from stemgnn_tpu_torch.ops.edge_layout import build_edge_layout
 from stemgnn_tpu_torch.ops.fused_sage import (hub_partials, inv_deg,
                                               table_row, tail_messages)
+from stemgnn_tpu_torch.train.finetune_loop import run_finetune
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
 from stemgnn_tpu_torch.utils.checkpoint import save_pytree
-from stemgnn_tpu_torch.utils.convert import to_jax_pytree
+from stemgnn_tpu_torch.utils.convert import from_jax_pytree, to_jax_pytree
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
 
 DATASET = "arxiv_synthetic_pl"
@@ -77,6 +93,11 @@ EPOCHS = 3
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 K1, K2 = "scatter_rows_sorted", "gathered_scatter_rows_sorted"
+K3 = "masked_scatter_rows_sorted"
+KG = "kg_synthetic"
+KG_TYPES = 11
+# WN18RR's entity and triple counts (the generator keeps its 11 relations)
+WN18RR_ENTITIES, WN18RR_TRIPLES = 40_943, 93_003
 # f32 sums of the same values in another order; bf16 outputs may differ by
 # one bf16 ulp (<= 2^-7 relative) where the f32 values straddle a rounding
 TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2.0 ** -7, 1e-3)}
@@ -166,6 +187,9 @@ def read_counts():
 
 
 def expect_counts(tag, got, want):
+    """``want`` names the kernels expected to launch; every other kernel
+    must not."""
+    want = {k: want.get(k, 0) for k in got}
     print(f"  {tag}: launches {got}", flush=True)
     if got != want:
         raise AssertionError(f"{tag}: expected launches {want}, got {got}")
@@ -293,6 +317,288 @@ def kernel2_small_cases(dev):
             torch.float32, False, True, False, True)
     print(f"  kernel 2: {n_cases} small cases agree with the plain version",
           flush=True)
+
+
+def kernel3_small_cases(dev):
+    """Kernel 3 vs its plain version: no table and 1-, 5- and 11-row
+    tables, bf16/f32 dm and out, empty node blocks, sentinel padding over
+    padded rows of x holding 1e30, and the receiver-order arrays (senders
+    outside the node block, read through the cache)."""
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_cases = 0
+
+    def run(tag, lay, order, x, table, dt, odt):
+        nonlocal n_cases
+        e = lay.num_edges_padded
+        dm = torch.randn(e, x.shape[1], device=dev, generator=gen).to(dt)
+        mask = getattr(lay, "mask_" + order)
+        dm = torch.where(mask[:, None], dm, torch.zeros((), dtype=dt,
+                                                         device=dev))
+        xe = (None if table is None
+              else getattr(lay, "xe_" + order)[None, :])
+        args = (dm, getattr(lay, "lrow_" + order),
+                getattr(lay, "senders_" + order)[None, :],
+                getattr(lay, "block_ptr_" + order), x, table, xe)
+        kw = dict(num_nodes_padded=x.shape[0], out_dtype=odt)
+        check_kernel(tag, sc.masked_scatter_rows_sorted(*args, **kw),
+                     sc.masked_scatter_rows_sorted_ref(*args, **kw), odt,
+                     quiet=True)
+        n_cases += 1
+
+    # uniform graph over 200 of 256 rows (56 empty rows), sentinel-padded
+    # edge slots from a graph's edge padding; padded rows of x hold 1e30
+    n, n_pad, d, e = 200, 256, 64, 700
+    s = np.concatenate([rng.integers(0, n, e), np.zeros(324, np.int64)])
+    r = np.concatenate([rng.integers(0, n, e), np.zeros(324, np.int64)])
+    x = torch.randn(n_pad, d, device=dev, generator=gen)
+    x[n:] = 1.0e30
+    x = x.to(torch.bfloat16)
+    for t_rows in (0, 1, 5, 11):
+        xe_ids = rng.integers(0, max(t_rows, 1), len(s))
+        lay = build_edge_layout(s, r, n_pad, xe_ids=xe_ids,
+                                edge_mask=np.arange(len(s)) < e, device=dev)
+        table = (None if t_rows == 0 else
+                 torch.randn(t_rows, d, device=dev, generator=gen)
+                 .to(torch.bfloat16))
+        for order in ("s", "r"):
+            for dt in (torch.bfloat16, torch.float32):
+                for odt in (torch.float32, torch.bfloat16):
+                    run(f"T={t_rows} order={order} {str(dt)[6:]}->"
+                        f"{str(odt)[6:]}", lay, order, x, table, dt, odt)
+    # a 2000-edge hub sender (many batches in one block), a run of one-edge
+    # nodes, a mid-size hub, fully empty node blocks, at several widths
+    s = np.concatenate([np.zeros(2000, np.int64), np.arange(600),
+                        np.full(300, 1400)])
+    r = rng.permutation(s)
+    xe_ids = rng.integers(0, KG_TYPES, len(s))
+    lay = build_edge_layout(s, r, 2048, xe_ids=xe_ids, device=dev)
+    for d in (8, 96, 768):
+        xs = torch.randn(2048, d, device=dev, generator=gen).to(torch.bfloat16)
+        table = torch.randn(KG_TYPES, d, device=dev,
+                            generator=gen).to(torch.bfloat16)
+        run(f"stress d={d} T=11", lay, "s", xs, table, torch.bfloat16,
+            torch.float32)
+        run(f"stress d={d} no table", lay, "s", xs, None, torch.float32,
+            torch.float32)
+    print(f"  kernel 3: {n_cases} small cases agree with the plain version",
+          flush=True)
+
+
+def kernel3_arxiv(ds, dev):
+    """Kernel 3 on the whole sender-order layout of the arxiv graph with 11
+    random edge types (its full-graph typed backward), and kernel 2's xe
+    mode on the same layout's receiver order (the typed forward without
+    hubs): each checked against its plain version and timed.  Returns
+    ({kernel: max_abs_err}, {kernel: times})."""
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s, r = (np.asarray(a, np.int32) for a in ds.edge_index)
+    n_pad = -(-ds.num_nodes // 128) * 128
+    lay = build_edge_layout(s, r, n_pad,
+                            xe_ids=rng.integers(0, KG_TYPES, len(s)),
+                            num_edge_types=KG_TYPES, device=dev)
+    e_used = int(lay.block_ptr_s[-1])
+    # one CUDA block walks a node block's whole edge range: the longest
+    # range bounds the kernel from below on a power-law graph
+    for order in ("s", "r"):
+        per_block = torch.diff(getattr(lay, "block_ptr_" + order))
+        print(f"  order {order}: node blocks hold up to "
+              f"{int(per_block.max())} edges (mean "
+              f"{float(per_block.float().mean()):.0f})", flush=True)
+    x = torch.randn(n_pad, FEAT_DIM, device=dev, generator=gen).to(
+        torch.bfloat16)
+    table = torch.randn(KG_TYPES, FEAT_DIM, device=dev, generator=gen).to(
+        torch.bfloat16)
+    dm = torch.randn(lay.num_edges_padded, FEAT_DIM, device=dev,
+                     generator=gen, dtype=torch.bfloat16)
+    dm.masked_fill_(~lay.mask_s[:, None], 0)
+    args = (dm, lay.lrow_s, lay.senders_s[None, :], lay.block_ptr_s, x,
+            table, lay.xe_s[None, :])
+    kw = dict(num_nodes_padded=n_pad)
+    tag = f"E_pad={lay.num_edges_padded} D={FEAT_DIM} T={KG_TYPES}"
+    errs = {K3: check_kernel(f"kernel 3 arxiv sender order {tag}",
+                             sc.masked_scatter_rows_sorted(*args, **kw),
+                             sc.masked_scatter_rows_sorted_ref(*args, **kw),
+                             torch.float32)}
+    times = {K3: dict(ms=cuda_ms(lambda: sc.masked_scatter_rows_sorted(
+        *args, **kw), 20))}
+    times[K3]["plain_ms"] = cuda_ms(
+        lambda: sc.masked_scatter_rows_sorted_ref(*args, **kw), 3)
+    # each input read once, the output written once: dm, lrow + sender +
+    # type per edge, x, the f32 out; compare + add per edge and column
+    nbytes = (e_used * (2 * FEAT_DIM + 12) + n_pad * FEAT_DIM * (2 + 4)
+              + KG_TYPES * FEAT_DIM * 2 + lay.block_ptr_s.numel() * 4)
+    times[K3]["bound_ms"], times[K3]["bound_by"] = bound_ms(
+        nbytes, 3 * e_used * FEAT_DIM)
+    # yardstick: index_add_ of the pre-masked f32 gradients
+    rows, ok = sc._edge_rows(lay.lrow_s, lay.block_ptr_s)
+    snd = lay.senders_s.long()[ok]
+    pre = (x.index_select(0, snd).float()
+           + table.index_select(0, lay.xe_s.long()[ok]).float())
+    masked = torch.where(pre > 0, dm[ok].float(), 0.0)
+    del pre
+    rows = rows[ok]
+    times[K3]["library_ms"] = cuda_ms(lambda: torch.zeros(
+        n_pad, FEAT_DIM, device=dev).index_add_(0, rows, masked), 20)
+    del masked, rows, snd, dm, args
+    print(f"  {K3} at E={e_used} D={FEAT_DIM} N_pad={n_pad} T={KG_TYPES}: "
+          f"kernel {times[K3]['ms']:.3f} ms, plain "
+          f"{times[K3]['plain_ms']:.3f} ms, bound "
+          f"{times[K3]['bound_ms']:.3f} ms ({times[K3]['bound_by']}, "
+          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s), library "
+          f"{times[K3]['library_ms']:.3f} ms (index_add_ of the pre-masked "
+          f"f32 dm)", flush=True)
+
+    # kernel 2's xe mode over the whole receiver order: relu, f32 sums, no
+    # epilogue (the typed forward without hubs)
+    args2 = (lay.senders_r[None, :], lay.lrow_r, lay.block_ptr_r, x, table,
+             lay.xe_r[None, :])
+    kw2 = dict(num_nodes_padded=n_pad, relu=True)
+    errs[K2] = check_kernel(f"kernel 2 xe mode arxiv receiver order {tag}",
+                            sc.gathered_scatter_rows_sorted(*args2, **kw2),
+                            sc.gathered_scatter_rows_sorted_ref(*args2,
+                                                                **kw2),
+                            torch.float32)
+    times[K2] = dict(ms=cuda_ms(lambda: sc.gathered_scatter_rows_sorted(
+        *args2, **kw2), 20))
+    times[K2]["plain_ms"] = cuda_ms(
+        lambda: sc.gathered_scatter_rows_sorted_ref(*args2, **kw2), 3)
+    # x read once (every row has an out-edge or not: count the distinct
+    # senders), keys + lrow + type per edge, the f32 out
+    rows2 = int(torch.unique(lay.senders_r[:e_used]).numel())
+    nbytes2 = (e_used * 12 + rows2 * FEAT_DIM * 2 + n_pad * FEAT_DIM * 4
+               + KG_TYPES * FEAT_DIM * 2)
+    times[K2]["bound_ms"], times[K2]["bound_by"] = bound_ms(
+        nbytes2, 2 * e_used * FEAT_DIM)
+    print(f"  {K2} xe mode at E={e_used} D={FEAT_DIM} N_pad={n_pad} "
+          f"T={KG_TYPES}: kernel {times[K2]['ms']:.3f} ms, plain "
+          f"{times[K2]['plain_ms']:.3f} ms, bound "
+          f"{times[K2]['bound_ms']:.3f} ms ({times[K2]['bound_by']})",
+          flush=True)
+    del lay, x, table, args2
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def typed_run(tmp, dev, paths):
+    """The typed-edge link finetune: the CLI on ``kg_synthetic`` at its
+    default size, then ``run_finetune`` at WN18RR's size from the same
+    checkpoint, with launch counts, losses, gradients and times."""
+    argv = ["--finetune_dataset", KG, "--feat_dim", str(FEAT_DIM),
+            "--pretrain_path", tmp, "--pretrain_model_epoch", "50",
+            "--seed", str(SEED), "--epochs", str(EPOCHS), "--repeat", "1"]
+    print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+          flush=True)
+    per_epoch = {K1: 0, K2: 2 + 2, K3: 1}
+    want = {k: EPOCHS * v for k, v in per_epoch.items()}
+    reset_counts()
+    res = finetune_main(argv)
+    paths["typed_cli"] = read_counts()
+    expect_counts(f"{KG} CLI finetune ({EPOCHS} x (train step + eval))",
+                  paths["typed_cli"], want)
+    check_losses(res)
+    check_link_step(res)
+    del res
+
+    # the same flags, the dataset at WN18RR's scale
+    args = finetune_cli.get_args().parse_args(argv)
+    enc, vq = finetune_cli._pretrained(args)
+    ds = load_dataset(KG, feat_dim=FEAT_DIM, seed=SEED,
+                      num_entities=WN18RR_ENTITIES, num_edges=WN18RR_TRIPLES)
+    cfg = finetune_cli.make_config(args, ds.num_classes)
+    encoder, quantizer = from_jax_pytree(
+        {"encoder": enc["params"], "vq": vq["params"]},
+        {"encoder": enc["state"], "vq": vq["state"]}, cfg)
+    print(f"  run_finetune on {KG} with {ds.num_nodes} entities, "
+          f"{ds.num_edges} triples, {KG_TYPES} relations", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_finetune(ds, cfg, pretrained={"encoder": encoder,
+                                            "vq": quantizer},
+                       device=dev, verbose=True)
+    paths["typed"] = read_counts()
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  finetune wall {wall_s:.2f} s ({EPOCHS} epochs); per-epoch "
+          f"wall {['%.3f' % s for s in res['epoch_s']]} s; peak device "
+          f"memory {peak_gb:.2f} GB, {peak_gb - held_gb:.2f} GB above the "
+          f"{held_gb:.2f} GB that earlier phases still held", flush=True)
+    expect_counts(f"WN18RR-scale finetune ({EPOCHS} x (train step + eval))",
+                  paths["typed"], want)
+    check_losses(res)
+    check_link_step(res)
+    model, g, y, mask = res["model"], res["graph"], res["y"], res[
+        "train_mask"]
+    _, train_step, eval_step = res["steps"]
+    opt = torch.optim.AdamW([p for p in model.parameters()
+                             if p.requires_grad], lr=1e-3, weight_decay=0.01)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step_ms = cuda_ms(lambda: train_step(model, opt, mask, g, y, gen), 5)
+    eval_ms = cuda_ms(lambda: eval_step(model, g), 5)
+    print(f"  link training step {step_ms:.3f} ms, evaluation "
+          f"{eval_ms:.3f} ms, by CUDA events", flush=True)
+    path = kernel3_path_case(g.layout, dev)
+    del res, model, g
+    return path
+
+
+def kernel3_path_case(lay, dev):
+    """Kernel 3 at the link finetune's own backward shape (the WN18RR-scale
+    sender-order layout, D = 768, bf16 dm, f32 out) on seeded random
+    values: checked and timed beside its plain version and bound."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_pad, e_used = lay.num_nodes_padded, int(lay.block_ptr_s[-1])
+    x = torch.randn(n_pad, FEAT_DIM, device=dev, generator=gen).to(
+        torch.bfloat16)
+    table = torch.randn(KG_TYPES, FEAT_DIM, device=dev, generator=gen).to(
+        torch.bfloat16)
+    dm = torch.randn(lay.num_edges_padded, FEAT_DIM, device=dev,
+                     generator=gen, dtype=torch.bfloat16)
+    dm.masked_fill_(~lay.mask_s[:, None], 0)
+    args = (dm, lay.lrow_s, lay.senders_s[None, :], lay.block_ptr_s, x,
+            table, lay.xe_s[None, :])
+    kw = dict(num_nodes_padded=n_pad)
+    err = check_kernel(f"kernel 3 at the link path's shape E_pad="
+                       f"{lay.num_edges_padded}",
+                       sc.masked_scatter_rows_sorted(*args, **kw),
+                       sc.masked_scatter_rows_sorted_ref(*args, **kw),
+                       torch.float32)
+    ms = cuda_ms(lambda: sc.masked_scatter_rows_sorted(*args, **kw), 50)
+    plain = cuda_ms(lambda: sc.masked_scatter_rows_sorted_ref(*args, **kw),
+                    10)
+    b_ms, _ = bound_ms(e_used * (2 * FEAT_DIM + 12)
+                       + n_pad * FEAT_DIM * (2 + 4), 3 * e_used * FEAT_DIM)
+    print(f"  {K3} at the link path's shape E={e_used} N_pad={n_pad}: "
+          f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms",
+          flush=True)
+    return dict(path_max_abs_err=err, path_ms=ms, path_plain_ms=plain,
+                path_bound_ms=b_ms)
+
+
+def check_link_step(res):
+    """One link step's launches and gradients against the plain versions,
+    one evaluation's launches, on the run's own layout."""
+    model, g, y, mask = res["model"], res["graph"], res["y"], res[
+        "train_mask"]
+    loss_fn, _, eval_step = res["steps"]
+    reset_counts()
+    g_kernel = step_grads(model, loss_fn, mask, g, y)
+    expect_counts("one link training step", read_counts(), {K2: 2, K3: 1})
+    reset_counts()
+    eval_step(model, g)
+    expect_counts("one link evaluation", read_counts(), {K2: 2})
+    check_grads("the plain versions", g_kernel,
+                step_grads(model, loss_fn, mask, g, y, plain=True))
+
+
+def check_losses(res):
+    losses = [e["loss"] for e in res["epoch_losses"]]
+    print(f"  losses {losses}", flush=True)
+    if len(losses) != EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses}")
 
 
 def arxiv_tail_cases(graph):
@@ -429,9 +735,10 @@ def main():
     with phase("build"):
         t0 = time.perf_counter()
         sc.build(force=True)
-        print(f"  both kernels built in {time.perf_counter() - t0:.2f} s "
-              f"(one nvcc per source, in parallel)", flush=True)
-        for name in (K1, K2):
+        print(f"  {len(sc.KERNELS)} kernels built in "
+              f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in "
+              f"parallel)", flush=True)
+        for name in (K1, K2, K3):
             info = sc.build_info[name]
             print(f"  {name}: {info['seconds']:.2f} s ({info['path']})\n"
                   f"  {info['log']}", flush=True)
@@ -461,6 +768,10 @@ def main():
                 sc.gathered_scatter_rows_sorted(**args, **kw),
                 sc.gathered_scatter_rows_sorted_ref(**args, **kw),
                 torch.float32)
+
+    with phase("kernel3"):
+        kernel3_small_cases(dev)
+        typed_errs, typed_times = kernel3_arxiv(ds, dev)
 
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = tmp_dir.name
@@ -582,6 +893,10 @@ def main():
               f"{step_off_ms:.3f} ms), evaluation {eval_ms:.3f} ms, by CUDA "
               f"events", flush=True)
         del res, model, gt, graph_off
+        torch.cuda.empty_cache()
+
+    with phase("typed"):
+        k3_path = typed_run(tmp, dev, paths)
     tmp_dir.cleanup()
 
     with phase("times"):
@@ -615,10 +930,25 @@ def main():
             "bwd_plain_ms": bwd["plain_ms"], "bwd_bound_ms": bwd["bound_ms"],
             "bwd_library_ms": bwd["library_ms"]}
         if name == K2:
+            xe = typed_times[K2]
             entry.update(replaced_ms=fwd["replaced_ms"],
                          bwd_replaced_ms=bwd["replaced_ms"],
-                         row_walk_bound_ms=fwd["row_walk_bound_ms"])
+                         row_walk_bound_ms=fwd["row_walk_bound_ms"],
+                         xe_max_abs_err=typed_errs[K2], xe_ms=xe["ms"],
+                         xe_plain_ms=xe["plain_ms"],
+                         xe_bound_ms=xe["bound_ms"])
         line.append(entry)
+    k3 = typed_times[K3]
+    line.append({
+        "name": K3, "route": "cuda",
+        "source": f"stemgnn_tpu_torch/csrc/{K3}.cu",
+        "replaces": "stemgnn_tpu/ops/scatter_pallas.py:480",
+        "launches": paths["typed"][K3],
+        "launches_by_path": {p: c[K3] for p, c in paths.items()},
+        "max_abs_err": typed_errs[K3], "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+        **k3_path})
     print(json.dumps({"kernels": line}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(card, flush=True)

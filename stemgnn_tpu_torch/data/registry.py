@@ -1,11 +1,13 @@
 """Dataset registry: name -> loader (counterpart of
 ``stemgnn_tpu/data/registry.py``).
 
-Covers the synthetic node datasets, which need no downloaded files:
-``cora_synthetic``, ``arxiv_synthetic`` and ``arxiv_synthetic_pl`` (the
-power-law arxiv-scale graph: 169,343 nodes, preferential-attachment skew).
-Every other name of the JAX registry raises ``NotImplementedError`` until
-its loader is ported.
+Covers the synthetic datasets that need no downloaded files: the node
+datasets ``cora_synthetic``, ``arxiv_synthetic`` and ``arxiv_synthetic_pl``
+(the power-law arxiv-scale graph: 169,343 nodes, preferential-attachment
+skew) and the link dataset ``kg_synthetic`` (a knowledge graph with 11
+relation types; ``num_entities``/``num_edges`` size it).  Every other name
+of the JAX registry raises ``NotImplementedError`` until its loader is
+ported.
 """
 
 from __future__ import annotations
@@ -43,9 +45,17 @@ def load_dataset(name: str, feat_dim: int = 768, seed: int = 0,
             num_classes=kw.pop("num_classes", 40), feat_dim=feat_dim,
             avg_degree=kw.pop("avg_degree", 14), num_splits=1,
             pref_attach=kw.pop("pref_attach", 1.1), seed=seed, **kw)
+    if name == "kg_synthetic":
+        return synthetic.synthetic_link_dataset(name=name, feat_dim=feat_dim,
+                                                seed=seed, **kw)
+    if name in ("WN18RR", "FB15K237"):
+        raise NotImplementedError(
+            f"dataset {name!r} (a link task) needs the knowledge-graph "
+            f"loader data/kg.py, which is not ported to stemgnn_tpu_torch "
+            f"yet; kg_synthetic is the ported link dataset")
     if name in dataset2task:
         raise NotImplementedError(
             f"dataset {name!r} is not ported to stemgnn_tpu_torch yet; the "
-            f"port loads cora_synthetic, arxiv_synthetic and "
-            f"arxiv_synthetic_pl")
+            f"port loads cora_synthetic, arxiv_synthetic, "
+            f"arxiv_synthetic_pl and kg_synthetic")
     raise KeyError(f"Unknown dataset {name}")

@@ -1,11 +1,12 @@
 """Synthetic text-attributed-graph generators (counterpart of
 ``stemgnn_tpu/data/synthetic.py``).
 
-Only the node-task generator is ported: ``synthetic_node_dataset``, an
-SBM-style citation graph with class-prototype features and reference-style
-splits (Cora: 140 train / 500 val / rest test, 10 splits).  The numpy draws
-are the JAX package's, in the same order, so the same seed gives the same
-arrays in both packages.
+Ported: ``synthetic_node_dataset``, an SBM-style citation graph with
+class-prototype features and reference-style splits (Cora: 140 train /
+500 val / rest test, 10 splits), and ``synthetic_link_dataset``, a typed
+knowledge graph whose relation (one of T edge types) is the edge's label.
+The numpy draws are the JAX package's, in the same order, so the same seed
+gives the same arrays in both packages.
 """
 
 from __future__ import annotations
@@ -106,3 +107,40 @@ def synthetic_node_dataset(name: str = "cora_synthetic", num_nodes: int = 2708,
         name=name, node_text_feat=feats, edge_text_feat=edge_text_feat,
         x=np.arange(num_nodes), xe=xe, edge_index=edge_index, labels=y,
         splits=splits, num_classes=num_classes, num_tasks=1)
+
+
+def synthetic_link_dataset(name: str = "kg_synthetic", num_entities: int = 2000,
+                           num_relations: int = 11, num_edges: int = 12000,
+                           feat_dim: int = 768, noise: float = 0.7,
+                           seed: int = 0) -> TAGDataset:
+    """Relation type is predictable from entity features (each relation links
+    two latent clusters), mirroring relation classification on WN18RR."""
+    rng = np.random.default_rng(seed)
+    num_clusters = max(num_relations, 4)
+    cluster = rng.integers(0, num_clusters, num_entities)
+    protos = rng.standard_normal((num_clusters, feat_dim)).astype(np.float32)
+    feats = protos[cluster] + noise * rng.standard_normal(
+        (num_entities, feat_dim)).astype(np.float32)
+
+    # Symmetric map: midpoint edge embeddings (task/link.py:7-8) are
+    # direction-blind, so the synthetic relation must be too.
+    rel_of_pair = rng.integers(0, num_relations, (num_clusters, num_clusters))
+    rel_of_pair = np.triu(rel_of_pair) + np.triu(rel_of_pair, 1).T
+    src = rng.integers(0, num_entities, num_edges)
+    dst = rng.integers(0, num_entities, num_edges)
+    rel = rel_of_pair[cluster[src], cluster[dst]]
+
+    edge_text_feat = rng.standard_normal(
+        (num_relations, feat_dim)).astype(np.float32)
+    edge_index = np.stack([src, dst])
+
+    e = num_edges
+    perm = rng.permutation(e)
+    n_tr, n_va = int(e * 0.85), int(e * 0.05)
+    split = make_index_splits(e, perm[:n_tr], perm[n_tr:n_tr + n_va],
+                              perm[n_tr + n_va:])
+
+    return TAGDataset(
+        name=name, node_text_feat=feats, edge_text_feat=edge_text_feat,
+        x=np.arange(num_entities), xe=rel, edge_index=edge_index,
+        labels=rel, splits=[split], num_classes=num_relations, num_tasks=1)

@@ -1,19 +1,23 @@
 """Finetune CLI of the port (counterpart of the repo's ``finetune.py``, its
-node branch with ``--batch_size 0``).
+node and link branches with ``--batch_size 0``).
 
 Loads a pretrain checkpoint (``<path>/encoder_<epoch>.npz`` and
 ``vq_<epoch>.npz`` in the JAX package's format, with the architecture from
 ``config.json`` beside them when present), finetunes a task decoder on a
-node dataset's full graph with the VQ frozen, and prints each epoch's loss
-and train/val/test accuracy and the final mean and std over the splits.
+node dataset's full graph (node classification) or a knowledge graph's
+typed edges (link task: relation classification of ``kg_synthetic``'s
+edges) with the VQ frozen, and prints each epoch's loss and train/val/test
+accuracy and the final mean and std over the splits.
 
 Runs on CUDA (hub-dense matmuls + the aggregation kernels, forward and
 backward) unless ``--device cpu`` is given; without CUDA and without
 ``--device cpu`` it exits with an error.  Flag values outside this slice
-(link or graph tasks, minibatches, MoE, chunked eval, model export, no VQ
-or an unfrozen VQ, ...) are refused with an error.
+(graph tasks, the WN18RR/FB15K237 loader, minibatches, MoE, chunked eval,
+model export, no VQ or an unfrozen VQ, ...) are refused with an error.
 
   python -m stemgnn_tpu_torch.finetune --finetune_dataset arxiv_synthetic_pl \\
+      --pretrain_path ckpts/pretrain_model/default --epochs 3 --repeat 1
+  python -m stemgnn_tpu_torch.finetune --finetune_dataset kg_synthetic \\
       --pretrain_path ckpts/pretrain_model/default --epochs 3 --repeat 1
 """
 
@@ -88,11 +92,15 @@ def get_args():
 
 def refusals(args) -> list:
     """What this slice does not cover among the given flag values."""
-    task = dataset2task.get(args.finetune_dataset)
+    name = args.finetune_dataset
+    task = dataset2task.get(name)
     checks = (
-        (task is not None and task != "node",
-         f"{args.finetune_dataset!r} is a {task} task; the port finetunes "
-         f"node tasks so far"),
+        (task == "graph", f"{name!r} is a graph task; the port finetunes "
+                          f"node and link tasks so far"),
+        (name in ("WN18RR", "FB15K237"),
+         f"{name!r} is a link task whose loader (data/kg.py, the reference "
+         f"KG triples) is not ported; kg_synthetic is the ported link "
+         f"dataset"),
         (args.batch_size > 0, "--batch_size > 0: minibatch training is not "
                               "ported; use --batch_size 0 (full batch)"),
         (args.moe, "--moe: MoE-SAGE layers are not ported"),
@@ -162,7 +170,8 @@ def make_config(args, num_classes: int) -> FinetuneConfig:
             orthogonal_reg_weight=args.ortho_reg_weight,
             orthogonal_reg_max_codes=args.ortho_reg_max_codes,
             kmeans_init=True),
-        dataset=args.finetune_dataset, task="node",
+        dataset=args.finetune_dataset,
+        task=dataset2task[args.finetune_dataset],
         epochs=args.finetune_epochs, early_stop=args.early_stop,
         batch_size=args.batch_size, lr=args.finetune_lr,
         repeat=1 if args.finetune_seed is not None else args.repeat,

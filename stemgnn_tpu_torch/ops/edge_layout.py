@@ -16,10 +16,13 @@ message tensor (:func:`_gwin_decide`).  The TPU kernel needed per-chunk
 gather windows; the GPU kernel reads rows at any address, so the window
 arrays (``gwin_lo_*``, ``gwin_nsub_*``) stay ``None`` and ``gwin_w`` 0.
 
-Not ported yet, and so always ``None`` here: the local/stray splits
-(``split_*``, JAX ``_build_loc_split``/``_build_merged_split``) and the
-masked kernel's x-windows (``win_*``, for ``masked_scatter_rows_sorted``).
-Typed (T > 1) hub blocks come with the typed-edge slice.
+Typed graphs (T > 1 edge types, T <= 32) get *typed virtual hubs* on the
+forward side: a hub is a (sender, type) pair (``HubDense.hub_xe``).
+
+Always ``None`` here: the masked kernel's x-windows (``win_*``; the GPU
+``masked_scatter_rows_sorted`` reads the node block's own rows and needs
+none) and the local/stray splits (``split_*``, JAX ``_build_loc_split``/
+``_build_merged_split``, not ported yet).
 """
 
 from __future__ import annotations
@@ -50,12 +53,20 @@ class HubDense:
     block covers tail edges whose *scatter* key is a hub:
 
         out[sc_ids] += sc_cnt @ f(x)        sc_cnt[k, j] = #edges j -> sc_k
+
+    Typed hubs (T in (1, 32] edge types) are (gather node, edge type)
+    pairs: virtual hub k's dense operand row is f(x[hub_ids[k]] +
+    T[hub_xe[k]]).  Forward direction only (the typed relu mask is per
+    edge, so the backward has no per-source factoring) and without a
+    scatter-side block.
     """
     hub_ids: torch.Tensor              # [H_pad] int64 (padding -> row 0)
     cnt: torch.Tensor                  # [N_pad, H_pad] bf16
     tail: "EdgeLayout"                 # sub-layout over the non-hub edges
     sc_ids: Optional[torch.Tensor] = None   # [H2_pad] int64
     sc_cnt: Optional[torch.Tensor] = None   # [H2_pad, N_pad] bf16
+    hub_xe: Optional[torch.Tensor] = None   # [H_pad] int64 type per virtual
+                                            #   hub (typed hubs), else None
     hub_size: int = 2048
     coverage: float = 0.0
     sc_size: int = 0
@@ -89,8 +100,8 @@ class EdgeLayout:
     perm_s2r: Optional[torch.Tensor] = None
     perm_r2o: Optional[torch.Tensor] = None
     perm_s2o: Optional[torch.Tensor] = None
-    # masked-kernel x-windows (not ported) and the TPU gather windows (no
-    # GPU counterpart): always None here (see module doc)
+    # the masked kernel's x-windows and the TPU gather windows have no GPU
+    # counterpart: always None here (see module doc)
     win_lo_s: Optional[torch.Tensor] = None
     win_nsub_s: Optional[torch.Tensor] = None
     gwin_lo_r: Optional[torch.Tensor] = None
@@ -219,30 +230,43 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
                      num_nodes_padded: int, hub_size: int, node_block: int,
                      edge_chunk: int, min_coverage: float, tail_e_pad_to: int,
                      feat_dim_hint: int, sc_hub_size: int, xe_ids,
-                     gwin: str, prof: ChipProfile,
-                     device) -> Optional[HubDense]:
+                     gwin: str, prof: ChipProfile, device,
+                     num_edge_types: int = 1) -> Optional[HubDense]:
     """Hub-dense decomposition for one direction.  ``gather_by`` names which
     endpoint the gather indexes (the scatter key is the other one): the
     forward scatters by receiver and gathers senders.
+
+    Typed mode (``num_edge_types`` in (1, 32] with ``xe_ids``): hubs are
+    (gather node, edge type) pairs, ``hub_xe`` their types; the receiver
+    side and T > 32 get None, and there is no scatter-side block.
 
     With ``min_coverage >= 0`` (auto mode) ``hub_size`` is a cap and the
     break-even model picks H (0 = no hub pays); a negative ``min_coverage``
     bypasses all gating and keeps exactly ``hub_size``."""
     gidx = senders if gather_by == "sender" else receivers
     sidx = receivers if gather_by == "sender" else senders
-    freq = np.bincount(gidx[edge_mask], minlength=num_nodes_padded)
-    h = min(hub_size, num_nodes_padded)
+    typed = num_edge_types > 1 and xe_ids is not None
+    if typed and (num_edge_types > 32 or gather_by != "sender"):
+        return None
+    # the gather key: the node, or the (node, type) pair of a typed hub
+    gkey = (gidx.astype(np.int64) * num_edge_types + xe_ids if typed
+            else gidx)
+    n_keys = num_nodes_padded * (num_edge_types if typed else 1)
+    freq = np.bincount(gkey[edge_mask], minlength=n_keys)
+    h = min(hub_size, n_keys)
     if min_coverage >= 0:
         h = _auto_hub_size(freq, h, num_nodes_padded, feat_dim_hint, prof)
         if h == 0:
             return None
-    hub_ids = np.argsort(-freq, kind="stable")[:h].astype(np.int32)
-    coverage = float(freq[hub_ids].sum()) / max(edge_mask.sum(), 1)
+    hub_keys = np.argsort(-freq, kind="stable")[:h]
+    hub_ids = (hub_keys // num_edge_types if typed else hub_keys
+               ).astype(np.int32)
+    coverage = float(freq[hub_keys].sum()) / max(edge_mask.sum(), 1)
     if min_coverage >= 0 and coverage < min_coverage:
         return None
-    rank = np.full(num_nodes_padded, 2 ** 30, np.int64)
-    rank[hub_ids] = np.arange(h)
-    edge_rank = rank[gidx]
+    rank = np.full(n_keys, 2 ** 30, np.int64)
+    rank[hub_keys] = np.arange(h)
+    edge_rank = rank[gkey]
     is_hub = edge_mask & (edge_rank < h)
     tail = edge_mask & ~is_hub
 
@@ -251,7 +275,8 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
     sc_ids_pad = cnt_sc = None
     h2 = 0
     sc_cov = 0.0
-    if sc_hub_size:
+    if sc_hub_size and not typed:   # typed messages are per (source, type):
+        # the transposed block does not factor
         freq_sc = np.bincount(sidx[tail], minlength=num_nodes_padded)
         h2 = min(sc_hub_size, num_nodes_padded)
         if min_coverage >= 0:
@@ -308,6 +333,10 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
     cnt = _dense_counts(hub_rows, hub_cols, (num_nodes_padded, h_pad), device)
     hub_ids_pad = np.zeros(h_pad, np.int64)
     hub_ids_pad[:h] = hub_ids
+    hub_xe_pad = None
+    if typed:
+        hub_xe_pad = np.zeros(h_pad, np.int64)
+        hub_xe_pad[:h] = hub_keys % num_edge_types
 
     tail_layout = build_edge_layout(
         senders[tail], receivers[tail], num_nodes_padded,
@@ -320,7 +349,9 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
         tail=tail_layout, hub_size=h, coverage=coverage,
         sc_ids=(None if sc_ids_pad is None
                 else torch.from_numpy(sc_ids_pad).to(device)),
-        sc_cnt=cnt_sc, sc_size=h2, sc_coverage=sc_cov)
+        sc_cnt=cnt_sc, sc_size=h2, sc_coverage=sc_cov,
+        hub_xe=(None if hub_xe_pad is None
+                else torch.from_numpy(hub_xe_pad).to(device)))
 
 
 def build_edge_layout(senders, receivers, num_nodes_padded: int,
@@ -353,9 +384,6 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
     if num_nodes_padded % node_block != 0:
         raise ValueError(f"num_nodes_padded {num_nodes_padded} not a multiple "
                          f"of node_block {node_block}")
-    if hub_size and num_edge_types > 1 and xe_ids is not None:
-        raise NotImplementedError(
-            "typed hub blocks (T > 1 edge types) are not ported yet")
     xe_ids = None if xe_ids is None else np.asarray(xe_ids, np.int32)
 
     sentinel = num_nodes_padded
@@ -422,7 +450,8 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
                       min_coverage=hub_min_coverage,
                       tail_e_pad_to=hub_tail_e_pad_to,
                       feat_dim_hint=feat_dim_hint, sc_hub_size=sc_hub_size,
-                      xe_ids=xe_ids, gwin=gwin, prof=prof, device=device)
+                      xe_ids=xe_ids, gwin=gwin, prof=prof, device=device,
+                      num_edge_types=num_edge_types)
         hub_r = _build_hub_dense(senders, receivers, edge_mask, "sender",
                                  **hub_kw)
         hub_s = _build_hub_dense(senders, receivers, edge_mask, "receiver",

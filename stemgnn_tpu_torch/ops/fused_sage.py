@@ -1,11 +1,12 @@
 """Fused SAGE aggregation over an ``EdgeLayout``, forward and backward
-(counterpart of ``stemgnn_tpu/ops/fused_sage.py``, its factored branch).
+(counterpart of ``stemgnn_tpu/ops/fused_sage.py``).
 
-    out[i] = mean_{(j,i) in E} relu(x[j] + t0)
+    out[i] = mean_{(j,i) in E} relu(x[j] + T[xe(j,i)])
 
-With no per-edge term, or a single-row edge-type table ``t0`` (every
-single-edge-text dataset), a message is a pure per-source row
-``f(x_j) = relu(x_j + t0)``, which makes three shortcuts exact:
+**Factored branch.**  With no per-edge term, or a single-row edge-type
+table ``t0`` (every single-edge-text dataset), a message is a pure
+per-source row ``f(x_j) = relu(x_j + t0)``, which makes three shortcuts
+exact:
 
   * the hub-dense split (:func:`_hub_split`, fused_sage.py:278-368 of the JAX
     package): ``cnt @ f(x[hub_ids])`` for gather-side hubs and
@@ -23,9 +24,28 @@ single-edge-text dataset), a message is a pure per-source row
     embeddings) gets a zero gradient.
 
 The hub split and the in-kernel gather need bf16 messages
-(``bf16_messages=True``); with f32 messages the gather route runs.  Typed
-edges (T > 1), ``edge_keep``, ``drop_hash`` and ``drop_mask_layout`` are not
-ported yet and raise.
+(``bf16_messages=True``); with f32 messages the gather route runs.
+
+**Typed branch** (a [T, D] table, T > 1, picked per edge by the layout's
+``xe`` ids; JAX's non-factored branch, fused_sage.py:449-537, 625-667):
+
+  * forward with typed virtual hubs (``HubDense.hub_xe``): the hub
+    messages ``relu(bf16 x[hub_ids] + bf16 T[hub_xe])`` as one dense
+    ``cnt @ xh`` with f32 sums, the tail through kernel 2's ``xe`` mode
+    with the hub sums as ``init`` and 1/deg as ``scale`` (through the
+    messages + kernel 1 where the tail's gather gate is shut);
+  * forward without hubs: kernel 2 with the table and ``xe``, no epilogue,
+    the mean applied outside (``sums * 1/deg``), then the cast; with f32
+    messages, or the gate shut, the messages, relu, kernel 1, the mean;
+  * backward: ``g / max(deg, 1)`` in f32, rounded to the message dtype and
+    gathered per edge in sender order (zero on padding); with bf16 messages
+    ``masked_scatter_rows_sorted`` (kernel 3) recomputes the relu mask
+    ``bf16 x[snd] + bf16 T[xe] > 0`` inside the scatter; with f32 messages
+    the messages are rebuilt and ``pre > 0`` masks the edge gradients
+    before kernel 1.  The table gets a zero gradient.
+
+``relu=False``, ``edge_keep``, ``drop_hash`` and ``drop_mask_layout`` are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -35,6 +55,8 @@ import torch
 from stemgnn_tpu_torch.ops.edge_layout import EdgeLayout, HubDense
 from stemgnn_tpu_torch.ops.scatter import (gathered_scatter_rows_sorted,
                                            gathered_scatter_rows_sorted_ref,
+                                           masked_scatter_rows_sorted,
+                                           masked_scatter_rows_sorted_ref,
                                            scatter_rows_sorted,
                                            scatter_rows_sorted_ref)
 
@@ -121,7 +143,87 @@ def _hub_split(src, hub: HubDense, order: str, layout: EdgeLayout, *,
                  out_dtype=out_dtype, plain=plain)
 
 
+def typed_messages(src, tb, lay: EdgeLayout, order: str):
+    """Layout-order pre-activations ``src[senders] + tb[xe]`` (JAX
+    ``messages``; ``src`` and ``tb`` in the message dtype), zero on padded
+    slots."""
+    senders = lay.senders_r if order == "r" else lay.senders_s
+    xe = lay.xe_r if order == "r" else lay.xe_s
+    mask = lay.mask_r if order == "r" else lay.mask_s
+    pre = (src.index_select(0, senders.clamp(max=src.shape[0] - 1).long())
+           + tb.index_select(0, xe.long()))
+    return torch.where(mask[:, None], pre,
+                       torch.zeros((), dtype=pre.dtype, device=pre.device))
+
+
+def _typed_tail(src, tb, lay: EdgeLayout, num_nodes_padded: int, *,
+                init=None, scale=None, out_dtype, plain: bool):
+    """Receiver-order relu'd typed sums of ``lay``: kernel 2's ``xe`` mode
+    when the gather gate is open and the messages are bf16, else the
+    messages through kernel 1."""
+    kw = dict(num_nodes_padded=num_nodes_padded, relu=True, init=init,
+              scale=scale, out_dtype=out_dtype)
+    if lay.use_gwin_r and src.dtype == torch.bfloat16:
+        gathered = (gathered_scatter_rows_sorted_ref if plain
+                    else gathered_scatter_rows_sorted)
+        return gathered(lay.senders_r[None, :], lay.lrow_r, lay.block_ptr_r,
+                        src, tb, lay.xe_r[None, :], **kw)
+    scatter = scatter_rows_sorted_ref if plain else scatter_rows_sorted
+    return scatter(typed_messages(src, tb, lay, "r"), lay.lrow_r,
+                   lay.block_ptr_r, **kw)
+
+
+def _typed_forward(x, layout, table, reduce, mdtype, plain):
+    """The non-factored forward (JAX ``fwd_impl``, :449-537)."""
+    out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    n_pad = layout.num_nodes_padded
+    src, tb = x.to(mdtype), table.to(mdtype)
+    hub = layout.hub_r
+    if hub is not None and hub.hub_xe is not None \
+            and mdtype == torch.bfloat16:
+        xh = torch.relu(src.index_select(0, hub.hub_ids)
+                        + tb.index_select(0, hub.hub_xe))
+        return _typed_tail(src, tb, hub.tail, n_pad, init=_mm(hub.cnt, xh),
+                           scale=inv_deg(layout) if reduce == "mean"
+                           else None, out_dtype=out_dtype, plain=plain)
+    # no epilogue: the f32 sums, then the mean, then the cast
+    sums = _typed_tail(src, tb, layout, n_pad, out_dtype=torch.float32,
+                       plain=plain)
+    if reduce == "mean":
+        sums = sums * inv_deg(layout)
+    return sums.to(out_dtype)
+
+
+def _typed_backward(g, x, lay, table, reduce, mdtype, plain):
+    """dx of the non-factored aggregation (JAX ``f_bwd``, :625-667): the
+    per-edge gradient ``g / deg`` in sender order, gated by the recomputed
+    relu mask."""
+    if reduce == "mean":
+        g = g.float() * inv_deg(lay)
+    src, tb = x.to(mdtype), table.to(mdtype)
+    zero = torch.zeros((), dtype=mdtype, device=g.device)
+    dm = g.to(mdtype).index_select(
+        0, lay.receivers_s.clamp(max=g.shape[0] - 1).long())
+    dm = torch.where(lay.mask_s[:, None], dm, zero)
+    kw = dict(num_nodes_padded=lay.num_nodes_padded)
+    if mdtype == torch.bfloat16:
+        masked = (masked_scatter_rows_sorted_ref if plain
+                  else masked_scatter_rows_sorted)
+        return masked(dm, lay.lrow_s, lay.senders_s[None, :],
+                      lay.block_ptr_s, src, tb, lay.xe_s[None, :],
+                      out_dtype=x.dtype, **kw)
+    dm = torch.where(typed_messages(src, tb, lay, "s") > 0, dm, zero)
+    scatter = scatter_rows_sorted_ref if plain else scatter_rows_sorted
+    return scatter(dm, lay.lrow_s, lay.block_ptr_s, **kw)
+
+
+def _typed(edge_table) -> bool:
+    return edge_table is not None and edge_table.shape[0] > 1
+
+
 def _forward(x, layout, edge_table, reduce, mdtype, plain):
+    if _typed(edge_table):
+        return _typed_forward(x, layout, edge_table, reduce, mdtype, plain)
     out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     src = x.to(mdtype)
     kw = dict(relu=True, t0=table_row(edge_table, mdtype),
@@ -136,6 +238,9 @@ def _backward(g, x, layout, edge_table, reduce, mdtype, plain):
     """dx of the factored aggregation (JAX ``f_bwd``): the sender-order
     decomposition of ``gp = g / deg`` (rounded to the message dtype) with
     the relu gate ``x (+ t0) > 0`` in the kernels' epilogue."""
+    if _typed(edge_table):
+        return _typed_backward(g, x, layout, edge_table, reduce, mdtype,
+                               plain)
     gp = g.float()
     if reduce == "mean":
         gp = gp * inv_deg(layout)
@@ -151,7 +256,7 @@ def _backward(g, x, layout, edge_table, reduce, mdtype, plain):
 
 
 class _FusedSage(torch.autograd.Function):
-    """The factored aggregation with its factored VJP (JAX ``custom_vjp``
+    """The aggregation with its VJP, factored or typed (JAX ``custom_vjp``
     ``f``/``f_fwd``/``f_bwd``)."""
 
     @staticmethod
@@ -180,16 +285,21 @@ def fused_sage_aggregate(x, layout: EdgeLayout, edge_table=None, *,
                          bf16_messages: bool = True, plain: bool = False,
                          edge_keep=None, drop_hash=None):
     """Aggregation of ``x`` [N_pad, D] over ``layout``, differentiable in
-    ``x``.  ``edge_table`` is None or a single-row [1, D] type table.
+    ``x``.  ``edge_table`` is None, a single-row [1, D] type table, or a
+    [T, D] table whose rows the layout's ``xe`` ids pick per edge.
     ``plain`` runs the kernels' plain versions on the same device (to check
     the kernels against)."""
     if x.shape[0] != layout.num_nodes_padded:
         raise ValueError(f"x has {x.shape[0]} rows, the layout "
                          f"{layout.num_nodes_padded}")
-    if not relu or (edge_table is not None and edge_table.shape[0] != 1):
-        raise NotImplementedError(
-            "only the factored aggregation (relu messages, at most one edge "
-            "type) is ported; typed edges need the masked kernel")
+    if edge_table is not None and (edge_table.dim() != 2
+                                   or edge_table.shape[1] != x.shape[1]):
+        raise ValueError(f"edge_table must be [T, {x.shape[1]}], got "
+                         f"{tuple(edge_table.shape)}")
+    if _typed(edge_table) and (layout.xe_r is None or layout.xe_s is None):
+        raise ValueError("a typed table needs a layout built with xe_ids")
+    if not relu:
+        raise NotImplementedError("relu=False messages are not ported")
     if edge_keep is not None or drop_hash is not None:
         raise NotImplementedError("runtime edge masks (edge_keep, drop_hash, "
                                   "drop_mask_layout) are not ported yet")

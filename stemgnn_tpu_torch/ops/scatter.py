@@ -1,5 +1,5 @@
-"""The two segment-scatter kernels of the fused aggregation, hand-written for
-Hopper, and their plain PyTorch versions.
+"""The three segment-scatter kernels of the fused aggregation, hand-written
+for Hopper, and their plain PyTorch versions.
 
 ``scatter_rows_sorted`` replaces the Pallas TPU kernel
 ``stemgnn_tpu/ops/scatter_pallas.py`` ``scatter_rows_sorted`` (``:252``,
@@ -31,8 +31,22 @@ The TPU kernel's gather windows (``win_lo``, ``win_nsub``, ``win_w``) are
 TPU mechanism and have no counterpart; its merged-LocSplit ``stray_*``
 inputs are not ported and raise.
 
-Both are bound by bytes on the H100 (see the notes in ``csrc/``).  Each
-CUDA block owns one node block x 128 columns with a shared-memory f32
+``masked_scatter_rows_sorted`` replaces ``masked_scatter_rows_sorted``
+(``:480``, ``pallas_call`` at ``:546``), the typed backward's sum of edge
+gradients gated by the recomputed relu mask, over sender-sorted edges::
+
+    out[n] = sum_{e: lrow[e] == n % 128} 1[f32(x[snd[e]]) + f32(T[xe[e]]) > 0]
+                                         * dm[e]
+
+with ``dm`` [E_pad, D] bf16 or f32 (summed as given, in f32), ``senders``
+[1, E_pad] int32 (sentinel N_pad on padded edges), ``x`` [N_pad, D] bf16,
+and ``table`` None (mask ``x > 0``) or [T, D] bf16 with ``xe`` [1, E_pad]
+int32.  No epilogue.  The TPU kernel's x windows (``win_lo``,
+``win_nsub``, ``win_w``) have no counterpart: on the sender-sorted layout
+the gating row is one of the node block's own rows.
+
+All three are bound by bytes on the H100 (see the notes in ``csrc/``).
+Each CUDA block owns one node block x 128 columns with a shared-memory f32
 accumulator that only the owning thread touches, and keeps 16 row loads per
 thread in flight.
 
@@ -68,7 +82,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "scatter_rows_sorted": [_P] * 7 + [_I] * 8 + [_P],
     "gathered_scatter_rows_sorted": [_P] * 10 + [_I] * 8 + [_P],
+    "masked_scatter_rows_sorted": [_P] * 8 + [_I] * 6 + [_P],
 }
+
+# type-table rows the masked kernel stages in shared memory (96 KB for its
+# accumulator and x tile + 256 B a row must fit a block's 227 KB)
+MASKED_MAX_TYPES = 512
 
 # Kernel launches by name; each wrapper adds one per launch of its kernel
 # (and nowhere else), so a caller can show that a run went through it.
@@ -307,6 +326,57 @@ def gathered_scatter_rows_sorted(keys, local_row, block_ptr, x, table=None,
     return out
 
 
+def masked_scatter_rows_sorted(m, local_row, senders, block_ptr, x,
+                               table=None, xe=None, *,
+                               num_nodes_padded: int,
+                               node_block: int = NODE_BLOCK,
+                               out_dtype=torch.float32):
+    """Sum-scatter ``m`` gated per column by ``x[senders] (+ table[xe]) >
+    0`` into [num_nodes_padded, D] (module docstring).  CPU tensors run
+    :func:`masked_scatter_rows_sorted_ref`; CUDA tensors launch the kernel
+    or raise."""
+    if m.dim() != 2 or m.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"m must be [E_pad, D] bf16/f32, got "
+                         f"{tuple(m.shape)} {m.dtype}")
+    e_pad, d = m.shape
+    if senders.shape != (1, e_pad) or senders.dtype != torch.int32:
+        raise ValueError(f"senders must be [1, {e_pad}] int32, got "
+                         f"{tuple(senders.shape)} {senders.dtype}")
+    if x.shape != (num_nodes_padded, d) or x.dtype != torch.bfloat16:
+        raise ValueError(f"x must be [{num_nodes_padded}, {d}] bf16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if (table is None) != (xe is None):
+        raise ValueError("table and xe come together (or neither)")
+    if table is not None:
+        if table.dim() != 2 or table.shape[1] != d \
+                or table.dtype != torch.bfloat16:
+            raise ValueError(f"table must be [T, {d}] bf16, got "
+                             f"{tuple(table.shape)} {table.dtype}")
+        if xe.shape != (1, e_pad) or xe.dtype != torch.int32:
+            raise ValueError(f"xe must be [1, {e_pad}] int32, got "
+                             f"{tuple(xe.shape)} {xe.dtype}")
+    _check_rows(e_pad, local_row, block_ptr, num_nodes_padded, node_block)
+    _check_epilogue(d, num_nodes_padded, None, None, None, out_dtype)
+    _check_device("masked_scatter_rows_sorted", m, dict(
+        m=m, local_row=local_row, senders=senders, block_ptr=block_ptr, x=x,
+        table=table, xe=xe))
+    kw = dict(num_nodes_padded=num_nodes_padded, out_dtype=out_dtype)
+    if m.device.type == "cpu":
+        return masked_scatter_rows_sorted_ref(m, local_row, senders,
+                                              block_ptr, x, table, xe, **kw)
+    t_rows = 0 if table is None else table.shape[0]
+    if t_rows > MASKED_MAX_TYPES:
+        raise ValueError(f"the masked kernel stages at most "
+                         f"{MASKED_MAX_TYPES} type rows, got {t_rows}")
+    out = torch.empty((num_nodes_padded, d), dtype=out_dtype, device=m.device)
+    with torch.cuda.device(m.device):
+        _launch("masked_scatter_rows_sorted", _ptr(m), _ptr(local_row),
+                _ptr(senders), _ptr(block_ptr), _ptr(x), _ptr(table),
+                _ptr(xe), _ptr(out), num_nodes_padded // NODE_BLOCK, e_pad,
+                d, t_rows, _bf16(m), _bf16(out))
+    return out
+
+
 def _edge_rows(local_row, block_ptr):
     """Each edge's output row ``block * 128 + local_row`` and whether it
     counts: a non-sentinel edge inside some block's range."""
@@ -376,3 +446,32 @@ def gathered_scatter_rows_sorted_ref(keys, local_row, block_ptr, x,
                       device=x.device)
     out.index_add_(0, rows[ok], pre.to(torch.bfloat16).float())
     return _epilogue(out, init, scale, gate, out_dtype)
+
+
+def masked_scatter_rows_sorted_ref(m, local_row, senders, block_ptr, x,
+                                   table=None, xe=None, *,
+                                   num_nodes_padded: int,
+                                   out_dtype=torch.float32):
+    """The plain PyTorch version of kernel 3's contract: rebuild each
+    counted edge's pre-activation in f32 from the bf16 sender row (a sender
+    outside [0, N_pad) reads a zero row) and type row, keep ``m`` where it
+    is positive, ``index_add_`` in f32."""
+    rows, ok = _edge_rows(local_row, block_ptr)
+    snd = senders.reshape(-1).long()[ok]
+    inside = (snd >= 0) & (snd < x.shape[0])
+    zero = torch.zeros((), device=x.device)
+    pre = torch.where(inside[:, None],
+                      x.index_select(0, snd.clamp(0, x.shape[0] - 1)).float(),
+                      zero)
+    if table is not None:
+        t = xe.reshape(-1).long()[ok]
+        t_ok = (t >= 0) & (t < table.shape[0])
+        pre = pre + torch.where(
+            t_ok[:, None],
+            table.index_select(0, t.clamp(0, table.shape[0] - 1)).float(),
+            zero)
+    msg = torch.where(pre > 0, m[ok].float(), zero)
+    out = torch.zeros((num_nodes_padded, m.shape[1]), dtype=torch.float32,
+                      device=m.device)
+    out.index_add_(0, rows[ok], msg)
+    return out.to(out_dtype)

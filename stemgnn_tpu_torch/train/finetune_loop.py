@@ -1,6 +1,11 @@
-"""Full-batch node finetune (counterpart of the node branch of
-``stemgnn_tpu/train/finetune_loop.py`` with ``batch_size=0``: ``_split_params``
-:39, ``_make_node_steps`` :100, ``_run_node_like`` :486).
+"""Full-batch node and link finetune (counterpart of the node/link branch
+of ``stemgnn_tpu/train/finetune_loop.py`` with ``batch_size=0``:
+``_split_params`` :39, ``_make_node_steps`` :100, ``_run_node_like`` :486).
+
+A link task (task/link.py:19-48 of the reference) classifies edges: its
+rows are the midpoint edge embeddings ``(z[senders] + z[receivers]) / 2``
+of the graph's edges, with ``graph.edge_mask`` as the row mask, per-edge
+labels and per-edge split masks; a node task's rows are the nodes.
 
 Per split: a fresh task model from copies of the pretrained encoder and VQ
 plus a new decoder (finetune.py:196-205), AdamW (lr, weight decay 0.01, eps
@@ -14,8 +19,8 @@ Jacobian penalty.
 Each epoch is one train step and one evaluation, logged and checked for
 early stopping before the next.  JAX's ``epoch_chunk`` scan (K epochs per
 dispatch, with up to K-1 updates past an early stop) has no counterpart:
-PyTorch dispatches eagerly.  Minibatch training, link and graph tasks, MoE
-and the layer-wise chunked eval are not ported yet.
+PyTorch dispatches eagerly.  Minibatch training, graph tasks, MoE and the
+layer-wise chunked eval are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,15 +61,24 @@ def make_optimizer(trainable: dict, cfg: FinetuneConfig):
                              weight_decay=0.01, eps=1e-8)
 
 
-def _make_node_steps(cfg: FinetuneConfig):
-    """``(loss_fn, train_step, eval_step)`` for the full-batch node task.
-    ``plain`` runs the aggregation kernels' plain versions."""
+def _make_node_steps(cfg: FinetuneConfig, task_kind: str = "node"):
+    """``(loss_fn, train_step, eval_step)`` for the full-batch node or link
+    task.  ``plain`` runs the aggregation kernels' plain versions."""
+
+    def rows(model, graph, generator=None, plain=False):
+        """The task's rows and their mask: nodes, or the midpoints of the
+        graph's edges."""
+        z = encode(model, graph, generator=generator, plain=plain)
+        if task_kind == "link":
+            return (z[graph.senders] + z[graph.receivers]) / 2.0, \
+                graph.edge_mask
+        return z, graph.node_mask
 
     def loss_fn(model, train_mask, graph, y, generator=None, plain=False):
         """Training-mode forward: (loss, {name: loss part})."""
         model.train()
-        z = encode(model, graph, generator=generator, plain=plain)
-        logits, _ = task_logits(model, cfg, z, mask=graph.node_mask)
+        z, row_mask = rows(model, graph, generator, plain)
+        logits, _ = task_logits(model, cfg, z, mask=row_mask)
         act = activation_loss(logits, y, mask=train_mask)
         jac = decoder_jacobian_penalty(model, cfg)
         # the MoE environment regularizer is 0 without MoE layers
@@ -82,11 +96,11 @@ def _make_node_steps(cfg: FinetuneConfig):
         return {k: v.detach() for k, v in parts.items()}
 
     def eval_step(model, graph, plain=False):
-        """Class probabilities [N_pad, C] from the head-mean logits."""
+        """Class probabilities [rows, C] from the head-mean logits."""
         model.eval()
         with torch.no_grad():
-            z = encode(model, graph, plain=plain)
-            logits, _ = task_logits(model, cfg, z, mask=graph.node_mask)
+            z, row_mask = rows(model, graph, plain=plain)
+            logits, _ = task_logits(model, cfg, z, mask=row_mask)
             return torch.softmax(logits.mean(1), dim=-1)
 
     return loss_fn, train_step, eval_step
@@ -94,24 +108,29 @@ def _make_node_steps(cfg: FinetuneConfig):
 
 def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
                  verbose: bool = False):
-    """Finetune ``cfg.repeat`` splits of the node dataset ``ds``.
-    ``pretrained`` is None or ``{"encoder": Encoder, "vq": VectorQuantize}``
-    (copied per split).  Returns the Logger and what the last split used:
-    ``model``, ``graph``, ``y``, ``train_mask``, ``steps``, and per epoch
-    its loss parts (``epoch_losses``) and host seconds (``epoch_s``, each
-    ending in a device sync)."""
-    if cfg.task != "node" or cfg.batch_size != 0:
-        raise NotImplementedError("the port finetunes the node task full "
-                                  "batch (batch_size 0) so far")
+    """Finetune ``cfg.repeat`` splits of the node or link dataset ``ds``
+    (``cfg.task``).  ``pretrained`` is None or ``{"encoder": Encoder, "vq":
+    VectorQuantize}`` (copied per split).  Returns the Logger and what the
+    last split used: ``model``, ``graph``, ``y``, ``train_mask``, ``steps``,
+    and per epoch its loss parts (``epoch_losses``) and host seconds
+    (``epoch_s``, each ending in a device sync)."""
+    task = cfg.task
+    if task not in ("node", "link") or cfg.batch_size != 0:
+        raise NotImplementedError("the port finetunes node and link tasks "
+                                  "full batch (batch_size 0) so far")
     if cfg.eval_chunked or any(cfg.encoder.moe_layer_flags()):
         raise NotImplementedError("chunked eval and MoE layers are not "
                                   "ported yet")
     device = torch.device(device)
-    ds = maybe_reorder_dataset(ds, cfg, "node", device)
+    ds = maybe_reorder_dataset(ds, cfg, task, device)
     graph = fused_full_graph(ds, cfg, device=device)
     if verbose and graph.layout is not None:
-        print(describe_layout(graph.layout), flush=True)
-    n, n_pad = ds.num_nodes, graph.num_nodes_padded
+        t_rows = (1 if graph.edge_table is None
+                  else int(graph.edge_table.shape[0]))
+        print(describe_layout(graph.layout, t_rows), flush=True)
+    # a link task's rows are the edges: labels and split masks per edge
+    n, n_pad = ((ds.num_nodes, graph.num_nodes_padded) if task == "node"
+                else (ds.num_edges, graph.num_edges_padded))
     y_np = np.zeros(n_pad, np.int64)
     y_np[:n] = np.asarray(ds.labels)[:n]
     y = torch.from_numpy(y_np).to(device)
@@ -122,7 +141,7 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
     splits = splits[:cfg.repeat]
 
     logger = Logger()
-    steps = _make_node_steps(cfg)
+    steps = _make_node_steps(cfg, task)
     _, train_step, eval_step = steps
     out = {}
     for idx, split in enumerate(splits):

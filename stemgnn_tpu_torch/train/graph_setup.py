@@ -89,10 +89,13 @@ def fused_full_graph(ds, cfg: FinetuneConfig, device="cuda",
         xe[:e] = np.asarray(ds.xe, np.int32)[:e]
     table = ds.edge_text_feat
     t_rows = 1 if table is None else int(table.shape[0])
-    hub_size = cfg.hub_size if t_rows <= 1 else 0
+    # typed virtual hubs cover T <= 32 (ops.edge_layout HubDense.hub_xe);
+    # the scatter-side block needs per-source messages (T <= 1)
+    hub_size = cfg.hub_size if t_rows <= 32 else 0
     lay = build_edge_layout(s, r, graph.num_nodes_padded, xe_ids=xe,
                             edge_mask=np.arange(e_pad) < e, hub_size=hub_size,
-                            sc_hub_size=cfg.sc_hub_size if hub_size else 0,
+                            sc_hub_size=(cfg.sc_hub_size
+                                         if hub_size and t_rows <= 1 else 0),
                             num_edge_types=t_rows,
                             feat_dim_hint=int(ds.node_text_feat.shape[1]),
                             gwin=gwin, profile=profile, device=device)
@@ -107,10 +110,22 @@ def _route(lay, order: str) -> str:
     return "gathered_scatter_rows_sorted" if use else "scatter_rows_sorted"
 
 
-def describe_layout(lay) -> str:
+def describe_layout(lay, num_edge_types: int = 1) -> str:
     """One line on the layout's hub decomposition, tail size and the kernel
-    each direction's tail runs through."""
+    each direction's tail runs through; on a typed graph
+    (``num_edge_types > 1``) also whether typed hubs were chosen and the
+    backward's kernel."""
     hub = lay.hub_r
+    if num_edge_types > 1:
+        fwd = ("no typed hubs" if hub is None else
+               f"typed hubs {hub.hub_size} (node, type) pairs (coverage "
+               f"{hub.coverage:.4f}), tail {hub.tail.num_edges_padded} "
+               f"padded edges")
+        tail = lay if hub is None else hub.tail
+        return (f"layout: T={num_edge_types} edge types, {fwd}; forward "
+                f"through {_route(tail, 'r')}, backward over "
+                f"{lay.num_edges_padded} padded edges through "
+                f"masked_scatter_rows_sorted")
     if hub is None:
         return (f"layout: no hub block, {lay.num_edges_padded} padded edges "
                 f"through {_route(lay, 'r')} (forward) and "

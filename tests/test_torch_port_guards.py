@@ -33,7 +33,8 @@ def test_port_and_smoke_import_without_jax_or_the_jax_package():
         assert not bad, bad
         for mod in ("ops.scatter", "finetune", "train.finetune_loop",
                     "models.task", "utils.metrics", "utils.early_stop",
-                    "utils.logger"):
+                    "utils.logger", "data.synthetic", "ops.fused_sage",
+                    "ops.edge_layout"):
             assert "stemgnn_tpu_torch." + mod in names, names
         print(len(names))
     """)
@@ -121,7 +122,23 @@ def test_kernel_wrapper_raises_instead_of_running_the_plain_version():
             print("raised:", ex)
         else:
             raise SystemExit("load_library succeeded without CUDA")
+        # kernel 3: the same
+        snd = torch.empty(1, 512, dtype=torch.int32, device="meta")
+        try:
+            sc.masked_scatter_rows_sorted(m.to(torch.bfloat16), lrow, snd,
+                                          bp, x, num_nodes_padded=128)
+        except ValueError as ex:
+            print("raised:", ex)
+        else:
+            raise SystemExit("the wrapper returned a result")
+        try:
+            sc.load_library("masked_scatter_rows_sorted")
+        except RuntimeError as ex:
+            print("raised:", ex)
+        else:
+            raise SystemExit("load_library succeeded without CUDA")
         assert set(sc.launch_counts.values()) == {0}, sc.launch_counts
+        assert len(sc.launch_counts) == 3, sc.launch_counts
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.count("raised:") == 4
+    assert proc.stdout.count("raised:") == 6

@@ -252,12 +252,23 @@ def test_fused_sage_f32_messages_match_jax():
 
 
 def test_fused_sage_rejects_typed_tables():
+    """What the typed aggregation does not take: a typed table on a layout
+    without per-edge type ids, a table of another width, and (not ported
+    yet) relu=False messages and runtime edge masks."""
     rng = np.random.default_rng(10)
     s, r, x = _graph(rng, 100, 300, 128, 8, power_law=False)
+    x = torch.from_numpy(x)
+    untyped = build_edge_layout(s, r, 128, profile=V5E)
+    with pytest.raises(ValueError):
+        fused_sage_aggregate(x, untyped, torch.randn(3, 8))
     lay = build_edge_layout(s, r, 128, xe_ids=rng.integers(0, 3, 300),
                             profile=V5E)
-    with pytest.raises(NotImplementedError):
-        fused_sage_aggregate(torch.from_numpy(x), lay, torch.randn(3, 8))
+    with pytest.raises(ValueError):
+        fused_sage_aggregate(x, lay, torch.randn(3, 4))
+    for kw in (dict(relu=False), dict(edge_keep=torch.ones(300)),
+               dict(drop_hash=(0, 0.1))):
+        with pytest.raises(NotImplementedError):
+            fused_sage_aggregate(x, lay, torch.randn(3, 8), **kw)
 
 
 @pytest.mark.parametrize("reduce", ["mean", "sum"])

@@ -182,7 +182,17 @@ def test_gwin_gate_on_the_h100_opens_wherever_there_is_an_edge():
 
 
 def test_typed_hubs_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        port_el.build_edge_layout(np.arange(10), np.arange(10), 128,
-                                  xe_ids=np.arange(10) % 3, hub_size=128,
-                                  num_edge_types=3)
+    """What of the typed hubs stays unbuilt, as in JAX: a backward-side
+    (gather by receiver) block, the scatter-side block, and any hub for
+    T > 32.  (The forward-side typed hubs themselves are ported and held
+    against JAX in tests/test_torch_port_typed.py.)"""
+    kw = dict(hub_size=128, sc_hub_size=128, hub_min_coverage=-1.0)
+    lay = port_el.build_edge_layout(np.arange(10), np.arange(10), 128,
+                                    xe_ids=np.arange(10) % 3,
+                                    num_edge_types=3, **kw)
+    assert lay.hub_r.hub_xe is not None and lay.hub_r.sc_cnt is None
+    assert lay.hub_s is None
+    wide = port_el.build_edge_layout(np.arange(10), np.arange(10), 128,
+                                     xe_ids=np.arange(10) % 3,
+                                     num_edge_types=33, **kw)
+    assert wide.hub_r is None and wide.hub_s is None
