@@ -20,15 +20,20 @@ starts and timed when it ends:
                backward (gate) tails at arxiv shapes;
   4. kernel2 — ``gathered_scatter_rows_sorted`` vs its plain version: small
                cases (no table, t0, a 5-row xe table; every epilogue; bf16/
-               f32 out; empty node blocks; sentinel padding over large
-               padded rows; both edge orders), then the forward and backward
-               hub tails at arxiv shapes;
+               f32 out; empty node blocks and empty rows under init/scale/
+               gate; sentinel padding over large padded rows; both edge
+               orders; rows longer than the row plan's chunk, which the
+               second pass finishes; widths that leave lanes idle or take
+               the pairs layout), then the forward and backward hub tails
+               at arxiv shapes, with each tail's row plan described;
   5. kernel3 — ``masked_scatter_rows_sorted`` vs its plain version: small
                cases (no table, T = 1, 5, 11; bf16/f32 dm and out; empty node
                blocks; sentinel padding over padded rows of 1e30; senders
-               outside the node block), then the sender-order layout of the
-               arxiv graph with 11 random edge types, timed; kernel 2's xe
-               mode on the same graph's receiver order, timed;
+               that are not their row; split rows; idle lanes; the pairs
+               layout), then the sender-order layout of the arxiv graph
+               with 11 random edge types (its row plan built and timed on
+               the host), timed; kernel 2's xe mode on the same graph's
+               receiver order, timed likewise;
   6. slice   — ``stemgnn_tpu_torch.infer.main`` (encode) from a JAX-format
                checkpoint in a temporary directory: 2 kernel-2 launches and
                no kernel-1 launch; outputs checked; the same encoder on
@@ -48,10 +53,11 @@ starts and timed when it ends:
   9. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
                at the main path's shapes, by CUDA events.
 
-Prints the ``{"kernels": [...]}`` line, the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with
-no result line, on any failure and when no CUDA device is available.  Writes
-nothing into the repository but the kernels' build directory.
+Prints the ``{"kernels": [...]}`` line of this run's measurements, the
+card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``.  Exits non-zero, with no result line, on any failure and
+when no CUDA device is available.  Writes nothing into the repository but
+the kernels' build directory.
 """
 
 import copy
@@ -75,7 +81,7 @@ from stemgnn_tpu_torch.infer import main as infer_main
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.layers import Linear
 from stemgnn_tpu_torch.ops import scatter as sc
-from stemgnn_tpu_torch.ops.edge_layout import build_edge_layout
+from stemgnn_tpu_torch.ops.edge_layout import build_edge_layout, row_plan
 from stemgnn_tpu_torch.ops.fused_sage import (hub_partials, inv_deg,
                                               table_row, tail_messages)
 from stemgnn_tpu_torch.train.finetune_loop import run_finetune
@@ -135,6 +141,32 @@ def card_line():
             check=True).stdout.strip().splitlines()
         return out[0]
     return f"{torch.cuda.get_device_name(0)}, power limit unknown"
+
+
+def ptxas_summary(log):
+    """Registers and spills per compiled function from ``-Xptxas -v``: the
+    range over all template instances, each instance that spills, and the
+    instances the arxiv paths launch (whole rows of 768 columns: ``Li8ELi3E``
+    in the mangled name, and kernel 1)."""
+    funcs, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], 0
+        elif name and "bytes spill stores" in line:
+            spill = int(line.split("bytes stack frame, ")[1].split()[0])
+        elif name and "Used" in line and "registers" in line:
+            funcs.append((name, int(line.split("Used ")[1].split()[0]),
+                          spill))
+            name = None
+    if not funcs:
+        return "    (no ptxas report)"
+    regs = [r for _, r, _ in funcs]
+    lines = [f"    {len(funcs)} functions, {min(regs)}-{max(regs)} registers,"
+             f" {sum(1 for f in funcs if f[2])} spill"]
+    for fn, r, sp in funcs:
+        if sp or "Li8ELi3E" in fn or "scatter_rows_sorted_kernel" in fn:
+            lines.append(f"    {r:4d} registers, {sp:3d} B spilled: {fn}")
+    return "\n".join(lines)
 
 
 def max_err(got, want):
@@ -255,12 +287,14 @@ def kernel1_small_cases(dev):
 
 def kernel2_small_cases(dev):
     """Kernel 2 vs its plain version: every table form and epilogue, both
-    out dtypes, both edge orders, empty blocks, sentinel padding."""
+    out dtypes, both edge orders, empty blocks, sentinel padding, split
+    rows, idle lanes and both column layouts (whole rows, pairs)."""
     rng = np.random.default_rng(1)
     gen = torch.Generator(device=dev).manual_seed(1)
     n_cases = 0
 
-    def run(tag, lay, order, x, table, xe, odt, relu, init, scale, gate):
+    def run(tag, lay, order, x, table, xe, odt, relu, init, scale, gate,
+            plan=None):
         nonlocal n_cases
         n_pad, d = x.shape
         opt = _epilogue_opts(gen, n_pad, d, init, scale, gate,
@@ -269,7 +303,9 @@ def kernel2_small_cases(dev):
         args = (keys[None, :], getattr(lay, "lrow_" + order),
                 getattr(lay, "block_ptr_" + order), x, table, xe)
         kw = dict(num_nodes_padded=n_pad, relu=relu, out_dtype=odt, **opt)
-        check_kernel(tag, sc.gathered_scatter_rows_sorted(*args, **kw),
+        plan = plan or getattr(lay, "plan_" + order)
+        check_kernel(tag,
+                     sc.gathered_scatter_rows_sorted(*args, plan=plan, **kw),
                      sc.gathered_scatter_rows_sorted_ref(*args, **kw), odt,
                      quiet=True)
         n_cases += 1
@@ -303,16 +339,28 @@ def kernel2_small_cases(dev):
                            f"gate={gate:d}")
                     run(tag, lay, order, x, table, xe, odt, relu, init,
                         scale, gate)
-    # hub receivers and empty blocks, at several column counts
+            # rows longer than a 3-edge chunk: most rows split, the second
+            # pass finishes them; the empty rows still get init/scale/gate
+            small = row_plan(getattr(lay, "lrow_" + order),
+                             getattr(lay, "block_ptr_" + order),
+                             keys=(lay.senders_r if order == "r"
+                                   else lay.receivers_s),
+                             xe=getattr(lay, "xe_" + order), chunk=3)
+            run(f"table={name} order={order} chunk=3 (split rows) "
+                f"relu init scale gate", lay, order, x, table, xe,
+                torch.float32, True, True, True, True, plan=small)
+    # hub receivers (rows of 2000 and 300 edges, longer than the chunk) and
+    # empty blocks, at widths that leave lanes idle (8, 96), take the pairs
+    # layout (130) or fill every lane (768)
     r = np.concatenate([np.zeros(2000, np.int64), np.arange(600),
                         np.full(300, 1400)])
     s = rng.permutation(r)
     lay = build_edge_layout(s, r, 2048, device=dev)
-    for d in (8, 96, 768):
+    for d in (8, 96, 130, 768):
         xs = torch.randn(2048, d, device=dev, generator=gen).to(torch.bfloat16)
         t0 = torch.randn(1, d, device=dev, generator=gen).to(torch.bfloat16)
-        run(f"stress d={d} t0 relu init scale", lay, "r", xs, t0, None,
-            torch.float32, True, True, True, False)
+        run(f"stress d={d} t0 relu init scale (split rows)", lay, "r", xs,
+            t0, None, torch.float32, True, True, True, False)
         run(f"stress d={d} sender order gate", lay, "s", xs, None, None,
             torch.float32, False, True, False, True)
     print(f"  kernel 2: {n_cases} small cases agree with the plain version",
@@ -322,13 +370,14 @@ def kernel2_small_cases(dev):
 def kernel3_small_cases(dev):
     """Kernel 3 vs its plain version: no table and 1-, 5- and 11-row
     tables, bf16/f32 dm and out, empty node blocks, sentinel padding over
-    padded rows of x holding 1e30, and the receiver-order arrays (senders
-    outside the node block, read through the cache)."""
+    padded rows of x holding 1e30, the receiver-order arrays (senders that
+    are not their row, read through the cache), split rows, idle lanes and
+    both column layouts (whole rows, pairs)."""
     rng = np.random.default_rng(3)
     gen = torch.Generator(device=dev).manual_seed(3)
     n_cases = 0
 
-    def run(tag, lay, order, x, table, dt, odt):
+    def run(tag, lay, order, x, table, dt, odt, chunk=None):
         nonlocal n_cases
         e = lay.num_edges_padded
         dm = torch.randn(e, x.shape[1], device=dev, generator=gen).to(dt)
@@ -337,11 +386,17 @@ def kernel3_small_cases(dev):
                                                          device=dev))
         xe = (None if table is None
               else getattr(lay, "xe_" + order)[None, :])
-        args = (dm, getattr(lay, "lrow_" + order),
-                getattr(lay, "senders_" + order)[None, :],
+        senders = getattr(lay, "senders_" + order)
+        args = (dm, getattr(lay, "lrow_" + order), senders[None, :],
                 getattr(lay, "block_ptr_" + order), x, table, xe)
+        plan = lay.plan_s
+        if order == "r" or chunk:
+            plan = row_plan(args[1], args[3], senders=senders,
+                            xe=getattr(lay, "xe_" + order),
+                            chunk=chunk or lay.plan_s.chunk)
         kw = dict(num_nodes_padded=x.shape[0], out_dtype=odt)
-        check_kernel(tag, sc.masked_scatter_rows_sorted(*args, **kw),
+        check_kernel(tag,
+                     sc.masked_scatter_rows_sorted(*args, plan=plan, **kw),
                      sc.masked_scatter_rows_sorted_ref(*args, **kw), odt,
                      quiet=True)
         n_cases += 1
@@ -366,14 +421,17 @@ def kernel3_small_cases(dev):
                 for odt in (torch.float32, torch.bfloat16):
                     run(f"T={t_rows} order={order} {str(dt)[6:]}->"
                         f"{str(odt)[6:]}", lay, order, x, table, dt, odt)
-    # a 2000-edge hub sender (many batches in one block), a run of one-edge
-    # nodes, a mid-size hub, fully empty node blocks, at several widths
+            run(f"T={t_rows} order={order} chunk=3 (split rows)", lay,
+                order, x, table, torch.bfloat16, torch.float32, chunk=3)
+    # a 2000-edge hub sender (split over several items), a run of one-edge
+    # nodes, a mid-size hub, fully empty node blocks, at widths that leave
+    # lanes idle (8, 96), take the pairs layout (130) or fill every lane
     s = np.concatenate([np.zeros(2000, np.int64), np.arange(600),
                         np.full(300, 1400)])
     r = rng.permutation(s)
     xe_ids = rng.integers(0, KG_TYPES, len(s))
     lay = build_edge_layout(s, r, 2048, xe_ids=xe_ids, device=dev)
-    for d in (8, 96, 768):
+    for d in (8, 96, 130, 768):
         xs = torch.randn(2048, d, device=dev, generator=gen).to(torch.bfloat16)
         table = torch.randn(KG_TYPES, d, device=dev,
                             generator=gen).to(torch.bfloat16)
@@ -385,11 +443,19 @@ def kernel3_small_cases(dev):
           flush=True)
 
 
+def plan_bytes(plan):
+    return sum(t.numel() * t.element_size() for t in (
+        plan.pos, plan.item_row, plan.item_start, plan.item_slot,
+        plan.split_row, plan.split_ptr, plan.keys, plan.senders, plan.xe)
+        if t is not None)
+
+
 def kernel3_arxiv(ds, dev):
     """Kernel 3 on the whole sender-order layout of the arxiv graph with 11
     random edge types (its full-graph typed backward), and kernel 2's xe
     mode on the same layout's receiver order (the typed forward without
-    hubs): each checked against its plain version and timed.  Returns
+    hubs): each checked against its plain version and timed beside its
+    bound and an ``index_add_`` yardstick.  Returns
     ({kernel: max_abs_err}, {kernel: times})."""
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -399,13 +465,24 @@ def kernel3_arxiv(ds, dev):
                             xe_ids=rng.integers(0, KG_TYPES, len(s)),
                             num_edge_types=KG_TYPES, device=dev)
     e_used = int(lay.block_ptr_s[-1])
-    # one CUDA block walks a node block's whole edge range: the longest
-    # range bounds the kernel from below on a power-law graph
+    # the row plan of one direction, built again on its own to time it
+    t0 = time.perf_counter()
+    plan = row_plan(lay.lrow_s, lay.block_ptr_s, keys=lay.receivers_s,
+                    senders=lay.senders_s, xe=lay.xe_s)
+    plan_s = time.perf_counter() - t0
+    print(f"  row plan of the sender order: {plan_s:.3f} s on the host, "
+          f"{plan_bytes(plan) / 1e6:.1f} MB on the card; {plan.num_items} "
+          f"items of at most {plan.chunk} edges, {plan.num_split} split rows "
+          f"over {plan.num_slots} items", flush=True)
+    del plan
     for order in ("s", "r"):
         per_block = torch.diff(getattr(lay, "block_ptr_" + order))
+        owner = lay.receivers_r if order == "r" else lay.senders_s
+        deg = torch.bincount(owner[:e_used], minlength=n_pad)
         print(f"  order {order}: node blocks hold up to "
               f"{int(per_block.max())} edges (mean "
-              f"{float(per_block.float().mean()):.0f})", flush=True)
+              f"{float(per_block.float().mean()):.0f}); rows up to "
+              f"{int(deg.max())} edges", flush=True)
     x = torch.randn(n_pad, FEAT_DIM, device=dev, generator=gen).to(
         torch.bfloat16)
     table = torch.randn(KG_TYPES, FEAT_DIM, device=dev, generator=gen).to(
@@ -417,12 +494,13 @@ def kernel3_arxiv(ds, dev):
             table, lay.xe_s[None, :])
     kw = dict(num_nodes_padded=n_pad)
     tag = f"E_pad={lay.num_edges_padded} D={FEAT_DIM} T={KG_TYPES}"
-    errs = {K3: check_kernel(f"kernel 3 arxiv sender order {tag}",
-                             sc.masked_scatter_rows_sorted(*args, **kw),
-                             sc.masked_scatter_rows_sorted_ref(*args, **kw),
-                             torch.float32)}
-    times = {K3: dict(ms=cuda_ms(lambda: sc.masked_scatter_rows_sorted(
-        *args, **kw), 20))}
+    want = sc.masked_scatter_rows_sorted_ref(*args, **kw)
+    def k3():
+        return sc.masked_scatter_rows_sorted(*args, plan=lay.plan_s, **kw)
+    errs = {K3: check_kernel(f"kernel 3 arxiv sender order {tag}", k3(),
+                             want, torch.float32)}
+    times = {K3: dict(ms=cuda_ms(k3, 20))}
+    del want
     times[K3]["plain_ms"] = cuda_ms(
         lambda: sc.masked_scatter_rows_sorted_ref(*args, **kw), 3)
     # each input read once, the output written once: dm, lrow + sender +
@@ -442,26 +520,27 @@ def kernel3_arxiv(ds, dev):
     times[K3]["library_ms"] = cuda_ms(lambda: torch.zeros(
         n_pad, FEAT_DIM, device=dev).index_add_(0, rows, masked), 20)
     del masked, rows, snd, dm, args
+    k = times[K3]
     print(f"  {K3} at E={e_used} D={FEAT_DIM} N_pad={n_pad} T={KG_TYPES}: "
-          f"kernel {times[K3]['ms']:.3f} ms, plain "
-          f"{times[K3]['plain_ms']:.3f} ms, bound "
-          f"{times[K3]['bound_ms']:.3f} ms ({times[K3]['bound_by']}, "
-          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s), library "
-          f"{times[K3]['library_ms']:.3f} ms (index_add_ of the pre-masked "
-          f"f32 dm)", flush=True)
+          f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, bound "
+          f"{k['bound_ms']:.3f} ms "
+          f"({k['bound_by']}, {nbytes / 1e9:.3f} GB at 3.35 TB/s), library "
+          f"{k['library_ms']:.3f} ms (index_add_ of the pre-masked f32 dm)",
+          flush=True)
 
     # kernel 2's xe mode over the whole receiver order: relu, f32 sums, no
     # epilogue (the typed forward without hubs)
     args2 = (lay.senders_r[None, :], lay.lrow_r, lay.block_ptr_r, x, table,
              lay.xe_r[None, :])
     kw2 = dict(num_nodes_padded=n_pad, relu=True)
+    want = sc.gathered_scatter_rows_sorted_ref(*args2, **kw2)
+    def k2():
+        return sc.gathered_scatter_rows_sorted(*args2, plan=lay.plan_r,
+                                               **kw2)
     errs[K2] = check_kernel(f"kernel 2 xe mode arxiv receiver order {tag}",
-                            sc.gathered_scatter_rows_sorted(*args2, **kw2),
-                            sc.gathered_scatter_rows_sorted_ref(*args2,
-                                                                **kw2),
-                            torch.float32)
-    times[K2] = dict(ms=cuda_ms(lambda: sc.gathered_scatter_rows_sorted(
-        *args2, **kw2), 20))
+                            k2(), want, torch.float32)
+    times[K2] = dict(ms=cuda_ms(k2, 20))
+    del want
     times[K2]["plain_ms"] = cuda_ms(
         lambda: sc.gathered_scatter_rows_sorted_ref(*args2, **kw2), 3)
     # x read once (every row has an out-edge or not: count the distinct
@@ -471,11 +550,23 @@ def kernel3_arxiv(ds, dev):
                + KG_TYPES * FEAT_DIM * 2)
     times[K2]["bound_ms"], times[K2]["bound_by"] = bound_ms(
         nbytes2, 2 * e_used * FEAT_DIM)
+    # yardstick: index_add_ of the pre-built f32 messages (bf16-rounded)
+    rows, ok = sc._edge_rows(lay.lrow_r, lay.block_ptr_r)
+    msg = torch.relu(
+        x.index_select(0, lay.senders_r.long()[ok]).float()
+        + table.index_select(0, lay.xe_r.long()[ok]).float()
+    ).to(torch.bfloat16).float()
+    rows = rows[ok]
+    times[K2]["library_ms"] = cuda_ms(lambda: torch.zeros(
+        n_pad, FEAT_DIM, device=dev).index_add_(0, rows, msg), 20)
+    del msg, rows
+    k = times[K2]
     print(f"  {K2} xe mode at E={e_used} D={FEAT_DIM} N_pad={n_pad} "
-          f"T={KG_TYPES}: kernel {times[K2]['ms']:.3f} ms, plain "
-          f"{times[K2]['plain_ms']:.3f} ms, bound "
-          f"{times[K2]['bound_ms']:.3f} ms ({times[K2]['bound_by']})",
-          flush=True)
+          f"T={KG_TYPES}: kernel {k['ms']:.3f} ms, plain "
+          f"{k['plain_ms']:.3f} ms, bound "
+          f"{k['bound_ms']:.3f} ms ({k['bound_by']}), library "
+          f"{k['library_ms']:.3f} ms (index_add_ of the pre-built f32 "
+          f"messages)", flush=True)
     del lay, x, table, args2
     torch.cuda.empty_cache()
     return errs, times
@@ -548,7 +639,8 @@ def typed_run(tmp, dev, paths):
 def kernel3_path_case(lay, dev):
     """Kernel 3 at the link finetune's own backward shape (the WN18RR-scale
     sender-order layout, D = 768, bf16 dm, f32 out) on seeded random
-    values: checked and timed beside its plain version and bound."""
+    values: checked and timed beside its plain version, bound and
+    ``index_add_`` yardstick."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_pad, e_used = lay.num_nodes_padded, int(lay.block_ptr_s[-1])
     x = torch.randn(n_pad, FEAT_DIM, device=dev, generator=gen).to(
@@ -561,21 +653,31 @@ def kernel3_path_case(lay, dev):
     args = (dm, lay.lrow_s, lay.senders_s[None, :], lay.block_ptr_s, x,
             table, lay.xe_s[None, :])
     kw = dict(num_nodes_padded=n_pad)
-    err = check_kernel(f"kernel 3 at the link path's shape E_pad="
-                       f"{lay.num_edges_padded}",
-                       sc.masked_scatter_rows_sorted(*args, **kw),
-                       sc.masked_scatter_rows_sorted_ref(*args, **kw),
-                       torch.float32)
-    ms = cuda_ms(lambda: sc.masked_scatter_rows_sorted(*args, **kw), 50)
-    plain = cuda_ms(lambda: sc.masked_scatter_rows_sorted_ref(*args, **kw),
-                    10)
-    b_ms, _ = bound_ms(e_used * (2 * FEAT_DIM + 12)
-                       + n_pad * FEAT_DIM * (2 + 4), 3 * e_used * FEAT_DIM)
+    want = sc.masked_scatter_rows_sorted_ref(*args, **kw)
+    def k3():
+        return sc.masked_scatter_rows_sorted(*args, plan=lay.plan_s, **kw)
+    out = dict(path_max_abs_err=check_kernel(
+        f"kernel 3 at the link path's shape E_pad={lay.num_edges_padded}",
+        k3(), want, torch.float32), path_ms=cuda_ms(k3, 50))
+    out["path_plain_ms"] = cuda_ms(
+        lambda: sc.masked_scatter_rows_sorted_ref(*args, **kw), 10)
+    out["path_bound_ms"] = bound_ms(
+        e_used * (2 * FEAT_DIM + 12) + n_pad * FEAT_DIM * (2 + 4),
+        3 * e_used * FEAT_DIM)[0]
+    # yardstick: index_add_ of the pre-masked f32 gradients
+    rows, ok = sc._edge_rows(lay.lrow_s, lay.block_ptr_s)
+    pre = (x.index_select(0, lay.senders_s.long()[ok]).float()
+           + table.index_select(0, lay.xe_s.long()[ok]).float())
+    masked = torch.where(pre > 0, dm[ok].float(), 0.0)
+    rows = rows[ok]
+    out["path_library_ms"] = cuda_ms(lambda: torch.zeros(
+        n_pad, FEAT_DIM, device=dev).index_add_(0, rows, masked), 50)
     print(f"  {K3} at the link path's shape E={e_used} N_pad={n_pad}: "
-          f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms",
-          flush=True)
-    return dict(path_max_abs_err=err, path_ms=ms, path_plain_ms=plain,
-                path_bound_ms=b_ms)
+          f"kernel {out['path_ms']:.3f} ms, plain "
+          f"{out['path_plain_ms']:.3f} ms, bound {out['path_bound_ms']:.3f} "
+          f"ms, library {out['path_library_ms']:.3f} ms (index_add_ of the "
+          f"pre-masked f32 dm)", flush=True)
+    return out
 
 
 def check_link_step(res):
@@ -606,8 +708,9 @@ def arxiv_tail_cases(graph):
     forward hub tail of layer 1 (receiver order, relu, t0, the hub partial
     sums as init, 1/deg as scale) and the backward hub tail (sender order,
     gp = g / deg in bf16, the hub partial sums of gp as init, the relu gate
-    bf16(x) + t0).  Returns the keyword sets of each kernel's two
-    launches."""
+    bf16(x) + t0).  Returns each kernel's two launches as (arguments of
+    the kernel and its plain version, keywords of both, keywords of the
+    kernel alone: kernel 2's row plan)."""
     lay = graph.layout
     if lay.hub_r is None or lay.hub_s is None:
         raise AssertionError("the arxiv-scale layout has no hub blocks")
@@ -629,14 +732,16 @@ def arxiv_tail_cases(graph):
                    init=hub_partials(gp, lay.hub_s, None, relu=False),
                    gate=src + t0, out_dtype=torch.float32)
     k1 = {"fwd": (dict(m=tail_messages(src, ft, t0), local_row=ft.lrow_r,
-                       block_ptr=ft.block_ptr_r), fwd_epi),
+                       block_ptr=ft.block_ptr_r), fwd_epi, {}),
           "bwd": (dict(m=tail_messages(gp, bt, None, "s"),
                        local_row=bt.lrow_s, block_ptr=bt.block_ptr_s),
-                  bwd_epi)}
+                  bwd_epi, {})}
     k2 = {"fwd": (dict(keys=ft.senders_r[None, :], local_row=ft.lrow_r,
-                       block_ptr=ft.block_ptr_r, x=src, table=t0), fwd_epi),
+                       block_ptr=ft.block_ptr_r, x=src, table=t0), fwd_epi,
+                  dict(plan=ft.plan_r)),
           "bwd": (dict(keys=bt.receivers_s[None, :], local_row=bt.lrow_s,
-                       block_ptr=bt.block_ptr_s, x=gp), bwd_epi)}
+                       block_ptr=bt.block_ptr_s, x=gp), bwd_epi,
+                  dict(plan=bt.plan_s))}
     return k1, k2
 
 
@@ -740,8 +845,11 @@ def main():
               f"parallel)", flush=True)
         for name in (K1, K2, K3):
             info = sc.build_info[name]
-            print(f"  {name}: {info['seconds']:.2f} s ({info['path']})\n"
-                  f"  {info['log']}", flush=True)
+            with open(info["path"] + ".ptxas.log", "w") as f:
+                f.write(info["log"])
+            print(f"  {name}: {info['seconds']:.2f} s ({info['path']}; "
+                  f"the compiler's report beside it, .ptxas.log)\n"
+                  f"{ptxas_summary(info['log'])}", flush=True)
             sc.load_library(name)
 
     with phase("kernel"):
@@ -752,7 +860,7 @@ def main():
         print(f"  {describe_layout(graph.layout)}", flush=True)
         k1_cases, k2_cases = arxiv_tail_cases(graph)
         errs = {}
-        for direction, (args, kw) in k1_cases.items():
+        for direction, (args, kw, _) in k1_cases.items():
             errs[(K1, direction)] = check_kernel(
                 f"kernel 1 arxiv {direction} tail E_pad="
                 f"{args['m'].shape[0]} D={FEAT_DIM}",
@@ -761,11 +869,15 @@ def main():
 
     with phase("kernel2"):
         kernel2_small_cases(dev)
-        for direction, (args, kw) in k2_cases.items():
+        for direction, (args, kw, plan) in k2_cases.items():
+            p = plan["plan"]
+            print(f"  row plan of the {direction} tail: {p.num_items} items "
+                  f"of at most {p.chunk} edges, {p.num_split} split rows "
+                  f"over {p.num_slots} items", flush=True)
             errs[(K2, direction)] = check_kernel(
                 f"kernel 2 arxiv {direction} tail E_pad="
                 f"{args['keys'].shape[1]} D={FEAT_DIM}",
-                sc.gathered_scatter_rows_sorted(**args, **kw),
+                sc.gathered_scatter_rows_sorted(**args, **kw, **plan),
                 sc.gathered_scatter_rows_sorted_ref(**args, **kw),
                 torch.float32)
 
@@ -907,9 +1019,9 @@ def main():
                 (K2, k2_cases, sc.gathered_scatter_rows_sorted,
                  sc.gathered_scatter_rows_sorted_ref)):
             row = {}
-            for direction, (args, kw) in cases.items():
-                row[direction] = time_case(name, direction, args, kw, fn,
-                                           ref)
+            for direction, (args, kw, extra) in cases.items():
+                row[direction] = time_case(name, direction, args, kw, extra,
+                                           fn, ref)
             kernels.append(dict(row, name=name))
     k1_path = "encode_gwin_off"
     line = []
@@ -936,7 +1048,8 @@ def main():
                          row_walk_bound_ms=fwd["row_walk_bound_ms"],
                          xe_max_abs_err=typed_errs[K2], xe_ms=xe["ms"],
                          xe_plain_ms=xe["plain_ms"],
-                         xe_bound_ms=xe["bound_ms"])
+                         xe_bound_ms=xe["bound_ms"],
+                         xe_library_ms=xe["library_ms"])
         line.append(entry)
     k3 = typed_times[K3]
     line.append({
@@ -958,7 +1071,7 @@ def main():
     return 0
 
 
-def time_case(name, direction, args, kw, fn, ref):
+def time_case(name, direction, args, kw, extra, fn, ref):
     """Times of one real launch: the kernel, its plain version, its bound,
     a library yardstick and, for kernel 2, the route it replaces (gather +
     kernel 1 on the same tail)."""
@@ -967,7 +1080,7 @@ def time_case(name, direction, args, kw, fn, ref):
     bp, lrow = args["block_ptr"], args["local_row"]
     e_used = int(bp[-1])
     live = lrow.reshape(-1)[:e_used] < 128
-    ms = cuda_ms(lambda: fn(**args, **kw), 20)
+    ms = cuda_ms(lambda: fn(**args, **kw, **extra), 20)
     plain = cuda_ms(lambda: ref(**args, **kw), 5)
     # each input read once, each output written once: the epilogue's init
     # (f32), scale or gate, out (f32), block_ptr, and the edge stream

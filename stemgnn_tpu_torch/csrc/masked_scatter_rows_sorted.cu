@@ -14,16 +14,16 @@
 // rebuilt the pre-activation from bf16 one-hot products with f32
 // accumulation, which is exactly the f32 sum of the two bf16 values tested
 // here.  lrow == 128 (the sentinel) marks padded edges, whose sender is the
-// sentinel N_pad: such an edge loads nothing, so x[N_pad] is never read.  A
-// sender outside [0, N_pad) on a live edge reads as a zero row, as the TPU
-// kernel's windows give it.  dm is summed as given (bf16 or f32); the TPU
-// kernel rounded an f32 dm to bf16 for its matrix unit.
+// sentinel N_pad: they are not in the plan, so x[N_pad] is never read.  A
+// sender outside [0, N_pad) on a counted edge reads as a zero row, as the
+// TPU kernel's windows give it.  dm is summed as given (bf16 or f32); the
+// TPU kernel rounded an f32 dm to bf16 for its matrix unit.
 //
 // The TPU kernel streamed each edge chunk's sender rows from sequential
 // x windows (win_lo, win_nsub, win_w) into one-hot matrix products.  In the
 // sender-sorted layout lrow is the sender mod 128, so the row that gates an
-// edge is one of its node block's own 128 output rows: the kernel stages
-// that x tile once, and takes no window arrays.
+// edge is its output row: the kernel holds that x row in registers and
+// takes no window arrays.
 //
 // Bound on the H100: bytes.  Each dm value is used in one compare and one
 // add, far below the ~295 operations per byte at which the tensor cores
@@ -31,217 +31,190 @@
 // once: (E*(2D [bf16 dm] + 12 [lrow, snd, xe]) + N_pad*D*2 [x]
 // + N_pad*D*4 [f32 out]) / 3.35 TB/s; dm dominates.
 //
-// Design, shared with scatter_rows_sorted.cu and
-// gathered_scatter_rows_sorted.cu: one CUDA block owns one 128-row node
-// block x one 128-column slice of D; each of its 64 threads owns two
-// adjacent columns for all 128 rows.  Its f32 accumulator ([128][64] float2,
-// 64 KB), its columns of the block's x tile ([128][64] bf16x2, 32 KB) and
-// of the type table ([T][64] bf16x2) sit in shared memory, and no other
-// thread touches them: no atomics, no barriers, a deterministic sum.  The
-// thread walks the block's edge range kUnroll edges at a time; each batch's
-// lrow, sender and type load one batch ahead, then all kUnroll dm loads are
-// issued (a warp reads 128 or 256 contiguous bytes of a row), then the
-// gated adds.  With ~97 KB of shared memory two blocks fit on an SM.
+// Design: the row walk of row_walk.cuh.  The host plan (RowPlan) hands the
+// kernel each counted edge's layout position (dm keeps the layout's sender
+// order, so dm[pos] is one full row read per edge), sender and type in
+// output-row order.  One warp walks one work item of at most RowPlan.chunk
+// edges of one output row with the row's own x row in registers, its f32
+// sums in registers, and writes the row once; a row longer than the chunk
+// is split over several items and finished by the second pass.  An edge
+// whose sender is not its row (no layout builds one; the contract allows
+// it) reads x[snd] through the cache.  The type table is read through L1.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_walk.cuh"
 
 namespace {
 
-constexpr int kNodeBlock = 128;             // rows per node block (layout)
-constexpr int kThreads = 64;                // threads per CUDA block
-constexpr int kCols = 2 * kThreads;         // columns per CUDA block
-constexpr int kUnroll = 16;                 // dm loads in flight
+namespace rw = row_walk;
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ __nv_bfloat162 raw2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const __nv_bfloat162*>(p);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
-}
-
-__device__ __forceinline__ void store2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
-}
-
-// One batch of kUnroll edges' indices: local row (-1 when the edge does not
-// count), sender and type row.  Loaded a batch ahead of its use.
-struct EdgeBatch {
-  int row[kUnroll];
-  int snd[kUnroll];
-  int type[kUnroll];
+struct Args {
+  const void* dm;             // [E_pad, d] in layout order
+  const int32_t* pos;         // [E_cnt] plan order -> layout position
+  const int32_t* snd;         // [E_cnt] senders in plan order
+  const int32_t* types;       // [E_cnt] xe in plan order, or NULL
+  const int32_t* item_row;
+  const int32_t* item_start;
+  const int32_t* item_slot;
+  const void* split_row;
+  const void* split_ptr;
+  const bf16* x;
+  const bf16* table;
+  void* out;
+  float* partials;
+  int n_items, n_split, n_pad, d, t_rows;
 };
 
-template <bool kTyped>
-__device__ __forceinline__ void load_batch(EdgeBatch& eb, int base, int end,
-                                           const int32_t* __restrict__ lrow,
-                                           const int32_t* __restrict__ snd,
-                                           const int32_t* __restrict__ xe) {
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int e = base + u;
-    const bool in = e < end;
-    const int r = in ? __ldg(lrow + e) : kNodeBlock;
-    eb.row[u] = (r >= 0 && r < kNodeBlock) ? r : -1;
-    // every slot below end is a valid array entry (padding holds the
-    // sentinel), so sender and type load beside lrow, not after it
-    eb.snd[u] = in ? __ldg(snd + e) : -1;
-    if (kTyped) eb.type[u] = in ? __ldg(xe + e) : -1;
-  }
-}
+template <bool kTyped, typename MsgT, typename OutT, int Vec, int NV, int U,
+          int kMinBlocks>
+__global__ void __launch_bounds__(rw::kThreads, kMinBlocks)
+masked_rows_kernel(const Args a) {
+  const long long item = rw::warp_item(a.n_items);
+  if (item < 0) return;
+  const rw::Lane<Vec, NV> ln(a.d);
+  const int lane = threadIdx.x & 31;
+  const long long row = __ldg(a.item_row + item);
+  const int start = __ldg(a.item_start + item);
+  const int end = __ldg(a.item_start + item + 1);
+  const int slot = __ldg(a.item_slot + item);
+  const long long d = a.d;
+  const MsgT* dm = static_cast<const MsgT*>(a.dm);
 
-template <bool kTyped, typename MsgT, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-masked_scatter_rows_sorted_kernel(
-    const MsgT* __restrict__ dm, const int32_t* __restrict__ lrow,
-    const int32_t* __restrict__ snd, const int32_t* __restrict__ block_ptr,
-    const __nv_bfloat16* __restrict__ x,
-    const __nv_bfloat16* __restrict__ table,
-    const int32_t* __restrict__ xe, OutT* __restrict__ out, int e_pad,
-    int n_pad, int d, int t_rows) {
-  extern __shared__ float2 smem[];
-  float2* acc = smem;                                   // [128][kThreads]
-  __nv_bfloat162* xs = reinterpret_cast<__nv_bfloat162*>(
-      smem + kNodeBlock * kThreads);                    // [128][kThreads]
-  __nv_bfloat162* ts = xs + kNodeBlock * kThreads;      // [t_rows][kThreads]
-  const int tid = threadIdx.x;
-  const int col = blockIdx.y * kCols + 2 * tid;
-  if (col >= d) return;                     // d is even: both columns or none
-  const long long b = blockIdx.x;
-  const long long row0 = b * kNodeBlock;
-  // this thread's columns of the block's x tile and of the type table
-  for (int r = 0; r < kNodeBlock; ++r) {
-    acc[r * kThreads + tid] = make_float2(0.f, 0.f);
-    xs[r * kThreads + tid] = raw2(x + (row0 + r) * d + col);
-  }
-  if (kTyped) {
-    for (int t = 0; t < t_rows; ++t)
-      ts[t * kThreads + tid] = raw2(table + static_cast<long long>(t) * d +
-                                    col);
+  float acc[NV][Vec];
+  rw::Vals<bf16, Vec> xo[NV];                 // the output row's own x row
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+#pragma unroll
+    for (int i = 0; i < Vec; ++i) acc[c][i] = 0.f;
+    if (ln.has[c] && start < end) xo[c].load(a.x + row * d + ln.col[c]);
+    else xo[c].zero();
   }
 
-  const int start = block_ptr[b];
-  const int end = min(block_ptr[b + 1], e_pad);
-  EdgeBatch cur, nxt;
-  load_batch<kTyped>(nxt, start, end, lrow, snd, xe);
-  for (int base = start; base < end; base += kUnroll) {
-    cur = nxt;
-    // the next batch's indices load while this batch's dm rows do
-    if (base + kUnroll < end)
-      load_batch<kTyped>(nxt, base + kUnroll, end, lrow, snd, xe);
-    float2 g[kUnroll];
+  for (int base = start; base < end; base += 32) {
+    const int n_e = min(32, end - base);
+    // 32 edges' indices, one coalesced read each; passed round by shuffles
+    const int my_pos = lane < n_e ? __ldg(a.pos + base + lane) : 0;
+    const int my_snd = lane < n_e ? __ldg(a.snd + base + lane) : -1;
+    const int my_type =
+        (kTyped && lane < n_e) ? __ldg(a.types + base + lane) : -1;
+    for (int j = 0; j < n_e; j += U) {
+      rw::Vals<MsgT, Vec> g[U][NV];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      g[u] = cur.row[u] >= 0
-                 ? load2(dm + static_cast<long long>(base + u) * d + col)
-                 : make_float2(0.f, 0.f);
-    }
+      for (int u = 0; u < U; ++u) {
+        const long long p = __shfl_sync(rw::kFull, my_pos, (j + u) & 31);
+        const bool live = j + u < n_e;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (cur.row[u] < 0) continue;
-      // the gating row: the block's own tile on the sender-sorted layout,
-      // else a read through the cache, zero outside [0, N_pad)
-      const long long s = cur.snd[u];
-      float2 pre;
-      if (s >= row0 && s < row0 + kNodeBlock)
-        pre = __bfloat1622float2(xs[(s - row0) * kThreads + tid]);
-      else if (s >= 0 && s < n_pad)
-        pre = load2(x + s * d + col);
-      else
-        pre = make_float2(0.f, 0.f);
-      if (kTyped) {
-        const int t = cur.type[u];
-        if (t >= 0 && t < t_rows) {
-          const float2 tr = __bfloat1622float2(ts[t * kThreads + tid]);
-          pre.x += tr.x;
-          pre.y += tr.y;
+        for (int c = 0; c < NV; ++c) {
+          if (live && ln.has[c]) g[u][c].load(dm + p * d + ln.col[c]);
+          else g[u][c].zero();
         }
       }
-      float2& a = acc[cur.row[u] * kThreads + tid];
-      if (pre.x > 0.f) a.x += g[u].x;
-      if (pre.y > 0.f) a.y += g[u].y;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long s = __shfl_sync(rw::kFull, my_snd, (j + u) & 31);
+        const int t = __shfl_sync(rw::kFull, my_type, (j + u) & 31);
+        if (j + u >= n_e) continue;
+        const bool tin = kTyped && t >= 0 && t < a.t_rows;
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          if (!ln.has[c]) continue;
+          // the gating row: the output row's own on the sender-sorted
+          // layout, else a read through the cache, zero outside [0, N_pad)
+          rw::Vals<bf16, Vec> xs;
+          if (s == row) xs = xo[c];
+          else if (s >= 0 && s < a.n_pad) xs.load(a.x + s * d + ln.col[c]);
+          else xs.zero();
+          rw::Vals<bf16, Vec> tr;
+          if (tin) tr.load(a.table + t * d + ln.col[c]);
+          else tr.zero();
+#pragma unroll
+          for (int i = 0; i < Vec; ++i) {
+            const float pre = kTyped ? xs[i] + tr[i] : xs[i];
+            if (pre > 0.f) acc[c][i] += g[u][c][i];
+          }
+        }
+      }
     }
   }
-
-  for (int r = 0; r < kNodeBlock; ++r)
-    store2(out + (row0 + r) * d + col, acc[r * kThreads + tid]);
+  rw::finish_item<OutT, Vec, NV>(acc, ln, row, slot, a.d, nullptr, 0,
+                                 nullptr, nullptr, 0,
+                                 static_cast<OutT*>(a.out), a.partials);
 }
 
-template <bool kTyped, typename MsgT, typename OutT>
-cudaError_t launch(const void* dm, const void* lrow, const void* snd,
-                   const void* block_ptr, const void* x, const void* table,
-                   const void* xe, void* out, int num_blocks, int e_pad,
-                   int d, int t_rows, cudaStream_t stream) {
-  auto kernel = masked_scatter_rows_sorted_kernel<kTyped, MsgT, OutT>;
-  const int smem = kNodeBlock * kThreads * sizeof(float2) +
-                   (kNodeBlock + (kTyped ? t_rows : 0)) * kThreads *
-                       sizeof(__nv_bfloat162);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <bool kTyped, typename MsgT, typename OutT, int Vec, int NV, int U,
+          int kMinBlocks>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  if (a.n_items > 0)
+    masked_rows_kernel<kTyped, MsgT, OutT, Vec, NV, U, kMinBlocks>
+        <<<rw::grid_for(a.n_items, a.d, 32 * Vec * NV), rw::kThreads, 0,
+           stream>>>(a);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(num_blocks, (d + kCols - 1) / kCols);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const MsgT*>(dm), static_cast<const int32_t*>(lrow),
-      static_cast<const int32_t*>(snd),
-      static_cast<const int32_t*>(block_ptr),
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(table),
-      static_cast<const int32_t*>(xe), static_cast<OutT*>(out), e_pad,
-      num_blocks * kNodeBlock, d, t_rows);
-  return cudaGetLastError();
+  return rw::launch_split_pass<OutT, Vec, NV>(
+      a.split_row, a.split_ptr, a.partials, a.n_split, a.d, nullptr, 0,
+      nullptr, nullptr, 0, static_cast<OutT*>(a.out), stream);
+}
+
+// Whole rows: one dm row in flight a warp (U = 1) and no register cap
+// (kMinBlocks 1), chosen on the H100 with stemgnn_tpu_torch/tune_row_walk.py,
+// which builds other values with -D: the registers a deeper unroll costs
+// buy more as warps an SM.
+#ifndef K3_UNROLL
+#define K3_UNROLL 1
+#endif
+#ifndef K3_MIN_BLOCKS
+#define K3_MIN_BLOCKS 1
+#endif
+template <bool kTyped, typename MsgT, typename OutT>
+cudaError_t launch_cols(const Args& a, int col_mode, cudaStream_t stream) {
+  switch (col_mode) {
+    case rw::kFullRow:
+      return launch<kTyped, MsgT, OutT, 8, 3, K3_UNROLL, K3_MIN_BLOCKS>(
+          a, stream);
+    case rw::kPairs:
+      return launch<kTyped, MsgT, OutT, 2, 3, 4, 1>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename MsgT, typename OutT>
-cudaError_t launch_table(const void* dm, const void* lrow, const void* snd,
-                         const void* block_ptr, const void* x,
-                         const void* table, const void* xe, void* out,
-                         int num_blocks, int e_pad, int d, int t_rows,
-                         cudaStream_t stream) {
-  if (table)
-    return launch<true, MsgT, OutT>(dm, lrow, snd, block_ptr, x, table, xe,
-                                    out, num_blocks, e_pad, d, t_rows,
-                                    stream);
-  return launch<false, MsgT, OutT>(dm, lrow, snd, block_ptr, x, table, xe,
-                                   out, num_blocks, e_pad, d, 0, stream);
+cudaError_t launch_table(const Args& a, int col_mode, cudaStream_t stream) {
+  if (a.table) return launch_cols<true, MsgT, OutT>(a, col_mode, stream);
+  return launch_cols<false, MsgT, OutT>(a, col_mode, stream);
 }
 
 }  // namespace
 
-// Plain C entry for ctypes.  dm [e_pad, d] (bf16 if dm_bf16 else f32),
-// lrow, snd [e_pad] int32, block_ptr [num_blocks + 1] int32, x [N_pad, d]
-// bf16 with N_pad = 128 * num_blocks, table [t_rows, d] bf16 with xe
-// [e_pad] int32, or both NULL, out [N_pad, d] (bf16 if out_bf16 else f32).
-// d must be even, all arrays contiguous, and the shared memory of
-// 96 KB + t_rows * 256 B must fit a block (t_rows <= 512).  Returns the
-// cudaError_t of the launch (0 = success).
+// Plain C entry for ctypes.  dm [e_pad, d] (bf16 if dm_bf16 else f32) in
+// layout order, pos, senders and types [E_cnt] int32 in plan order (types
+// NULL without a table), the plan's item_row, item_slot [n_items],
+// item_start [n_items + 1], split_row [n_split] and split_ptr [n_split + 1]
+// int32, x [n_pad, d] bf16, table [t_rows, d] bf16 or NULL, out [n_pad, d]
+// (bf16 if out_bf16 else f32), partials [RowPlan.num_slots, d] f32 scratch
+// (NULL when n_split is 0).  col_mode is a row_walk::ColMode whose vector
+// width divides d and the pointers' alignment.  Launches the walk, then the
+// second pass over the split rows; returns the first cudaError_t (0 =
+// success).
 extern "C" int masked_scatter_rows_sorted_launch(
-    const void* dm, const void* lrow, const void* snd, const void* block_ptr,
-    const void* x, const void* table, const void* xe, void* out,
-    int num_blocks, int e_pad, int d, int t_rows, int dm_bf16, int out_bf16,
+    const void* dm, const void* pos, const void* senders, const void* types,
+    const void* item_row, const void* item_start, const void* item_slot,
+    const void* split_row, const void* split_ptr, const void* x,
+    const void* table, void* out, void* partials, int n_items, int n_split,
+    int n_pad, int d, int t_rows, int dm_bf16, int out_bf16, int col_mode,
     void* stream) {
+  const Args a{dm, static_cast<const int32_t*>(pos),
+               static_cast<const int32_t*>(senders),
+               static_cast<const int32_t*>(types),
+               static_cast<const int32_t*>(item_row),
+               static_cast<const int32_t*>(item_start),
+               static_cast<const int32_t*>(item_slot), split_row, split_ptr,
+               static_cast<const bf16*>(x), static_cast<const bf16*>(table),
+               out, static_cast<float*>(partials), n_items, n_split, n_pad,
+               d, table ? t_rows : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dm_bf16 && out_bf16)
-    return launch_table<__nv_bfloat16, __nv_bfloat16>(
-        dm, lrow, snd, block_ptr, x, table, xe, out, num_blocks, e_pad, d,
-        t_rows, s);
-  if (dm_bf16)
-    return launch_table<__nv_bfloat16, float>(dm, lrow, snd, block_ptr, x,
-                                              table, xe, out, num_blocks,
-                                              e_pad, d, t_rows, s);
-  if (out_bf16)
-    return launch_table<float, __nv_bfloat16>(dm, lrow, snd, block_ptr, x,
-                                              table, xe, out, num_blocks,
-                                              e_pad, d, t_rows, s);
-  return launch_table<float, float>(dm, lrow, snd, block_ptr, x, table, xe,
-                                    out, num_blocks, e_pad, d, t_rows, s);
+  if (dm_bf16 && out_bf16) return launch_table<bf16, bf16>(a, col_mode, s);
+  if (dm_bf16) return launch_table<bf16, float>(a, col_mode, s);
+  if (out_bf16) return launch_table<float, bf16>(a, col_mode, s);
+  return launch_table<float, float>(a, col_mode, s);
 }

@@ -23,6 +23,10 @@ Always ``None`` here: the masked kernel's x-windows (``win_*``; the GPU
 ``masked_scatter_rows_sorted`` reads the node block's own rows and needs
 none) and the local/stray splits (``split_*``, JAX ``_build_loc_split``/
 ``_build_merged_split``, not ported yet).
+
+Port-only fields: ``plan_r``/``plan_s``, the :class:`RowPlan` of each
+direction (the row walk of the GPU kernels 2 and 3), on every layout and
+every hub tail.
 """
 
 from __future__ import annotations
@@ -35,6 +39,132 @@ import torch
 
 from stemgnn_tpu_torch.core.graph import round_up
 from stemgnn_tpu_torch.ops.chip_profile import ChipProfile, current_profile
+
+# Edges per work item of the row walk at most: a longer row is cut into
+# consecutive items whose f32 partial sums a second pass adds in order.
+ROW_CHUNK = 256
+
+
+@dataclasses.dataclass
+class RowPlan:
+    """The row walk of ``gathered_scatter_rows_sorted`` and
+    ``masked_scatter_rows_sorted`` on the GPU over one direction of a
+    layout, built once per graph on the host (:func:`row_plan`).
+
+    The counted edges (``local_row`` in [0, 128) and inside their node
+    block's ``block_ptr`` range) in a stable order by output row ``block *
+    128 + local_row``: inside a row they keep the layout's order, so an
+    unsplit row is summed in the order of the plain version's
+    ``index_add_``.  Work item ``i`` is output row ``item_row[i]`` and plan
+    positions ``[item_start[i], item_start[i + 1])``, at most ``chunk`` of
+    them; every output row has at least one item (an empty row an empty
+    one), so every row gets its epilogue.  A row longer than ``chunk`` is
+    *split*: its items write f32 partial sums to slots ``item_slot`` (-1 on
+    the items of unsplit rows), and the second pass sums split row
+    ``split_row[k]``'s slots ``[split_ptr[k], split_ptr[k + 1])`` in item
+    order and applies the epilogue."""
+    pos: torch.Tensor                  # [E_cnt] int32 layout position
+    item_row: torch.Tensor             # [I] int32
+    item_start: torch.Tensor           # [I + 1] int32
+    item_slot: torch.Tensor            # [I] int32
+    split_row: torch.Tensor            # [S] int32
+    split_ptr: torch.Tensor            # [S + 1] int32
+    keys: Optional[torch.Tensor] = None     # [E_cnt] int32 keys[pos]
+    senders: Optional[torch.Tensor] = None  # [E_cnt] int32 senders[pos]
+    xe: Optional[torch.Tensor] = None       # [E_cnt] int32 xe[pos]
+    chunk: int = ROW_CHUNK
+    num_slots: int = 0
+    # the arrays it was built from, each with its version counter then; the
+    # kernel wrappers refuse a plan that other arrays are passed beside
+    sources: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def num_items(self) -> int:
+        return self.item_row.shape[0]
+
+    @property
+    def num_split(self) -> int:
+        return self.split_row.shape[0]
+
+    def built_from(self, name: str, t) -> bool:
+        """Whether ``t`` is (a view of) the unchanged array ``name`` that
+        the plan was built from; both None counts as a match."""
+        src = self.sources.get(name)
+        if src is None or t is None:
+            return src is None and t is None
+        base, version = src
+        return (t.device == base.device and t.data_ptr() == base.data_ptr()
+                and t.numel() == base.numel() and base._version == version)
+
+
+def _plan_arrays(local_row: np.ndarray, block_ptr: np.ndarray, chunk: int):
+    """numpy work of :func:`row_plan`: (pos, item_row, item_start,
+    item_slot, split_row, split_ptr), all int32."""
+    lrow = np.asarray(local_row).reshape(-1).astype(np.int64)
+    bp = np.asarray(block_ptr).astype(np.int64)
+    n_pad = (bp.shape[0] - 1) * 128
+    pos = np.arange(lrow.shape[0], dtype=np.int64)
+    # the plain version's rule (ops.scatter._edge_rows)
+    blk = np.searchsorted(bp, pos, side="right") - 1
+    ok = (blk >= 0) & (pos < bp[-1]) & (lrow >= 0) & (lrow < 128)
+    rows = blk[ok] * 128 + lrow[ok]
+    order = np.argsort(rows, kind="stable")
+    pos = pos[ok][order]
+    deg = np.bincount(rows, minlength=n_pad)
+    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    n_it = np.maximum(1, -(-deg // chunk))
+    item_row = np.repeat(np.arange(n_pad), n_it)
+    first = np.concatenate([[0], np.cumsum(n_it)[:-1]])
+    k = np.arange(item_row.shape[0]) - np.repeat(first, n_it)
+    item_start = np.concatenate([row_ptr[item_row] + k * chunk,
+                                 [pos.shape[0]]])
+    split = n_it > 1
+    in_split = split[item_row]
+    item_slot = np.full(item_row.shape[0], -1, np.int64)
+    item_slot[in_split] = np.arange(int(in_split.sum()))
+    split_row = np.nonzero(split)[0]
+    split_ptr = np.concatenate([[0], np.cumsum(n_it[split])])
+    return tuple(a.astype(np.int32) for a in (pos, item_row, item_start,
+                                              item_slot, split_row,
+                                              split_ptr))
+
+
+def row_plan(local_row, block_ptr, keys=None, senders=None, xe=None, *,
+             chunk: int = ROW_CHUNK) -> RowPlan:
+    """The :class:`RowPlan` of one direction: ``local_row`` [1, E_pad] and
+    ``block_ptr`` [N_pad/128 + 1] int32 tensors, and the per-edge arrays
+    the kernels read in row order (``keys`` for kernel 2, ``senders`` for
+    kernel 3, ``xe`` for either), each [E_pad] or [1, E_pad] int32.  Built
+    with numpy on the host; the plan's tensors live on ``local_row``'s
+    device."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    arrays = dict(local_row=local_row, block_ptr=block_ptr, keys=keys,
+                  senders=senders, xe=xe)
+    host = {k: None if t is None else t.detach().cpu().numpy()
+            for k, t in arrays.items()}
+    plan = _plan_from_numpy(host, chunk, local_row.device)
+    plan.sources = {k: (t, t._version) for k, t in arrays.items()
+                    if t is not None}
+    return plan
+
+
+def _plan_from_numpy(host: dict, chunk: int, device) -> RowPlan:
+    pos, item_row, item_start, item_slot, split_row, split_ptr = \
+        _plan_arrays(host["local_row"], host["block_ptr"], chunk)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def permuted(name):
+        a = host.get(name)
+        return None if a is None else t(
+            np.asarray(a).reshape(-1)[pos].astype(np.int32))
+    return RowPlan(pos=t(pos), item_row=t(item_row), item_start=t(item_start),
+                   item_slot=t(item_slot), split_row=t(split_row),
+                   split_ptr=t(split_ptr), keys=permuted("keys"),
+                   senders=permuted("senders"), xe=permuted("xe"),
+                   chunk=chunk, num_slots=int(split_ptr[-1]))
 
 
 @dataclasses.dataclass
@@ -118,6 +248,11 @@ class EdgeLayout:
     gwin_w: int = 0
     use_gwin_r: bool = False
     use_gwin_s: bool = False
+    # the GPU row walk of each direction (port only, no JAX counterpart):
+    # receiver order with keys = senders_r, sender order with keys =
+    # receivers_s and the senders; each with its direction's xe
+    plan_r: Optional[RowPlan] = None
+    plan_s: Optional[RowPlan] = None
 
     @property
     def num_edges_padded(self) -> int:
@@ -461,21 +596,42 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
         return None if a is None else torch.from_numpy(
             np.ascontiguousarray(a)).to(device)
 
-    return EdgeLayout(
+    host = dict(lrow_r=lrow(fw["b"], fw["m"]),
+                block_ptr_r=_block_ptr(fw["b"], num_nodes_padded, node_block),
+                lrow_s=lrow(bw["a"], bw["m"]),
+                block_ptr_s=_block_ptr(bw["a"], num_nodes_padded, node_block))
+    lay = EdgeLayout(
         senders_r=t(fw["a"]), receivers_r=t(fw["b"]), xe_r=t(fw["xe"]),
-        mask_r=t(fw["m"]),
-        block_ptr_r=t(_block_ptr(fw["b"], num_nodes_padded, node_block)),
-        lrow_r=t(lrow(fw["b"], fw["m"])),
+        mask_r=t(fw["m"]), block_ptr_r=t(host["block_ptr_r"]),
+        lrow_r=t(host["lrow_r"]),
         senders_s=t(bw["a"]), receivers_s=t(bw["b"]), xe_s=t(bw["xe"]),
-        mask_s=t(bw["m"]),
-        block_ptr_s=t(_block_ptr(bw["a"], num_nodes_padded, node_block)),
-        lrow_s=t(lrow(bw["a"], bw["m"])),
+        mask_s=t(bw["m"]), block_ptr_s=t(host["block_ptr_s"]),
+        lrow_s=t(host["lrow_s"]),
         in_degree=t(deg), perm_s2r=t(perm),
         perm_r2o=t(sorted_to_orig(order_r)),
         perm_s2o=t(sorted_to_orig(order_s)),
         hub_r=hub_r, hub_s=hub_s,
         node_block=node_block, edge_chunk=edge_chunk,
         use_gwin_r=bool(use_gwin[0]), use_gwin_s=bool(use_gwin[1]))
+    if node_block == 128:
+        # from the host arrays (no copy back from the device)
+        for order, per_edge in (
+                ("r", dict(keys=(fw["a"], lay.senders_r),
+                           xe=(fw["xe"], lay.xe_r))),
+                ("s", dict(keys=(bw["b"], lay.receivers_s),
+                           senders=(bw["a"], lay.senders_s),
+                           xe=(bw["xe"], lay.xe_s)))):
+            srcs = dict(local_row=(host["lrow_" + order],
+                                   getattr(lay, "lrow_" + order)),
+                        block_ptr=(host["block_ptr_" + order],
+                                   getattr(lay, "block_ptr_" + order)),
+                        **per_edge)
+            plan = _plan_from_numpy({k: a for k, (a, _) in srcs.items()},
+                                    ROW_CHUNK, device)
+            plan.sources = {k: (v, v._version) for k, (_, v) in srcs.items()
+                            if v is not None}
+            setattr(lay, "plan_" + order, plan)
+    return lay
 
 
 def gwin_gate(senders, receivers, num_nodes_padded: int, edge_mask=None,

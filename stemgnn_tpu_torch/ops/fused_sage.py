@@ -24,7 +24,10 @@ exact:
     embeddings) gets a zero gradient.
 
 The hub split and the in-kernel gather need bf16 messages
-(``bf16_messages=True``); with f32 messages the gather route runs.
+(``bf16_messages=True``); with f32 messages the gather route runs.  The
+dense hub blocks are bf16 products with f32 output (:func:`_mm`); kernels 2
+and 3 get the row plan of the direction they walk (``plan_r``/``plan_s`` of
+the layout or hub tail).
 
 **Typed branch** (a [T, D] table, T > 1, picked per edge by the layout's
 ``xe`` ids; JAX's non-factored branch, fused_sage.py:449-537, 625-667):
@@ -72,27 +75,39 @@ def inv_deg(layout: EdgeLayout):
 
 
 def _mm(a, b):
-    """Dense block product with f32 sums.  The bf16 operands are widened
-    first (exact), so the result is the f32 sum of exact products, as the
-    JAX package's ``preferred_element_type=float32`` gives."""
+    """Dense block product with f32 sums, as the JAX package's
+    ``preferred_element_type=float32`` gives: on CUDA a bf16 product with
+    f32 output (tensor cores, f32 accumulation); on the CPU, which has no
+    such product, the operands are widened first (exact).  Both sum exact
+    products in f32."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
 
 def _direction(lay: EdgeLayout, order: str):
     """One direction's kernel-facing arrays: (lrow, block_ptr, gather keys,
-    mask, in-kernel gather gate)."""
+    mask, in-kernel gather gate, row plan)."""
     if order == "r":
         return (lay.lrow_r, lay.block_ptr_r, lay.senders_r, lay.mask_r,
-                lay.use_gwin_r)
+                lay.use_gwin_r, lay.plan_r)
     return (lay.lrow_s, lay.block_ptr_s, lay.receivers_s, lay.mask_s,
-            lay.use_gwin_s)
+            lay.use_gwin_s, lay.plan_s)
+
+
+def _row_walk(kernel, ref, plain: bool, plan):
+    """Kernel 2 or 3 with the direction's row plan, or its plain version
+    (which takes no plan)."""
+    if plain:
+        return ref
+    return lambda *a, **kw: kernel(*a, plan=plan, **kw)
 
 
 def tail_messages(src, lay: EdgeLayout, t0, order: str = "r"):
     """Layout-order messages ``src[keys] (+ t0)`` of one direction, zero on
     padded slots (their sentinel key is clamped to the last row, which may
     hold anything)."""
-    _, _, keys, mask, _ = _direction(lay, order)
+    _, _, keys, mask, _, _ = _direction(lay, order)
     m = src.index_select(0, keys.clamp(max=src.shape[0] - 1).long())
     if t0 is not None:
         m = m + t0
@@ -122,12 +137,12 @@ def _tail(src, lay: EdgeLayout, order: str, num_nodes_padded: int, *,
     the in-kernel gather when the direction's gate is open and the messages
     are bf16, else the gathered [E, D] messages through
     ``scatter_rows_sorted``.  ``plain`` runs the kernels' plain versions."""
-    lrow, block_ptr, keys, _, use_gather = _direction(lay, order)
+    lrow, block_ptr, keys, _, use_gather, plan = _direction(lay, order)
     kw = dict(num_nodes_padded=num_nodes_padded, relu=relu, init=init,
               scale=scale, gate=gate, out_dtype=out_dtype)
     if use_gather and src.dtype == torch.bfloat16:
-        gathered = (gathered_scatter_rows_sorted_ref if plain
-                    else gathered_scatter_rows_sorted)
+        gathered = _row_walk(gathered_scatter_rows_sorted,
+                             gathered_scatter_rows_sorted_ref, plain, plan)
         return gathered(keys[None, :], lrow, block_ptr, src, t0, **kw)
     scatter = scatter_rows_sorted_ref if plain else scatter_rows_sorted
     return scatter(tail_messages(src, lay, t0, order), lrow, block_ptr, **kw)
@@ -164,8 +179,9 @@ def _typed_tail(src, tb, lay: EdgeLayout, num_nodes_padded: int, *,
     kw = dict(num_nodes_padded=num_nodes_padded, relu=True, init=init,
               scale=scale, out_dtype=out_dtype)
     if lay.use_gwin_r and src.dtype == torch.bfloat16:
-        gathered = (gathered_scatter_rows_sorted_ref if plain
-                    else gathered_scatter_rows_sorted)
+        gathered = _row_walk(gathered_scatter_rows_sorted,
+                             gathered_scatter_rows_sorted_ref, plain,
+                             lay.plan_r)
         return gathered(lay.senders_r[None, :], lay.lrow_r, lay.block_ptr_r,
                         src, tb, lay.xe_r[None, :], **kw)
     scatter = scatter_rows_sorted_ref if plain else scatter_rows_sorted
@@ -207,8 +223,8 @@ def _typed_backward(g, x, lay, table, reduce, mdtype, plain):
     dm = torch.where(lay.mask_s[:, None], dm, zero)
     kw = dict(num_nodes_padded=lay.num_nodes_padded)
     if mdtype == torch.bfloat16:
-        masked = (masked_scatter_rows_sorted_ref if plain
-                  else masked_scatter_rows_sorted)
+        masked = _row_walk(masked_scatter_rows_sorted,
+                           masked_scatter_rows_sorted_ref, plain, lay.plan_s)
         return masked(dm, lay.lrow_s, lay.senders_s[None, :],
                       lay.block_ptr_s, src, tb, lay.xe_s[None, :],
                       out_dtype=x.dtype, **kw)

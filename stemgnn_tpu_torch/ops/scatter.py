@@ -46,16 +46,27 @@ int32.  No epilogue.  The TPU kernel's x windows (``win_lo``,
 the gating row is one of the node block's own rows.
 
 All three are bound by bytes on the H100 (see the notes in ``csrc/``).
-Each CUDA block owns one node block x 128 columns with a shared-memory f32
-accumulator that only the owning thread touches, and keeps 16 row loads per
-thread in flight.
+Kernel 1 gives each CUDA block one node block x 128 columns with a
+shared-memory f32 accumulator that only the owning thread touches.  Kernels
+2 and 3 walk output rows (``csrc/row_walk.cuh``): a host-side
+:class:`~stemgnn_tpu_torch.ops.edge_layout.RowPlan` lists the counted edges
+in output-row order, cut into work items of at most ``RowPlan.chunk``
+edges; one warp sums one item in registers and finishes its row, and a
+second pass inside the same launch call adds the partial sums of the rows
+longer than a chunk.  Their wrappers take the plan (``plan=``: the layout's
+``plan_r``/``plan_s``, or :func:`~stemgnn_tpu_torch.ops.edge_layout.
+row_plan` for bare arrays); a CUDA call without the plan of the arrays it is
+given raises.  A warp covers whole rows (up to 768 columns a pass, 8
+columns a lane at once), or pairs of columns where D or the arrays'
+alignment does not allow 8.
 
 Each wrapper runs its CUDA kernel for CUDA tensors and its plain version
-(``*_ref``) for CPU tensors — nothing else — and adds one to
-``launch_counts[name]`` per kernel launch.  The kernels are compiled with
-``nvcc`` at first use into ``_build/`` beside this package, keyed by a hash
-of the source, one ``nvcc`` per source started together
-(:func:`build`), and loaded with ``ctypes``.
+(``*_ref``) for CPU tensors — nothing else; a CPU call ignores the plan —
+and adds one to ``launch_counts[name]`` per launch call (for kernels 2 and
+3 the second pass runs inside that call and is not counted apart).  The
+kernels are compiled with ``nvcc`` at first use into ``_build/`` beside this
+package, keyed by a hash of the sources, one ``nvcc`` per kernel started
+together (:func:`build`), and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -81,13 +92,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name -> argument types of its C entry ``<name>_launch``
 KERNELS = {
     "scatter_rows_sorted": [_P] * 7 + [_I] * 8 + [_P],
-    "gathered_scatter_rows_sorted": [_P] * 10 + [_I] * 8 + [_P],
-    "masked_scatter_rows_sorted": [_P] * 8 + [_I] * 6 + [_P],
+    "gathered_scatter_rows_sorted": [_P] * 14 + [_I] * 10 + [_P],
+    "masked_scatter_rows_sorted": [_P] * 13 + [_I] * 8 + [_P],
 }
 
-# type-table rows the masked kernel stages in shared memory (96 KB for its
-# accumulator and x tile + 256 B a row must fit a block's 227 KB)
-MASKED_MAX_TYPES = 512
+# column layouts of the row walk (csrc/row_walk.cuh ``ColMode``) and the
+# columns a lane reads at once in each
+_COL_MODES = {"full_row": (0, 8), "pairs": (1, 2)}
 
 # Kernel launches by name; each wrapper adds one per launch of its kernel
 # (and nowhere else), so a caller can show that a run went through it.
@@ -104,6 +115,12 @@ def _source(name: str) -> str:
     return os.path.join(_PKG, "csrc", f"{name}.cu")
 
 
+def _headers() -> list:
+    csrc = os.path.join(_PKG, "csrc")
+    return sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
+                  if f.endswith(".cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -116,10 +133,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [_source(name)] + _headers():
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names=tuple(KERNELS), force: bool = False) -> None:
@@ -230,6 +248,39 @@ def _check_device(name, anchor, tensors: dict):
             raise ValueError(f"{name}'s CUDA kernel needs contiguous inputs")
 
 
+def _check_plan(name, plan, needed: dict, optional: dict):
+    """A non-CPU call needs the plan built from the arrays it is given:
+    every array of ``needed``, and those of ``optional`` that are given."""
+    if plan is None:
+        raise ValueError(
+            f"{name} on {next(iter(needed.values())).device} needs the "
+            f"RowPlan of its arrays (plan=: a layout's plan_r / plan_s, or "
+            f"ops.edge_layout.row_plan)")
+    for k, t in list(needed.items()) + [(k, t) for k, t in optional.items()
+                                        if t is not None]:
+        if not plan.built_from(k, t):
+            raise ValueError(f"{name}: the plan was not built from this "
+                             f"{k} array")
+
+
+def _col_mode(d: int, rows: list) -> int:
+    """The row walk's column layout: whole rows (8 columns a lane at once),
+    or pairs of columns where D or the row arrays' alignment does not allow
+    8."""
+    def fits(vec):
+        return d % vec == 0 and all(
+            t.data_ptr() % min(16, t.element_size() * vec) == 0
+            for t in rows if t is not None)
+    mode, vec = _COL_MODES["full_row"]
+    if fits(vec):
+        return mode
+    mode, vec = _COL_MODES["pairs"]
+    if not fits(vec):
+        raise ValueError("the CUDA kernel needs row arrays aligned to their "
+                         "element pairs")
+    return mode
+
+
 def _launch(name, *args):
     """Call ``<name>_launch`` on the current stream of the first tensor's
     device; raise on a CUDA error; count the launch."""
@@ -275,12 +326,13 @@ def gathered_scatter_rows_sorted(keys, local_row, block_ptr, x, table=None,
                                  node_block: int = NODE_BLOCK,
                                  relu: bool = False, init=None, scale=None,
                                  gate=None, out_dtype=torch.float32,
-                                 stray_src=None, stray_idx=None,
+                                 plan=None, stray_src=None, stray_idx=None,
                                  stray_off=None, stray_cnt=None):
     """Gather ``x[keys]`` (+ the type row), build bf16 messages and
     sum-scatter them into [num_nodes_padded, D] (module docstring).  CPU
-    tensors run :func:`gathered_scatter_rows_sorted_ref`; CUDA tensors launch
-    the kernel or raise."""
+    tensors run :func:`gathered_scatter_rows_sorted_ref`; CUDA tensors
+    launch the kernel over ``plan`` (a RowPlan built from ``local_row``,
+    ``block_ptr``, ``keys`` and, when given, ``xe``) or raise."""
     if any(a is not None for a in (stray_src, stray_idx, stray_off,
                                    stray_cnt)):
         raise NotImplementedError(
@@ -307,6 +359,10 @@ def gathered_scatter_rows_sorted(keys, local_row, block_ptr, x, table=None,
                          f"got {tuple(xe.shape)} {xe.dtype}")
     _check_rows(e_pad, local_row, block_ptr, num_nodes_padded, node_block)
     _check_epilogue(d, num_nodes_padded, init, scale, gate, out_dtype)
+    if x.device.type != "cpu":
+        _check_plan("gathered_scatter_rows_sorted", plan,
+                    dict(local_row=local_row, block_ptr=block_ptr,
+                         keys=keys), dict(xe=xe))
     _check_device("gathered_scatter_rows_sorted", x, dict(
         x=x, keys=keys, local_row=local_row, block_ptr=block_ptr,
         table=table, xe=xe, init=init, scale=scale, gate=gate))
@@ -316,13 +372,19 @@ def gathered_scatter_rows_sorted(keys, local_row, block_ptr, x, table=None,
         return gathered_scatter_rows_sorted_ref(keys, local_row, block_ptr,
                                                 x, table, xe, **kw)
     out = torch.empty((num_nodes_padded, d), dtype=out_dtype, device=x.device)
+    partials = (torch.empty((plan.num_slots, d), dtype=torch.float32,
+                            device=x.device) if plan.num_slots else None)
+    mode = _col_mode(d, [x, table, init, gate, out, partials])
     with torch.cuda.device(x.device):
-        _launch("gathered_scatter_rows_sorted", _ptr(keys), _ptr(local_row),
-                _ptr(block_ptr), _ptr(x), _ptr(table), _ptr(xe), _ptr(init),
-                _ptr(scale), _ptr(gate), _ptr(out),
-                num_nodes_padded // NODE_BLOCK, e_pad, d,
+        _launch("gathered_scatter_rows_sorted", _ptr(plan.keys),
+                _ptr(None if xe is None else plan.xe), _ptr(plan.item_row),
+                _ptr(plan.item_start), _ptr(plan.item_slot),
+                _ptr(plan.split_row), _ptr(plan.split_ptr), _ptr(x),
+                _ptr(table), _ptr(init), _ptr(scale), _ptr(gate), _ptr(out),
+                _ptr(partials), plan.num_items, plan.num_split,
+                num_nodes_padded, d,
                 0 if table is None else table.shape[0], _bf16(out),
-                int(relu), _bf16(init), _bf16(gate))
+                int(relu), _bf16(init), _bf16(gate), mode)
     return out
 
 
@@ -330,11 +392,12 @@ def masked_scatter_rows_sorted(m, local_row, senders, block_ptr, x,
                                table=None, xe=None, *,
                                num_nodes_padded: int,
                                node_block: int = NODE_BLOCK,
-                               out_dtype=torch.float32):
+                               out_dtype=torch.float32, plan=None):
     """Sum-scatter ``m`` gated per column by ``x[senders] (+ table[xe]) >
     0`` into [num_nodes_padded, D] (module docstring).  CPU tensors run
     :func:`masked_scatter_rows_sorted_ref`; CUDA tensors launch the kernel
-    or raise."""
+    over ``plan`` (a RowPlan built from ``local_row``, ``block_ptr``,
+    ``senders`` and, when given, ``xe``) or raise."""
     if m.dim() != 2 or m.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"m must be [E_pad, D] bf16/f32, got "
                          f"{tuple(m.shape)} {m.dtype}")
@@ -357,6 +420,10 @@ def masked_scatter_rows_sorted(m, local_row, senders, block_ptr, x,
                              f"{tuple(xe.shape)} {xe.dtype}")
     _check_rows(e_pad, local_row, block_ptr, num_nodes_padded, node_block)
     _check_epilogue(d, num_nodes_padded, None, None, None, out_dtype)
+    if m.device.type != "cpu":
+        _check_plan("masked_scatter_rows_sorted", plan,
+                    dict(local_row=local_row, block_ptr=block_ptr,
+                         senders=senders), dict(xe=xe))
     _check_device("masked_scatter_rows_sorted", m, dict(
         m=m, local_row=local_row, senders=senders, block_ptr=block_ptr, x=x,
         table=table, xe=xe))
@@ -364,16 +431,19 @@ def masked_scatter_rows_sorted(m, local_row, senders, block_ptr, x,
     if m.device.type == "cpu":
         return masked_scatter_rows_sorted_ref(m, local_row, senders,
                                               block_ptr, x, table, xe, **kw)
-    t_rows = 0 if table is None else table.shape[0]
-    if t_rows > MASKED_MAX_TYPES:
-        raise ValueError(f"the masked kernel stages at most "
-                         f"{MASKED_MAX_TYPES} type rows, got {t_rows}")
     out = torch.empty((num_nodes_padded, d), dtype=out_dtype, device=m.device)
+    partials = (torch.empty((plan.num_slots, d), dtype=torch.float32,
+                            device=m.device) if plan.num_slots else None)
+    mode = _col_mode(d, [m, x, table, out, partials])
     with torch.cuda.device(m.device):
-        _launch("masked_scatter_rows_sorted", _ptr(m), _ptr(local_row),
-                _ptr(senders), _ptr(block_ptr), _ptr(x), _ptr(table),
-                _ptr(xe), _ptr(out), num_nodes_padded // NODE_BLOCK, e_pad,
-                d, t_rows, _bf16(m), _bf16(out))
+        _launch("masked_scatter_rows_sorted", _ptr(m), _ptr(plan.pos),
+                _ptr(plan.senders), _ptr(None if xe is None else plan.xe),
+                _ptr(plan.item_row), _ptr(plan.item_start),
+                _ptr(plan.item_slot), _ptr(plan.split_row),
+                _ptr(plan.split_ptr), _ptr(x), _ptr(table), _ptr(out),
+                _ptr(partials), plan.num_items, plan.num_split,
+                num_nodes_padded, d, 0 if table is None else table.shape[0],
+                _bf16(m), _bf16(out), mode)
     return out
 
 

@@ -115,7 +115,8 @@ def main(argv=None):
 def kernel_table(prof, reps: int, wall_ms: float, top: int, unit: str,
                  ranges=STAGES):
     """Print the device busy share of a profiled window of ``reps`` runs and
-    its ``top`` kernels by device time per run; return the events.  The
+    its ``top`` kernels by device time per run, then the port's own kernels
+    (``csrc/``) that the top rows leave out; return the events.  The
     annotation ``ranges`` span their kernels and stay out of the sums."""
     events = prof.key_averages()
     kernels = sorted((e for e in events
@@ -125,7 +126,9 @@ def kernel_table(prof, reps: int, wall_ms: float, top: int, unit: str,
     print(f"profiled {reps} {unit}s: wall {wall_ms:.3f} ms, device "
           f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     print(f"{'device ms/' + unit:>18}  {'calls':>6}  name")
-    for e in kernels[:top]:
+    own = [e for e in kernels[top:] if "rows_kernel" in e.key
+           or "scatter_rows_sorted" in e.key]
+    for e in kernels[:top] + own:
         print(f"{_device_us(e) / 1e3 / reps:18.3f}  "
               f"{e.count // reps:6d}  {e.key[:100]}")
     return events

@@ -119,6 +119,8 @@ def test_typed_hub_layout_equals_jax(t_rows, mode):
         a, b = _as_np(getattr(hp, f)), _as_np(getattr(hj, f))
         assert a.shape == b.shape and np.array_equal(a, b), f
     for f in dataclasses.fields(hp.tail):
+        if f.name in ("plan_r", "plan_s"):     # the port's own row plans
+            continue
         a, b = getattr(hp.tail, f.name), getattr(hj.tail, f.name)
         if isinstance(a, torch.Tensor):
             assert np.array_equal(_as_np(a), _as_np(b)), f.name
