@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's two entry points at arxiv scale (``arxiv_synthetic_pl``:
+Drives the port's entry points at arxiv scale (``arxiv_synthetic_pl``:
 169,343 nodes, 2,370,802 edges, D = 768, 2-layer SAGE + 4-head cosine VQ,
-random weights from a seeded generator) and the typed-edge link finetune on
+random weights from a seeded generator): the full-graph pretrain step, the
+encode CLI and the node finetune CLI, and the typed-edge link finetune on
 ``kg_synthetic`` (11 relation types, at its default size and at WN18RR's
 40,943 entities and 93,003 triples), and holds every CUDA kernel of their
 paths against its plain PyTorch version.  Phases, each announced before it
@@ -14,10 +15,13 @@ starts and timed when it ends:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds the three kernels from ``stemgnn_tpu_torch/csrc``,
                one compiler per source, started together;
-  3. kernel  — ``scatter_rows_sorted`` vs its plain version: small cases
-               (sentinel padding, empty node blocks, every relu/init/scale/
-               gate combination, bf16/f32 in and out), then the forward and
-               backward (gate) tails at arxiv shapes;
+  3. kernel  — ``scatter_rows_sorted`` vs its plain version over the row
+               plan: small cases (sentinel padding over large padded
+               messages, empty node blocks and rows, every relu/init/scale/
+               gate combination, bf16/f32 in and out, both edge orders,
+               split rows, messages zeroed by a dropout keep, idle lanes,
+               the pairs layout), then the forward and backward (gate)
+               tails at arxiv shapes, with each tail's row plan described;
   4. kernel2 — ``gathered_scatter_rows_sorted`` vs its plain version: small
                cases (no table, t0, a 5-row xe table; every epilogue; bf16/
                f32 out; empty node blocks and empty rows under init/scale/
@@ -44,14 +48,25 @@ starts and timed when it ends:
                losses, trainable parameters moved and the frozen VQ not,
                one step's gradients against the plain versions and against
                the ``gwin="off"`` route; epoch and step times, peak memory;
-  8. typed   — the link finetune on typed edges: ``finetune.main`` on
+  8. pretrain — the full-graph pretrain step (``train.pretrain_loop``:
+               the pair-hash edge dropout, the four losses, the EMA
+               teacher, the learnable VQ, AdamW + clip + cosine schedule),
+               3 steps at full width: kernel 1 three times a step (the
+               student's dropout tails: two forward, layer 2's input
+               gradient), kernel 2 twice (the teacher's tails), finite
+               losses that move, every parameter and the teacher moved,
+               one step's gradients against the plain versions, the pair
+               hash on the card against the CPU's; step ms, peak memory;
+               kernel 1 on the step's dropout tails vs its plain version;
+  9. typed   — the link finetune on typed edges: ``finetune.main`` on
                ``kg_synthetic``, then ``run_finetune`` at WN18RR's size, 3
                epochs each: kernel 3 once per step, kernel 2 (xe mode)
                twice per step and twice per evaluation, kernel 1 never;
                finite losses, one step's gradients against the plain
                versions; step ms, epoch walls, peak memory;
-  9. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
-               at the main path's shapes, by CUDA events.
+ 10. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
+               at the main paths' shapes (kernel 1 also on the pretrain
+               step's dropout tails), by CUDA events.
 
 Prints the ``{"kernels": [...]}`` line of this run's measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -81,12 +96,21 @@ from stemgnn_tpu_torch.infer import main as infer_main
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.layers import Linear
 from stemgnn_tpu_torch.ops import scatter as sc
+from stemgnn_tpu_torch.models.pretrain import (PretrainModel, make_teacher,
+                                               pretrain_forward)
 from stemgnn_tpu_torch.ops.edge_layout import build_edge_layout, row_plan
-from stemgnn_tpu_torch.ops.fused_sage import (hub_partials, inv_deg,
-                                              table_row, tail_messages)
+from stemgnn_tpu_torch.ops.fused_sage import (DropView, hub_partials,
+                                              inv_deg, table_row,
+                                              tail_messages)
+from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep, pair_hash_uniform
+from stemgnn_tpu_torch.profile_pretrain import (dropout_tail_cases,
+                                                pretrain_config)
 from stemgnn_tpu_torch.train.finetune_loop import run_finetune
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
+from stemgnn_tpu_torch.train.pretrain_loop import (augmented, draw_step,
+                                                   make_pretrain_optimizer,
+                                                   make_pretrain_step)
 from stemgnn_tpu_torch.utils.checkpoint import save_pytree
 from stemgnn_tpu_torch.utils.convert import from_jax_pytree, to_jax_pytree
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
@@ -96,6 +120,7 @@ FEAT_DIM = 768
 NUM_CLASSES = 40
 SEED = 42
 EPOCHS = 3
+PRETRAIN_STEPS = 3
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 K1, K2 = "scatter_rows_sorted", "gathered_scatter_rows_sorted"
@@ -147,7 +172,7 @@ def ptxas_summary(log):
     """Registers and spills per compiled function from ``-Xptxas -v``: the
     range over all template instances, each instance that spills, and the
     instances the arxiv paths launch (whole rows of 768 columns: ``Li8ELi3E``
-    in the mangled name, and kernel 1)."""
+    in the mangled name)."""
     funcs, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -164,7 +189,7 @@ def ptxas_summary(log):
     lines = [f"    {len(funcs)} functions, {min(regs)}-{max(regs)} registers,"
              f" {sum(1 for f in funcs if f[2])} spill"]
     for fn, r, sp in funcs:
-        if sp or "Li8ELi3E" in fn or "scatter_rows_sorted_kernel" in fn:
+        if sp or "Li8ELi3E" in fn:
             lines.append(f"    {r:4d} registers, {sp:3d} B spilled: {fn}")
     return "\n".join(lines)
 
@@ -240,20 +265,33 @@ def _epilogue_opts(rng_t, n_pad, d, init, scale, gate, gate_dtype, dev):
 
 
 def kernel1_small_cases(dev):
-    """Kernel 1 vs its plain version on layouts that exercise the walk."""
+    """Kernel 1 vs its plain version on layouts that exercise the walk:
+    every relu/init/scale/gate combination with bf16/f32 messages and
+    outputs, both edge orders, padded message slots holding large values,
+    empty node blocks and empty rows, split rows (rows longer than the
+    plan's chunk, finished by the second pass), messages zeroed by a
+    dropout keep, idle lanes and both column layouts."""
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
     n_cases = 0
 
-    def run(tag, lay, n_pad, d, mdt, odt, relu, init, scale, gate):
+    def run(tag, lay, n_pad, d, mdt, odt, relu, init, scale, gate,
+            order="r", chunk=None, keep_p=None):
         nonlocal n_cases
         e = lay.num_edges_padded
-        m = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32))
-        m = m.to(dev, mdt)
+        m = rng.standard_normal((e, d)).astype(np.float32)
+        m[~getattr(lay, "mask_" + order).cpu().numpy()] = 1.0e30
+        if keep_p is not None:              # dropped edges' zero messages
+            m[rng.random(e) < keep_p] = 0.0
+        m = torch.from_numpy(m).to(dev, mdt)
         opt = _epilogue_opts(gen, n_pad, d, init, scale, gate, mdt, dev)
-        args = (m, lay.lrow_r, lay.block_ptr_r)
+        lrow = getattr(lay, "lrow_" + order)
+        bp = getattr(lay, "block_ptr_" + order)
+        plan = (row_plan(lrow, bp, chunk=chunk) if chunk
+                else getattr(lay, "plan_" + order))
+        args = (m, lrow, bp)
         kw = dict(num_nodes_padded=n_pad, relu=relu, out_dtype=odt, **opt)
-        check_kernel(tag, sc.scatter_rows_sorted(*args, **kw),
+        check_kernel(tag, sc.scatter_rows_sorted(*args, plan=plan, **kw),
                      sc.scatter_rows_sorted_ref(*args, **kw), odt, quiet=True)
         n_cases += 1
 
@@ -270,17 +308,29 @@ def kernel1_small_cases(dev):
                        f"relu={relu:d} init={init:d} scale={scale:d} "
                        f"gate={gate:d}")
                 run(tag, lay, 256, 64, mdt, odt, relu, init, scale, gate)
+            for order in ("r", "s"):
+                run(f"uniform d=64 {str(mdt)[6:]}->{str(odt)[6:]} order="
+                    f"{order} chunk=3 (split rows) relu init scale gate",
+                    lay, 256, 64, mdt, odt, order == "r", True, True, True,
+                    order=order, chunk=3)
+                run(f"uniform d=64 {str(mdt)[6:]}->{str(odt)[6:]} order="
+                    f"{order} keep-zeroed messages relu init scale", lay,
+                    256, 64, mdt, odt, order == "r", True, True, False,
+                    order=order, keep_p=0.3)
     # a 2000-edge hub receiver (many unroll batches in one block), a run of
     # one-edge nodes, a mid-size hub, fully empty node blocks
     r = np.concatenate([np.zeros(2000, np.int64), np.arange(600),
                         np.full(300, 1400)])
     s = rng.permutation(r)
     lay = build_edge_layout(s, r, 2048, device=dev)
-    for d in (8, 96, 768):                 # partial and several col slices
-        run(f"stress d={d} bf16->f32 relu init scale", lay, 2048, d,
-            torch.bfloat16, torch.float32, True, True, True, False)
+    for d in (8, 96, 130, 768):    # idle lanes, the pairs layout, full rows
+        run(f"stress d={d} bf16->f32 relu init scale (split rows)", lay,
+            2048, d, torch.bfloat16, torch.float32, True, True, True, False)
         run(f"stress d={d} f32->f32", lay, 2048, d, torch.float32,
             torch.float32, False, False, False, False)
+        run(f"stress d={d} sender order gate, keep-zeroed", lay, 2048, d,
+            torch.bfloat16, torch.float32, False, True, False, True,
+            order="s", keep_p=0.2)
     print(f"  kernel 1: {n_cases} small cases agree with the plain version",
           flush=True)
 
@@ -710,7 +760,7 @@ def arxiv_tail_cases(graph):
     gp = g / deg in bf16, the hub partial sums of gp as init, the relu gate
     bf16(x) + t0).  Returns each kernel's two launches as (arguments of
     the kernel and its plain version, keywords of both, keywords of the
-    kernel alone: kernel 2's row plan)."""
+    kernel alone: the tail's row plan)."""
     lay = graph.layout
     if lay.hub_r is None or lay.hub_s is None:
         raise AssertionError("the arxiv-scale layout has no hub blocks")
@@ -732,10 +782,11 @@ def arxiv_tail_cases(graph):
                    init=hub_partials(gp, lay.hub_s, None, relu=False),
                    gate=src + t0, out_dtype=torch.float32)
     k1 = {"fwd": (dict(m=tail_messages(src, ft, t0), local_row=ft.lrow_r,
-                       block_ptr=ft.block_ptr_r), fwd_epi, {}),
+                       block_ptr=ft.block_ptr_r), fwd_epi,
+                  dict(plan=ft.plan_r)),
           "bwd": (dict(m=tail_messages(gp, bt, None, "s"),
                        local_row=bt.lrow_s, block_ptr=bt.block_ptr_s),
-                  bwd_epi, {})}
+                  bwd_epi, dict(plan=bt.plan_s))}
     k2 = {"fwd": (dict(keys=ft.senders_r[None, :], local_row=ft.lrow_r,
                        block_ptr=ft.block_ptr_r, x=src, table=t0), fwd_epi,
                   dict(plan=ft.plan_r)),
@@ -743,6 +794,120 @@ def arxiv_tail_cases(graph):
                        block_ptr=bt.block_ptr_s, x=gp), bwd_epi,
                   dict(plan=bt.plan_s))}
     return k1, k2
+
+
+def pretrain_run(graph, dev, paths, errs):
+    """The full-graph pretrain step on the arxiv graph at full width
+    (``train.pretrain_loop``, the JAX step probe's configuration: 2-layer
+    SAGE with batch norm and dropout 0.15, the 4-head cosine VQ with 128
+    learnable codes, the four losses, the EMA teacher, AdamW + clip 1.0 +
+    the cosine schedule, the pair-hash edge dropout at p = 0.2), random
+    weights from ``SEED``: ``PRETRAIN_STEPS`` steps with their launches
+    (kernel 1 on the student's three dropout tails, kernel 2 on the
+    teacher's two tails, a step), finite losses that move, every parameter
+    and the teacher moved, one step's gradients against the plain versions,
+    the on-card keep decisions against the CPU hash, step ms and peak
+    memory; kernel 1 on the step's dropout tails against its plain version.
+    Returns those tail cases for the times phase."""
+    cfg = pretrain_config(FEAT_DIM)
+    model = PretrainModel(
+        cfg, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    teacher = make_teacher(model)
+    opt = make_pretrain_optimizer(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bs = graph.num_nodes_padded
+    step = make_pretrain_step(cfg, bs, generator=gen)
+    before = [p.detach().clone() for p in model.parameters()]
+    t_before = [p.detach().clone() for p in teacher.parameters()]
+    print(f"  pretrain step at bs = {bs}: {sum(p.numel() for p in before)} "
+          f"student parameters, teacher {sum(p.numel() for p in t_before)}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [{k: float(v) for k, v in step(model, teacher, opt, graph)
+               .items()} for _ in range(PRETRAIN_STEPS)]
+    paths["pretrain"] = read_counts()
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {PRETRAIN_STEPS} steps in {wall_s:.2f} s (first step "
+          f"included); peak device memory {peak_gb:.2f} GB, "
+          f"{peak_gb - held_gb:.2f} GB above the {held_gb:.2f} GB held "
+          f"before", flush=True)
+    expect_counts(f"pretrain ({PRETRAIN_STEPS} steps)", paths["pretrain"],
+                  {K1: 3 * PRETRAIN_STEPS, K2: 2 * PRETRAIN_STEPS})
+    for i, ls in enumerate(losses):
+        print(f"  step {i}: " + ", ".join(f"{k} {v:.6f}"
+                                          for k, v in ls.items()),
+              flush=True)
+    totals = [ls["loss"] for ls in losses]
+    if not all(np.isfinite(v) for ls in losses for v in ls.values()):
+        raise AssertionError(f"non-finite pretrain losses {losses}")
+    if len(set(totals)) == 1:
+        raise AssertionError(f"the pretrain loss does not move: {totals}")
+    for tag, old, mod in (("student", before, model),
+                          ("teacher", t_before, teacher)):
+        still = sum(torch.equal(a, b) for a, b in zip(old, mod.parameters()))
+        if still:
+            raise AssertionError(f"{still} {tag} parameters did not move")
+    print("  every student and teacher parameter moved", flush=True)
+
+    draws = draw_step(cfg, graph, torch.Generator(device=dev).manual_seed(7))
+    aug = augmented(cfg, graph, draws)
+
+    def grads(plain):
+        m, t = copy.deepcopy(model), copy.deepcopy(teacher)
+        loss, _, _ = pretrain_forward(
+            m, t, cfg, aug, graph, bs=bs, draws=draws,
+            drop_seed=draws["drop_seed"], plain=plain,
+            generator=torch.Generator(device=dev).manual_seed(7))
+        loss.backward()
+        return {k: p.grad for k, p in m.named_parameters()}
+    reset_counts()
+    g_kernel = grads(False)
+    expect_counts("one pretrain forward + backward", read_counts(),
+                  {K1: 3, K2: 2})
+    check_grads("the plain versions", g_kernel, grads(True))
+    del g_kernel
+
+    # the pair hash on the card against the CPU: every edge's uniform (bit
+    # for bit) and keep, and a (node, hub) grid's keeps
+    seed, p = draws["drop_seed"], cfg.edge_p
+    s_, r_ = graph.senders, graph.receivers
+    on_card = pair_hash_uniform(seed, s_, r_).cpu()
+    on_cpu = pair_hash_uniform(seed.cpu(), s_.cpu(), r_.cpu())
+    rows = torch.arange(16_384, device=dev)
+    hubs = graph.layout.hub_r.hub_ids
+    grid = pair_hash_keep(seed, rows[:, None], hubs[None, :], p).cpu()
+    if not (torch.equal(on_card.view(torch.int32), on_cpu.view(torch.int32))
+            and torch.equal(pair_hash_keep(seed, s_, r_, p).cpu(),
+                            on_cpu >= torch.tensor(p, dtype=torch.float32))
+            and torch.equal(grid, pair_hash_keep(
+                seed.cpu(), rows.cpu()[:, None], hubs.cpu()[None, :], p))):
+        raise AssertionError("the pair hash on the card differs from the CPU")
+    print(f"  pair hash on the card equals the CPU's: {s_.numel()} edge "
+          f"uniforms bit for bit ({int((on_cpu >= p).sum())} of them "
+          f"kept at p = {p}), "
+          f"{grid.numel()} (node, hub) keeps", flush=True)
+
+    step_ms = cuda_ms(lambda: step(model, teacher, opt, graph), 3)
+    print(f"  pretrain step {step_ms:.3f} ms by CUDA events (mean of 3)",
+          flush=True)
+
+    view = DropView(graph.layout, seed, p)
+    src = aug.node_feat.to(torch.bfloat16)
+    cases = dropout_tail_cases(graph, view, src,
+                               table_row(graph.edge_table, torch.bfloat16))
+    for direction, (args, kw, plan) in cases.items():
+        errs[(K1, direction)] = check_kernel(
+            f"kernel 1 on the pretrain {direction} tail E_pad="
+            f"{args['m'].shape[0]} D={FEAT_DIM}",
+            sc.scatter_rows_sorted(**args, **kw, **plan),
+            sc.scatter_rows_sorted_ref(**args, **kw), torch.float32)
+    del model, teacher, opt, draws, aug, view
+    torch.cuda.empty_cache()
+    return cases
 
 
 def save_checkpoint(tmp, gen):
@@ -860,11 +1025,15 @@ def main():
         print(f"  {describe_layout(graph.layout)}", flush=True)
         k1_cases, k2_cases = arxiv_tail_cases(graph)
         errs = {}
-        for direction, (args, kw, _) in k1_cases.items():
+        for direction, (args, kw, plan) in k1_cases.items():
+            p = plan["plan"]
+            print(f"  row plan of the {direction} tail: {p.num_items} items "
+                  f"of at most {p.chunk} edges, {p.num_split} split rows "
+                  f"over {p.num_slots} items", flush=True)
             errs[(K1, direction)] = check_kernel(
                 f"kernel 1 arxiv {direction} tail E_pad="
                 f"{args['m'].shape[0]} D={FEAT_DIM}",
-                sc.scatter_rows_sorted(**args, **kw),
+                sc.scatter_rows_sorted(**args, **kw, **plan),
                 sc.scatter_rows_sorted_ref(**args, **kw), torch.float32)
 
     with phase("kernel2"):
@@ -1007,6 +1176,9 @@ def main():
         del res, model, gt, graph_off
         torch.cuda.empty_cache()
 
+    with phase("pretrain"):
+        k1_drop_cases = pretrain_run(graph, dev, paths, errs)
+
     with phase("typed"):
         k3_path = typed_run(tmp, dev, paths)
     tmp_dir.cleanup()
@@ -1014,7 +1186,7 @@ def main():
     with phase("times"):
         kernels = []
         for name, cases, fn, ref in (
-                (K1, k1_cases, sc.scatter_rows_sorted,
+                (K1, {**k1_cases, **k1_drop_cases}, sc.scatter_rows_sorted,
                  sc.scatter_rows_sorted_ref),
                 (K2, k2_cases, sc.gathered_scatter_rows_sorted,
                  sc.gathered_scatter_rows_sorted_ref)):
@@ -1023,7 +1195,6 @@ def main():
                 row[direction] = time_case(name, direction, args, kw, extra,
                                            fn, ref)
             kernels.append(dict(row, name=name))
-    k1_path = "encode_gwin_off"
     line = []
     for k in kernels:
         name, fwd, bwd = k["name"], k["fwd"], k["bwd"]
@@ -1032,7 +1203,7 @@ def main():
             "source": f"stemgnn_tpu_torch/csrc/{name}.cu",
             "replaces": ("stemgnn_tpu/ops/scatter_pallas.py:252" if name == K1
                          else "stemgnn_tpu/ops/scatter_pallas.py:740"),
-            "launches": paths[k1_path if name == K1 else "finetune"][name],
+            "launches": paths["pretrain"][name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": errs[(name, "fwd")],
             "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
@@ -1041,6 +1212,12 @@ def main():
             "bwd_max_abs_err": errs[(name, "bwd")], "bwd_ms": bwd["ms"],
             "bwd_plain_ms": bwd["plain_ms"], "bwd_bound_ms": bwd["bound_ms"],
             "bwd_library_ms": bwd["library_ms"]}
+        if name == K1:
+            for direction in ("drop_fwd", "drop_bwd"):
+                entry.update({f"{direction}_max_abs_err":
+                              errs[(name, direction)]})
+                entry.update({f"{direction}_{key}": v
+                              for key, v in k[direction].items()})
         if name == K2:
             xe = typed_times[K2]
             entry.update(replaced_ms=fwd["replaced_ms"],
@@ -1122,7 +1299,7 @@ def time_case(name, direction, args, kw, extra, fn, ref):
             (n_pad, n_pad), check_invariants=False).coalesce().to_sparse_csr()
         out["library_ms"] = cuda_ms(lambda: torch.sparse.mm(a, f), 20)
         lib = "torch.sparse.mm (CSR f32)"
-        src, keys2d = args["x"], args["keys"]
+        src, keys2d, plan = args["x"], args["keys"], extra["plan"]
 
         def replaced():
             m = src.index_select(0, keys2d.reshape(-1).clamp(
@@ -1131,7 +1308,7 @@ def time_case(name, direction, args, kw, extra, fn, ref):
                 m = m + args["table"]
             m = torch.where((lrow.reshape(-1) < 128)[:, None], m,
                             torch.zeros((), dtype=m.dtype, device=dev))
-            return sc.scatter_rows_sorted(m, lrow, bp, **kw)
+            return sc.scatter_rows_sorted(m, lrow, bp, plan=plan, **kw)
         out["replaced_ms"] = cuda_ms(replaced, 20)
         # the same bound with x read once per edge (the row walk)
         out["row_walk_bound_ms"] = bound_ms(

@@ -100,6 +100,45 @@ class VQConfig:
 
 
 @dataclass(frozen=True)
+class PretrainConfig:
+    """config/pretrain.yaml equivalents (JAX ``PretrainConfig``, the same
+    fields and defaults).  The port computes in f32: ``teacher_bf16``,
+    ``loss_bf16`` and a bfloat16 ``compute_dtype`` of the encoder or the VQ
+    raise."""
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    vq: VQConfig = field(default_factory=VQConfig)
+    pretrain_dataset: str = "all"
+    epochs: int = 50
+    lr: float = 1e-4
+    weight_decay: float = 1e-5
+    batch_size: int = 1024
+    fanout: int = 10
+    feat_p: float = 0.2
+    edge_p: float = 0.2
+    topo_recon_ratio: float = 0.1
+    feat_lambda: float = 100.0
+    topo_lambda: float = 0.01
+    topo_sem_lambda: float = 100.0
+    sem_lambda: float = 1.0
+    sem_encoder_decay: float = 0.99
+    lamda_env: float = 0.0
+    use_scheduler: bool = True
+    grad_clip: float = 1.0
+    seed: int = 42
+    fused_minibatch: str = "auto"
+    teacher_bf16: bool = False
+    loss_bf16: bool = False
+    save_every: int = 1
+
+    def __post_init__(self):
+        if self.teacher_bf16 or self.loss_bf16:
+            raise NotImplementedError("teacher_bf16 / loss_bf16 are not "
+                                      "ported: the port computes in f32")
+        if "bfloat16" in (self.encoder.compute_dtype, self.vq.compute_dtype):
+            raise NotImplementedError("bf16 compute_dtype is not ported")
+
+
+@dataclass(frozen=True)
 class FinetuneConfig:
     """config/finetune.yaml equivalents."""
     encoder: EncoderConfig = field(default_factory=EncoderConfig)

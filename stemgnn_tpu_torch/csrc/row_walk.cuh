@@ -1,7 +1,8 @@
-// The row walk shared by gathered_scatter_rows_sorted.cu and
-// masked_scatter_rows_sorted.cu on NVIDIA Hopper (sm_90a).
+// The row walk shared by scatter_rows_sorted.cu,
+// gathered_scatter_rows_sorted.cu and masked_scatter_rows_sorted.cu on
+// NVIDIA Hopper (sm_90a).
 //
-// Both kernels sum edge rows into output rows.  A host-side plan
+// The three kernels sum edge rows into output rows.  A host-side plan
 // (stemgnn_tpu_torch/ops/edge_layout.py, RowPlan) lists the counted edges
 // in output-row order (inside a row in the layout's order) and cuts them
 // into work items: output row item_row[i], plan positions [item_start[i],

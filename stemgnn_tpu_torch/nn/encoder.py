@@ -4,7 +4,8 @@
 ``normalize`` other than 'none', encoder.py:173,313-314), with activation
 and dropout between layers.  Ported: the sage backbone in f32 compute, in
 eval and in training (BatchNorm batch statistics over the ``node_mask``
-rows, dropout from an explicit ``torch.Generator``).  Other backbones, MoE
+rows, dropout from an explicit ``torch.Generator``), with the pair-hash edge
+dropout (``drop_hash``).  Other backbones, MoE
 layers and bf16 compute raise ``NotImplementedError``.
 """
 
@@ -16,6 +17,7 @@ from torch import nn
 from stemgnn_tpu_torch.core.config import EncoderConfig
 from stemgnn_tpu_torch.nn.convs import SAGEConv
 from stemgnn_tpu_torch.nn.layers import BatchNorm, dropout
+from stemgnn_tpu_torch.ops.fused_sage import DropView
 
 
 class Encoder(nn.Module):
@@ -46,12 +48,17 @@ class Encoder(nn.Module):
 
     def forward(self, x, senders, receivers, edge_feat=None, edge_mask=None,
                 node_mask=None, layout=None, edge_table=None,
-                plain: bool = False, generator=None):
+                plain: bool = False, generator=None, drop_hash=None):
         """Forward pass (encoder.py:283-323).  In training mode BatchNorm
         takes its statistics over the ``node_mask`` rows and dropout draws
         from ``generator``.  ``plain`` makes the fused path run its kernels'
-        plain versions (see ops.fused_sage)."""
+        plain versions (see ops.fused_sage).  ``drop_hash=(seed, p)`` drops
+        the edge pairs the pair hash picks in every layer; over a layout its
+        masks are computed once and shared by the layers
+        (``ops.fused_sage.DropView``)."""
         cfg = self.cfg
+        if drop_hash is not None and layout is not None:
+            drop_hash = DropView(layout, *drop_hash)
         z = x.float()
         for i, layer in enumerate(self.layers):
             if edge_feat is not None and edge_feat.shape[-1] != z.shape[-1]:
@@ -62,7 +69,8 @@ class Encoder(nn.Module):
             z = layer(z, senders, receivers, edge_feat=edge_feat,
                       edge_mask=edge_mask, layout=layout,
                       edge_table=edge_table,
-                      bf16_messages=cfg.fused_bf16_messages, plain=plain)
+                      bf16_messages=cfg.fused_bf16_messages, plain=plain,
+                      drop_hash=drop_hash)
             if cfg.normalize != "none":
                 z = self.norms[i](z, mask=node_mask)
             if i < cfg.num_layers - 1:

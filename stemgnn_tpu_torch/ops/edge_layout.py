@@ -25,8 +25,9 @@ none) and the local/stray splits (``split_*``, JAX ``_build_loc_split``/
 ``_build_merged_split``, not ported yet).
 
 Port-only fields: ``plan_r``/``plan_s``, the :class:`RowPlan` of each
-direction (the row walk of the GPU kernels 2 and 3), on every layout and
-every hub tail.
+direction (the row walk of the GPU kernels), on every layout and every hub
+tail; ``HubDense.cnt_nz``/``sc_nz``, the nonzero pairs of the count
+blocks (the pair-hash dropout's masks).
 """
 
 from __future__ import annotations
@@ -47,9 +48,10 @@ ROW_CHUNK = 256
 
 @dataclasses.dataclass
 class RowPlan:
-    """The row walk of ``gathered_scatter_rows_sorted`` and
-    ``masked_scatter_rows_sorted`` on the GPU over one direction of a
-    layout, built once per graph on the host (:func:`row_plan`).
+    """The row walk of ``scatter_rows_sorted``,
+    ``gathered_scatter_rows_sorted`` and ``masked_scatter_rows_sorted`` on
+    the GPU over one direction of a layout, built once per graph on the host
+    (:func:`row_plan`).
 
     The counted edges (``local_row`` in [0, 128) and inside their node
     block's ``block_ptr`` range) in a stable order by output row ``block *
@@ -201,6 +203,11 @@ class HubDense:
     coverage: float = 0.0
     sc_size: int = 0
     sc_coverage: float = 0.0
+    # port-only: the (row, column) pairs where ``cnt`` / ``sc_cnt`` are not
+    # zero, each pair once ([P] int64 each): the pair-hash dropout masks the
+    # blocks there (ops.fused_sage.masked_hub_blocks)
+    cnt_nz: Optional[tuple] = None
+    sc_nz: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -361,6 +368,12 @@ def _dense_counts(rows: np.ndarray, cols: np.ndarray, shape, device):
     return cnt.to(torch.bfloat16)
 
 
+def _pairs(keys: np.ndarray, width: int, device):
+    """(rows, cols) int64 tensors of unique ``row * width + col`` keys."""
+    return (torch.from_numpy(keys // width).to(device),
+            torch.from_numpy(keys % width).to(device))
+
+
 def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
                      num_nodes_padded: int, hub_size: int, node_block: int,
                      edge_chunk: int, min_coverage: float, tail_e_pad_to: int,
@@ -407,7 +420,7 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
 
     # scatter-side hub block over the remaining edges, gated like the
     # gather side with the extra f(x) [N, D] pass charged to the dense cost
-    sc_ids_pad = cnt_sc = None
+    sc_ids_pad = cnt_sc = sc_nz = None
     h2 = 0
     sc_cov = 0.0
     if sc_hub_size and not typed:   # typed messages are per (source, type):
@@ -440,11 +453,9 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
             is_sc = tail & (sc_rank[sidx] < h2)
             sc_rows = sc_rank[sidx[is_sc]].astype(np.int64)
             sc_cols = gidx[is_sc].astype(np.int64)
-            ok = True
-            if sc_rows.size:
-                _, mult = np.unique(sc_rows * (num_nodes_padded + 1)
-                                    + sc_cols, return_counts=True)
-                ok = mult.max(initial=0) < 256   # exact-bf16 counts
+            sc_pairs, mult = np.unique(sc_rows * (num_nodes_padded + 1)
+                                       + sc_cols, return_counts=True)
+            ok = mult.max(initial=0) < 256       # exact-bf16 counts
             if not ok:
                 h2 = 0
                 sc_cov = 0.0
@@ -453,18 +464,19 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
                 h2_pad = round_up(h2, 128)
                 cnt_sc = _dense_counts(sc_rows, sc_cols,
                                        (h2_pad, num_nodes_padded), device)
+                sc_nz = _pairs(sc_pairs, num_nodes_padded + 1, device)
                 sc_ids_pad = np.zeros(h2_pad, np.int64)
                 sc_ids_pad[:h2] = sc_ids
 
     h_pad = round_up(h, 128)
     hub_rows = sidx[is_hub].astype(np.int64)
     hub_cols = edge_rank[is_hub].astype(np.int64)
-    if hub_rows.size:
-        _, mult = np.unique(hub_rows * h_pad + hub_cols, return_counts=True)
-        if mult.max(initial=0) >= 256:
-            # multiplicity beyond exact bf16 integers: skip the
-            # decomposition rather than aggregate inexactly
-            return None
+    hub_pairs, mult = np.unique(hub_rows * h_pad + hub_cols,
+                                return_counts=True)
+    if mult.max(initial=0) >= 256:
+        # multiplicity beyond exact bf16 integers: skip the decomposition
+        # rather than aggregate inexactly
+        return None
     cnt = _dense_counts(hub_rows, hub_cols, (num_nodes_padded, h_pad), device)
     hub_ids_pad = np.zeros(h_pad, np.int64)
     hub_ids_pad[:h] = hub_ids
@@ -485,6 +497,7 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
         sc_ids=(None if sc_ids_pad is None
                 else torch.from_numpy(sc_ids_pad).to(device)),
         sc_cnt=cnt_sc, sc_size=h2, sc_coverage=sc_cov,
+        cnt_nz=_pairs(hub_pairs, h_pad, device), sc_nz=sc_nz,
         hub_xe=(None if hub_xe_pad is None
                 else torch.from_numpy(hub_xe_pad).to(device)))
 

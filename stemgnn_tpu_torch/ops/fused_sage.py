@@ -47,15 +47,39 @@ the layout or hub tail).
     the messages are rebuilt and ``pre > 0`` masks the edge gradients
     before kernel 1.  The table gets a zero gradient.
 
-``relu=False``, ``edge_keep``, ``drop_hash`` and ``drop_mask_layout`` are
-not ported yet and raise.
+**Pair-hash edge dropout** (``drop_hash=(seed, p)``, factored branch only;
+JAX ``_make``'s drop helpers, fused_sage.py:72-134, 299-301, 354-404,
+556-579): an edge is kept when ``pair_hash_uniform(seed, {s, r}) >= p``.
+
+  * with hubs (bf16 messages): the count blocks with the dropped (node,
+    hub) pairs zeroed (:func:`masked_hub_blocks`), the tail messages
+    gathered, multiplied by their keep and summed by ``scatter_rows_sorted``
+    (kernel 1) over the tail's row plan, even where the tail's gather gate
+    is open, as JAX does; 1/deg is the kept in-degree (:func:`drop_inv_deg`);
+  * without hubs (or with f32 messages): the whole direction's messages
+    times their keep through kernel 1;
+  * the backward is the same decomposition by sender.
+
+JAX evaluates the keep on the whole dense (node, hub) grid in every call.
+A zero count stays zero whatever its keep, so the port hashes only the
+blocks' nonzero pairs, which the layout records (``HubDense.cnt_nz``/
+``sc_nz``): the masked blocks are equal element for element.  A
+:class:`DropView` computes each direction's masked blocks, tail keeps and
+the kept degrees once, at first use, and the encoder's layers and their
+backward share it (the seed and the layout do not change inside a step).
+
+``relu=False`` and ``edge_keep`` (the runtime-mask route) are not ported
+and raise; ``drop_mask_layout`` (the halo path's hoisted form) is not
+ported.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from stemgnn_tpu_torch.ops.edge_layout import EdgeLayout, HubDense
+from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep
 from stemgnn_tpu_torch.ops.scatter import (gathered_scatter_rows_sorted,
                                            gathered_scatter_rows_sorted_ref,
                                            masked_scatter_rows_sorted,
@@ -96,7 +120,7 @@ def _direction(lay: EdgeLayout, order: str):
 
 
 def _row_walk(kernel, ref, plain: bool, plan):
-    """Kernel 2 or 3 with the direction's row plan, or its plain version
+    """A kernel with the direction's row plan, or its plain version
     (which takes no plan)."""
     if plain:
         return ref
@@ -115,47 +139,176 @@ def tail_messages(src, lay: EdgeLayout, t0, order: str = "r"):
     return torch.where(mask[:, None], m, zero)
 
 
-def hub_partials(src, hub: HubDense, t0, relu: bool = True):
+def hub_partials(src, hub: HubDense, t0, relu: bool = True, blocks=None):
     """[N_pad, D] f32 sums of the hub-covered messages ``f(src)``, f =
     relu(. + t0) or the identity: gather-side hubs as
-    ``cnt @ f(src[hub_ids])``, scatter-side hubs as ``sc_cnt @ f(src)``."""
+    ``cnt @ f(src[hub_ids])``, scatter-side hubs as ``sc_cnt @ f(src)``.
+    ``blocks`` replaces ``(cnt, sc_cnt)`` (the dropout's masked blocks)."""
+    cnt, sc_cnt = (hub.cnt, hub.sc_cnt) if blocks is None else blocks
+
     def f(a):
         a = a if t0 is None else a + t0
         return torch.relu(a) if relu else a
-    if hub.sc_cnt is not None:
+    if sc_cnt is not None:
         # one f(src) [N, D] pass feeds both dense blocks
         f_all = f(src)
-        out = _mm(hub.cnt, f_all.index_select(0, hub.hub_ids))
-        return out.index_add_(0, hub.sc_ids, _mm(hub.sc_cnt, f_all))
-    return _mm(hub.cnt, f(src.index_select(0, hub.hub_ids)))
+        out = _mm(cnt, f_all.index_select(0, hub.hub_ids))
+        return out.index_add_(0, hub.sc_ids, _mm(sc_cnt, f_all))
+    return _mm(cnt, f(src.index_select(0, hub.hub_ids)))
+
+
+def direction_keep(lay: EdgeLayout, seed, p: float, order: str):
+    """[E_pad] bool pair-hash keep of one direction's edges in layout order
+    (JAX ``_keep_edges_dir`` with identity ids: sentinel endpoints clipped to
+    the last row; padded slots are masked wherever the keep is used)."""
+    _, _, gather, _, _, _ = _direction(lay, order)
+    scatter = lay.receivers_r if order == "r" else lay.senders_s
+    last = lay.num_nodes_padded - 1
+    return pair_hash_keep(seed, gather.clamp(max=last),
+                          scatter.clamp(max=last), p)
+
+
+def _masked_block(blk, nz, seed, p, rows_id, cols_id):
+    """``blk`` with the pairs of ``nz`` whose ids (``rows_id[r]``,
+    ``cols_id[c]``) the hash drops set to zero, and the kept values at the
+    pairs (f32)."""
+    r, c = nz
+    vals = blk[r, c]
+    kept = torch.where(pair_hash_keep(seed, rows_id(r), cols_id(c), p), vals,
+                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+    return blk.clone().index_put_((r, c), kept), kept.float()
+
+
+def masked_hub_blocks(hub: HubDense, seed, p: float):
+    """``(cnt, sc_cnt, deg)``: the count blocks with the dropped (node, hub)
+    pairs zeroed (JAX ``_masked_hub_mats``: the gather-side block's rows are
+    nodes and its columns ``hub_ids``, the scatter-side block's rows are
+    ``sc_ids`` and its columns nodes), and the kept count each output row
+    gets from them (``cnt`` summed over hubs, ``sc_cnt`` over nodes added at
+    ``sc_ids``; f32, exact integers).  Only the recorded nonzero pairs are
+    hashed; every other entry is zero and stays so."""
+    cnt, kept = _masked_block(hub.cnt, hub.cnt_nz, seed, p, lambda r: r,
+                              lambda c: hub.hub_ids[c])
+    n_pad = hub.cnt.shape[0]
+    deg = torch.zeros(n_pad, dtype=torch.float32, device=cnt.device)
+    deg.index_add_(0, hub.cnt_nz[0], kept)
+    sc_cnt = hub.sc_cnt
+    if sc_cnt is not None:
+        sc_cnt, kept = _masked_block(sc_cnt, hub.sc_nz, seed, p,
+                                     lambda r: hub.sc_ids[r], lambda c: c)
+        deg.index_add_(0, hub.sc_ids[hub.sc_nz[0]], kept)
+    return cnt, sc_cnt, deg
+
+
+def masked_hub_blocks_dense(hub: HubDense, seed, p: float):
+    """The plain form of :func:`masked_hub_blocks`' blocks, as JAX forms
+    them: the keep hashed over the whole dense (row id, column id) grid of
+    each block, multiplied in."""
+    dev = hub.cnt.device
+    rows = torch.arange(hub.cnt.shape[0], device=dev)
+    keep = pair_hash_keep(seed, rows[:, None], hub.hub_ids[None, :], p)
+    cnt = hub.cnt * keep.to(hub.cnt.dtype)
+    sc_cnt = hub.sc_cnt
+    if sc_cnt is not None:
+        cols = torch.arange(sc_cnt.shape[1], device=dev)
+        keep = pair_hash_keep(seed, hub.sc_ids[:, None], cols[None, :], p)
+        sc_cnt = sc_cnt * keep.to(sc_cnt.dtype)
+    return cnt, sc_cnt
+
+
+class DropView:
+    """The pair-hash dropout ``(seed, p)`` of one step over one layout: each
+    direction's masked hub blocks, each (sub)layout direction's edge keeps
+    and the kept in-degrees, computed at first use and then shared by every
+    aggregation over the layout in the step and by their backward."""
+
+    def __init__(self, layout: EdgeLayout, seed, p: float):
+        self.layout, self.seed, self.p = layout, seed, float(p)
+        self._memo = {}
+
+    def _get(self, key, fn):
+        if key not in self._memo:
+            # one profiler range per kind of mask (profile_pretrain reads
+            # their device time)
+            kind = key if isinstance(key, str) else key[0]
+            with record_function("drop_hash:" + kind):
+                self._memo[key] = fn()
+        return self._memo[key]
+
+    def hub(self, hub: HubDense):
+        """(cnt, sc_cnt, kept hub degrees) of ``hub``, masked."""
+        return self._get(("hub", id(hub)),
+                         lambda: masked_hub_blocks(hub, self.seed, self.p))
+
+    def keep(self, lay: EdgeLayout, order: str):
+        """[E_pad] bool keep of ``lay``'s edges in ``order``."""
+        return self._get(("keep", id(lay), order),
+                         lambda: direction_keep(lay, self.seed, self.p,
+                                                order))
+
+    def inv_deg(self):
+        """[N_pad, 1] f32 1 / kept in-degree (JAX ``_drop_inv_deg``)."""
+        return self._get("inv_deg", lambda: drop_inv_deg(self))
+
+
+def drop_inv_deg(view: DropView):
+    """1 / (kept in-edges per receiver) under the dropout, assembled from
+    the decomposition the forward runs: the masked hub blocks plus the kept
+    tail edges, or the kept edges of the whole direction without a hub
+    block.  Not ``in_degree``: dropped edges do not count."""
+    lay = view.layout
+    n_pad = lay.num_nodes_padded
+    hub = lay.hub_r
+    if hub is not None and hub.hub_xe is None:
+        deg = view.hub(hub)[2].clone()
+        sub = hub.tail
+    else:
+        deg = torch.zeros(n_pad, dtype=torch.float32,
+                          device=lay.in_degree.device)
+        sub = lay
+    kept = (sub.mask_r & view.keep(sub, "r")).float()
+    deg.index_add_(0, sub.receivers_r.clamp(max=n_pad - 1).long(), kept)
+    return (1.0 / torch.clamp(deg, min=1.0))[:, None]
 
 
 def _tail(src, lay: EdgeLayout, order: str, num_nodes_padded: int, *,
           relu: bool, t0, init=None, scale=None, gate=None, out_dtype,
-          plain: bool):
+          plain: bool, keep=None):
     """One direction of ``lay`` summed into [N_pad, D] with the epilogue:
-    the in-kernel gather when the direction's gate is open and the messages
-    are bf16, else the gathered [E, D] messages through
+    the in-kernel gather when the direction's gate is open, the messages
+    are bf16 and no per-edge ``keep`` applies, else the gathered [E, D]
+    messages (times ``keep``: keep * relu(m) == relu(keep * m)) through
     ``scatter_rows_sorted``.  ``plain`` runs the kernels' plain versions."""
     lrow, block_ptr, keys, _, use_gather, plan = _direction(lay, order)
     kw = dict(num_nodes_padded=num_nodes_padded, relu=relu, init=init,
               scale=scale, gate=gate, out_dtype=out_dtype)
-    if use_gather and src.dtype == torch.bfloat16:
+    if use_gather and src.dtype == torch.bfloat16 and keep is None:
         gathered = _row_walk(gathered_scatter_rows_sorted,
                              gathered_scatter_rows_sorted_ref, plain, plan)
         return gathered(keys[None, :], lrow, block_ptr, src, t0, **kw)
-    scatter = scatter_rows_sorted_ref if plain else scatter_rows_sorted
-    return scatter(tail_messages(src, lay, t0, order), lrow, block_ptr, **kw)
+    m = tail_messages(src, lay, t0, order)
+    if keep is not None:
+        m = m * keep.to(m.dtype)[:, None]
+    scatter = _row_walk(scatter_rows_sorted, scatter_rows_sorted_ref, plain,
+                        plan)
+    return scatter(m, lrow, block_ptr, **kw)
 
 
 def _hub_split(src, hub: HubDense, order: str, layout: EdgeLayout, *,
-               relu: bool, t0, scale=None, gate=None, out_dtype, plain):
+               relu: bool, t0, scale=None, gate=None, out_dtype, plain,
+               drop=None):
     """Hub-dense decomposition, final output: dense hub blocks + the tail
-    kernel, the hub sums riding the kernel's ``init``."""
-    init = hub_partials(src, hub, t0, relu).to(out_dtype)
+    kernel, the hub sums riding the kernel's ``init``.  Under ``drop`` (a
+    :class:`DropView`) the blocks are masked and the tail's messages carry
+    their keep."""
+    blocks = keep = None
+    if drop is not None:
+        blocks = drop.hub(hub)[:2]
+        keep = drop.keep(hub.tail, order)
+    init = hub_partials(src, hub, t0, relu, blocks).to(out_dtype)
     return _tail(src, hub.tail, order, layout.num_nodes_padded, relu=relu,
                  t0=t0, init=init, scale=scale, gate=gate,
-                 out_dtype=out_dtype, plain=plain)
+                 out_dtype=out_dtype, plain=plain, keep=keep)
 
 
 def typed_messages(src, tb, lay: EdgeLayout, order: str):
@@ -184,7 +337,8 @@ def _typed_tail(src, tb, lay: EdgeLayout, num_nodes_padded: int, *,
                              lay.plan_r)
         return gathered(lay.senders_r[None, :], lay.lrow_r, lay.block_ptr_r,
                         src, tb, lay.xe_r[None, :], **kw)
-    scatter = scatter_rows_sorted_ref if plain else scatter_rows_sorted
+    scatter = _row_walk(scatter_rows_sorted, scatter_rows_sorted_ref, plain,
+                        lay.plan_r)
     return scatter(typed_messages(src, tb, lay, "r"), lay.lrow_r,
                    lay.block_ptr_r, **kw)
 
@@ -229,7 +383,8 @@ def _typed_backward(g, x, lay, table, reduce, mdtype, plain):
                       lay.block_ptr_s, src, tb, lay.xe_s[None, :],
                       out_dtype=x.dtype, **kw)
     dm = torch.where(typed_messages(src, tb, lay, "s") > 0, dm, zero)
-    scatter = scatter_rows_sorted_ref if plain else scatter_rows_sorted
+    scatter = _row_walk(scatter_rows_sorted, scatter_rows_sorted_ref, plain,
+                        lay.plan_s)
     return scatter(dm, lay.lrow_s, lay.block_ptr_s, **kw)
 
 
@@ -237,20 +392,27 @@ def _typed(edge_table) -> bool:
     return edge_table is not None and edge_table.shape[0] > 1
 
 
-def _forward(x, layout, edge_table, reduce, mdtype, plain):
+def _mean_scale(layout, reduce, drop):
+    if reduce != "mean":
+        return None
+    return inv_deg(layout) if drop is None else drop.inv_deg()
+
+
+def _forward(x, layout, edge_table, reduce, mdtype, plain, drop=None):
     if _typed(edge_table):
         return _typed_forward(x, layout, edge_table, reduce, mdtype, plain)
     out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     src = x.to(mdtype)
     kw = dict(relu=True, t0=table_row(edge_table, mdtype),
-              scale=inv_deg(layout) if reduce == "mean" else None,
-              out_dtype=out_dtype, plain=plain)
+              scale=_mean_scale(layout, reduce, drop), out_dtype=out_dtype,
+              plain=plain)
     if layout.hub_r is not None and mdtype == torch.bfloat16:
-        return _hub_split(src, layout.hub_r, "r", layout, **kw)
-    return _tail(src, layout, "r", layout.num_nodes_padded, **kw)
+        return _hub_split(src, layout.hub_r, "r", layout, drop=drop, **kw)
+    keep = None if drop is None else drop.keep(layout, "r")
+    return _tail(src, layout, "r", layout.num_nodes_padded, keep=keep, **kw)
 
 
-def _backward(g, x, layout, edge_table, reduce, mdtype, plain):
+def _backward(g, x, layout, edge_table, reduce, mdtype, plain, drop=None):
     """dx of the factored aggregation (JAX ``f_bwd``): the sender-order
     decomposition of ``gp = g / deg`` (rounded to the message dtype) with
     the relu gate ``x (+ t0) > 0`` in the kernels' epilogue."""
@@ -259,7 +421,7 @@ def _backward(g, x, layout, edge_table, reduce, mdtype, plain):
                                plain)
     gp = g.float()
     if reduce == "mean":
-        gp = gp * inv_deg(layout)
+        gp = gp * _mean_scale(layout, reduce, drop)
     gp = gp.to(mdtype)
     t0 = table_row(edge_table, mdtype)
     # the single-type shift keeps the forward's pre-activation arithmetic
@@ -267,8 +429,9 @@ def _backward(g, x, layout, edge_table, reduce, mdtype, plain):
     gate = x if t0 is None else x.to(mdtype) + t0
     kw = dict(relu=False, t0=None, gate=gate, out_dtype=x.dtype, plain=plain)
     if layout.hub_s is not None and mdtype == torch.bfloat16:
-        return _hub_split(gp, layout.hub_s, "s", layout, **kw)
-    return _tail(gp, layout, "s", layout.num_nodes_padded, **kw)
+        return _hub_split(gp, layout.hub_s, "s", layout, drop=drop, **kw)
+    keep = None if drop is None else drop.keep(layout, "s")
+    return _tail(gp, layout, "s", layout.num_nodes_padded, keep=keep, **kw)
 
 
 class _FusedSage(torch.autograd.Function):
@@ -276,11 +439,11 @@ class _FusedSage(torch.autograd.Function):
     ``f``/``f_fwd``/``f_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, edge_table, layout, reduce, mdtype, plain):
+    def forward(ctx, x, edge_table, layout, reduce, mdtype, plain, drop):
         ctx.save_for_backward(x, edge_table)
-        ctx.layout, ctx.reduce, ctx.mdtype, ctx.plain = (layout, reduce,
-                                                         mdtype, plain)
-        return _forward(x, layout, edge_table, reduce, mdtype, plain)
+        ctx.layout, ctx.reduce, ctx.mdtype, ctx.plain, ctx.drop = (
+            layout, reduce, mdtype, plain, drop)
+        return _forward(x, layout, edge_table, reduce, mdtype, plain, drop)
 
     @staticmethod
     def backward(ctx, g):
@@ -290,10 +453,10 @@ class _FusedSage(torch.autograd.Function):
         # as JAX's jit drops that computation
         if ctx.needs_input_grad[0]:
             dx = _backward(g, x, ctx.layout, edge_table, ctx.reduce,
-                           ctx.mdtype, ctx.plain)
+                           ctx.mdtype, ctx.plain, ctx.drop)
         if ctx.needs_input_grad[1]:
             dtable = torch.zeros_like(edge_table)
-        return dx, dtable, None, None, None, None
+        return dx, dtable, None, None, None, None, None
 
 
 def fused_sage_aggregate(x, layout: EdgeLayout, edge_table=None, *,
@@ -304,7 +467,9 @@ def fused_sage_aggregate(x, layout: EdgeLayout, edge_table=None, *,
     ``x``.  ``edge_table`` is None, a single-row [1, D] type table, or a
     [T, D] table whose rows the layout's ``xe`` ids pick per edge.
     ``plain`` runs the kernels' plain versions on the same device (to check
-    the kernels against)."""
+    the kernels against).  ``drop_hash`` is ``(seed, p)`` or a
+    :class:`DropView` of this layout: the pair-hash edge dropout (module
+    docstring); factored aggregations only."""
     if x.shape[0] != layout.num_nodes_padded:
         raise ValueError(f"x has {x.shape[0]} rows, the layout "
                          f"{layout.num_nodes_padded}")
@@ -316,10 +481,21 @@ def fused_sage_aggregate(x, layout: EdgeLayout, edge_table=None, *,
         raise ValueError("a typed table needs a layout built with xe_ids")
     if not relu:
         raise NotImplementedError("relu=False messages are not ported")
-    if edge_keep is not None or drop_hash is not None:
-        raise NotImplementedError("runtime edge masks (edge_keep, drop_hash, "
-                                  "drop_mask_layout) are not ported yet")
+    if edge_keep is not None:
+        raise NotImplementedError("the runtime edge mask route (edge_keep) "
+                                  "is not ported; use drop_hash")
     if reduce not in ("mean", "sum"):
         raise ValueError(f"unsupported reduce: {reduce}")
+    drop = drop_hash
+    if drop is not None:
+        if _typed(edge_table):
+            # JAX refuses it too (an assert): typed messages do not factor
+            raise NotImplementedError("drop_hash needs the factored (relu, "
+                                      "T <= 1) aggregation")
+        if not isinstance(drop, DropView):
+            drop = DropView(layout, *drop)
+        elif drop.layout is not layout:
+            raise ValueError("the DropView was made for another layout")
     mdtype = torch.bfloat16 if bf16_messages else torch.float32
-    return _FusedSage.apply(x, edge_table, layout, reduce, mdtype, plain)
+    return _FusedSage.apply(x, edge_table, layout, reduce, mdtype, plain,
+                            drop)

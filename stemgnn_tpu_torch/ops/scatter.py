@@ -45,25 +45,24 @@ int32.  No epilogue.  The TPU kernel's x windows (``win_lo``,
 ``win_nsub``, ``win_w``) have no counterpart: on the sender-sorted layout
 the gating row is one of the node block's own rows.
 
-All three are bound by bytes on the H100 (see the notes in ``csrc/``).
-Kernel 1 gives each CUDA block one node block x 128 columns with a
-shared-memory f32 accumulator that only the owning thread touches.  Kernels
-2 and 3 walk output rows (``csrc/row_walk.cuh``): a host-side
+All three are bound by bytes on the H100 (see the notes in ``csrc/``) and
+walk output rows (``csrc/row_walk.cuh``): a host-side
 :class:`~stemgnn_tpu_torch.ops.edge_layout.RowPlan` lists the counted edges
 in output-row order, cut into work items of at most ``RowPlan.chunk``
 edges; one warp sums one item in registers and finishes its row, and a
 second pass inside the same launch call adds the partial sums of the rows
-longer than a chunk.  Their wrappers take the plan (``plan=``: the layout's
-``plan_r``/``plan_s``, or :func:`~stemgnn_tpu_torch.ops.edge_layout.
-row_plan` for bare arrays); a CUDA call without the plan of the arrays it is
-given raises.  A warp covers whole rows (up to 768 columns a pass, 8
-columns a lane at once), or pairs of columns where D or the arrays'
-alignment does not allow 8.
+longer than a chunk.  Kernels 1 and 3 read their message rows at the plan's
+layout positions, kernel 2 gathers its rows by the plan's keys.  The
+wrappers take the plan (``plan=``: the layout's ``plan_r``/``plan_s``, or
+:func:`~stemgnn_tpu_torch.ops.edge_layout.row_plan` for bare arrays); a
+CUDA call without the plan of the arrays it is given raises.  A warp covers
+whole rows (up to 768 columns a pass, 8 columns a lane at once), or pairs
+of columns where D or the arrays' alignment does not allow 8.
 
 Each wrapper runs its CUDA kernel for CUDA tensors and its plain version
 (``*_ref``) for CPU tensors — nothing else; a CPU call ignores the plan —
-and adds one to ``launch_counts[name]`` per launch call (for kernels 2 and
-3 the second pass runs inside that call and is not counted apart).  The
+and adds one to ``launch_counts[name]`` per launch call (the second pass
+runs inside that call and is not counted apart).  The
 kernels are compiled with ``nvcc`` at first use into ``_build/`` beside this
 package, keyed by a hash of the sources, one ``nvcc`` per kernel started
 together (:func:`build`), and loaded with ``ctypes``.
@@ -91,7 +90,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name -> argument types of its C entry ``<name>_launch``
 KERNELS = {
-    "scatter_rows_sorted": [_P] * 7 + [_I] * 8 + [_P],
+    "scatter_rows_sorted": [_P] * 12 + [_I] * 9 + [_P],
     "gathered_scatter_rows_sorted": [_P] * 14 + [_I] * 10 + [_P],
     "masked_scatter_rows_sorted": [_P] * 13 + [_I] * 8 + [_P],
 }
@@ -295,16 +294,20 @@ def _launch(name, *args):
 def scatter_rows_sorted(m, local_row, block_ptr, *, num_nodes_padded: int,
                         node_block: int = NODE_BLOCK, relu: bool = False,
                         init=None, scale=None, gate=None,
-                        out_dtype=torch.float32):
+                        out_dtype=torch.float32, plan=None):
     """Sum-scatter ``m`` into [num_nodes_padded, D] (module docstring).
     CPU tensors run :func:`scatter_rows_sorted_ref`; CUDA tensors launch the
-    kernel or raise."""
+    kernel over ``plan`` (a RowPlan built from ``local_row`` and
+    ``block_ptr``) or raise."""
     if m.dim() != 2 or m.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"m must be [E_pad, D] bf16/f32, got "
                          f"{tuple(m.shape)} {m.dtype}")
     e_pad, d = m.shape
     _check_rows(e_pad, local_row, block_ptr, num_nodes_padded, node_block)
     _check_epilogue(d, num_nodes_padded, init, scale, gate, out_dtype)
+    if m.device.type != "cpu":
+        _check_plan("scatter_rows_sorted", plan,
+                    dict(local_row=local_row, block_ptr=block_ptr), {})
     _check_device("scatter_rows_sorted", m, dict(
         m=m, local_row=local_row, block_ptr=block_ptr, init=init,
         scale=scale, gate=gate))
@@ -313,11 +316,17 @@ def scatter_rows_sorted(m, local_row, block_ptr, *, num_nodes_padded: int,
     if m.device.type == "cpu":
         return scatter_rows_sorted_ref(m, local_row, block_ptr, **kw)
     out = torch.empty((num_nodes_padded, d), dtype=out_dtype, device=m.device)
+    partials = (torch.empty((plan.num_slots, d), dtype=torch.float32,
+                            device=m.device) if plan.num_slots else None)
+    mode = _col_mode(d, [m, init, gate, out, partials])
     with torch.cuda.device(m.device):
-        _launch("scatter_rows_sorted", _ptr(m), _ptr(local_row),
-                _ptr(block_ptr), _ptr(init), _ptr(scale), _ptr(gate),
-                _ptr(out), num_nodes_padded // NODE_BLOCK, e_pad, d,
-                _bf16(m), _bf16(out), int(relu), _bf16(init), _bf16(gate))
+        _launch("scatter_rows_sorted", _ptr(m), _ptr(plan.pos),
+                _ptr(plan.item_row), _ptr(plan.item_start),
+                _ptr(plan.item_slot), _ptr(plan.split_row),
+                _ptr(plan.split_ptr), _ptr(init), _ptr(scale), _ptr(gate),
+                _ptr(out), _ptr(partials), plan.num_items, plan.num_split, d,
+                _bf16(m), _bf16(out), int(relu), _bf16(init), _bf16(gate),
+                mode)
     return out
 
 

@@ -14,6 +14,11 @@ paths behind :func:`sage_aggregate`:
     matmuls + the ``gathered_scatter_rows_sorted`` or ``scatter_rows_sorted``
     kernel, with its backward), taken whenever the graph carries an
     ``EdgeLayout``.
+
+The pair-hash edge dropout (``drop_hash=(seed, p)``) rides the layout path
+as the fused form; without a layout its per-edge keep is derived from the
+same hash and folded into ``edge_mask`` (JAX spmm.py:98-110), so both paths
+drop the same edges.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from stemgnn_tpu_torch.ops import segment
 from stemgnn_tpu_torch.ops.fused_sage import fused_sage_aggregate
+from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep
 
 
 def gather_scatter_aggregate(x, senders, receivers, edge_feat=None,
@@ -46,18 +52,25 @@ def gather_scatter_aggregate(x, senders, receivers, edge_feat=None,
 def sage_aggregate(x, senders, receivers, edge_feat=None, edge_mask=None,
                    num_nodes: Optional[int] = None, reduce: str = "mean",
                    relu: bool = True, layout=None, edge_table=None,
-                   bf16_messages: bool = True, plain: bool = False):
+                   bf16_messages: bool = True, plain: bool = False,
+                   drop_hash=None):
     """Dispatching front end: the fused layout path when ``layout`` is given
     (``edge_table`` [T, D] supplies the per-edge-type features), else the
     gather + scatter path over ``edge_feat``.  ``plain`` makes the fused
-    path run its kernels' plain versions."""
+    path run its kernels' plain versions.  ``drop_hash``: ``(seed, p)`` (or,
+    with a layout, an ``ops.fused_sage.DropView``) drops the edge pairs the
+    pair hash picks."""
     if layout is not None:
         if edge_feat is not None and edge_table is None:
             raise ValueError("the layout path takes edge features as "
                              "edge_table + layout ids, not edge_feat")
         return fused_sage_aggregate(x, layout, edge_table, reduce=reduce,
                                     relu=relu, bf16_messages=bf16_messages,
-                                    plain=plain)
+                                    plain=plain, drop_hash=drop_hash)
+    if drop_hash is not None:
+        seed, p = drop_hash
+        keep = pair_hash_keep(seed, senders, receivers, p)
+        edge_mask = keep if edge_mask is None else edge_mask & keep
     return gather_scatter_aggregate(
         x, senders, receivers, edge_feat=edge_feat, edge_mask=edge_mask,
         num_nodes=num_nodes, reduce=reduce, relu=relu)

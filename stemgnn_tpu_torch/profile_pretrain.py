@@ -1,0 +1,260 @@
+"""Where the time of one full-graph pretrain step goes on the card.
+
+    python -m stemgnn_tpu_torch.profile_pretrain [--dataset arxiv_synthetic_pl]
+
+The counterpart of ``scripts/pretrain_step_probe.py``'s ``full_step`` with
+the pair-hash dropout: builds the dataset and its layout, a
+:class:`~stemgnn_tpu_torch.models.pretrain.PretrainModel` with random
+weights from ``--seed`` (2-layer SAGE at D = 768 with batch norm and
+dropout 0.15, the 4-head cosine VQ with 128 learnable codes, the four
+decoders) and its EMA teacher, and runs ``train.pretrain_loop``'s step at
+``bs`` = the padded node count.  Prints:
+
+  * host stage times and the layout;
+  * the kernel launches of one step;
+  * the step's time by CUDA events (mean of ``--reps``), split into the
+    forward with the losses (the draws and augmentation included), the
+    backward, and AdamW with the clip plus the teacher's EMA update;
+  * the step's device time by kernel (``torch.profiler``), the device's
+    busy share, and the shares of kernel 1, kernel 2 (and their second
+    pass), the GEMMs, the other (elementwise, reduction, copy) kernels, and
+    the dropout's masks (the ``drop_hash:*`` ranges, whose kernels the
+    other rows also count);
+  * the masked hub blocks of both directions by CUDA events as the step
+    forms them (the blocks' nonzero pairs hashed) and in the dense form
+    the JAX package uses (the whole (node, hub) grid hashed);
+  * peak device memory of a step and the card's name and power limit.
+
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from stemgnn_tpu_torch.core.config import (EncoderConfig, PretrainConfig,
+                                           VQConfig)
+from stemgnn_tpu_torch.core.device import resolve_device
+from stemgnn_tpu_torch.data.registry import load_dataset
+from stemgnn_tpu_torch.models.pretrain import (PretrainModel,
+                                               ema_update_teacher,
+                                               make_teacher,
+                                               pretrain_forward)
+from stemgnn_tpu_torch.ops import scatter as sc
+from stemgnn_tpu_torch.ops.fused_sage import (hub_partials,
+                                              masked_hub_blocks,
+                                              masked_hub_blocks_dense,
+                                              tail_messages)
+from stemgnn_tpu_torch.profile_encode import (_device_us, _on_device,
+                                              card_line, kernel_table)
+from stemgnn_tpu_torch.train.graph_setup import describe_layout
+from stemgnn_tpu_torch.train.pretrain_loop import (augmented, draw_step,
+                                                   make_pretrain_optimizer,
+                                                   make_pretrain_step,
+                                                   pretrain_graph)
+
+STAGES = ("forward+losses", "backward", "AdamW+clip+EMA")
+# the profiler ranges of ops.fused_sage.DropView's masks
+DROP_RANGES = ("drop_hash:hub", "drop_hash:keep", "drop_hash:inv_deg")
+# device kernels by name, in the order they are matched
+GROUPS = (("kernel 1", ("scatter_rows_kernel",)),
+          ("kernel 2", ("gathered_rows_kernel",)),
+          ("second pass (kernels 1-2)", ("split_rows_kernel",)),
+          ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "Gemm")),
+          ("other (elementwise, reductions, copies)", ("",)))
+
+
+def pretrain_config(d: int) -> PretrainConfig:
+    """The step probe's configuration at width ``d``."""
+    return PretrainConfig(
+        encoder=EncoderConfig(input_dim=d, hidden_dim=d, num_layers=2,
+                              normalize="batch", dropout=0.15),
+        vq=VQConfig(dim=d, codebook_size=128, codebook_dim=d, heads=4),
+        batch_size=0)
+
+
+def dropout_tail_cases(graph, view, src, t0):
+    """Kernel 1's launches on the pretrain step's dropout tails, as
+    ``ops.fused_sage`` makes them under ``drop_hash``: layer 1's forward
+    hub tail (the masked features in bf16 gathered with t0, times the tail
+    keep; the masked hub blocks' sums as init, 1/kept degree as scale) and
+    the backward hub tail (gp = g / kept degree in bf16 gathered by
+    receiver, times the keep; the masked blocks' sums of gp as init, the
+    relu gate), on seeded random upstream gradients.  Returns
+    ``{direction: (arguments of the kernel and its plain version, keywords
+    of both, the kernel's row plan keyword)}``."""
+    lay = graph.layout
+    dev = src.device
+    ft, bt = lay.hub_r.tail, lay.hub_s.tail
+    n_pad = lay.num_nodes_padded
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gp = (torch.randn(src.shape, device=dev, generator=gen)
+          * view.inv_deg()).to(torch.bfloat16)
+    fwd_epi = dict(num_nodes_padded=n_pad, relu=True,
+                   init=hub_partials(src, lay.hub_r, t0,
+                                     blocks=view.hub(lay.hub_r)[:2]),
+                   scale=view.inv_deg(), out_dtype=torch.float32)
+    bwd_epi = dict(num_nodes_padded=n_pad, relu=False,
+                   init=hub_partials(gp, lay.hub_s, None, relu=False,
+                                     blocks=view.hub(lay.hub_s)[:2]),
+                   gate=src + t0, out_dtype=torch.float32)
+    keep_r = view.keep(ft, "r").to(torch.bfloat16)[:, None]
+    keep_s = view.keep(bt, "s").to(torch.bfloat16)[:, None]
+    return {"drop_fwd": (dict(m=tail_messages(src, ft, t0) * keep_r,
+                              local_row=ft.lrow_r, block_ptr=ft.block_ptr_r),
+                         fwd_epi, dict(plan=ft.plan_r)),
+            "drop_bwd": (dict(m=tail_messages(gp, bt, None, "s") * keep_s,
+                              local_row=bt.lrow_s, block_ptr=bt.block_ptr_s),
+                         bwd_epi, dict(plan=bt.plan_s))}
+
+
+def cuda_ms(fn, reps: int) -> float:
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def group_shares(prof, reps: int):
+    """Device ms per step of each kernel group and of the dropout's mask
+    ranges, and the busy ms they share."""
+    per = {name: 0.0 for name, _ in GROUPS}
+    ranges = {}
+    for e in prof.key_averages():
+        if not _on_device(e):
+            continue
+        us = _device_us(e) / reps
+        if e.key in DROP_RANGES:
+            ranges[e.key] = ranges.get(e.key, 0.0) + us / 1e3
+            continue
+        for name, needles in GROUPS:
+            if any(n in e.key for n in needles):
+                per[name] += us / 1e3
+                break
+    return per, ranges
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("profile_pretrain")
+    p.add_argument("--dataset", default="arxiv_synthetic_pl")
+    p.add_argument("--feat_dim", type=int, default=768)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--top", type=int, default=20)
+    args = p.parse_args(argv)
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    ds = load_dataset(args.dataset, feat_dim=args.feat_dim, seed=args.seed)
+    t_data = time.perf_counter() - t0
+    cfg = pretrain_config(args.feat_dim)
+    t0 = time.perf_counter()
+    g = pretrain_graph(ds, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    print(f"host: dataset {t_data:.2f} s, graph + layout {t_graph:.2f} s; "
+          f"{g.num_nodes_padded} padded nodes, {ds.num_edges} edges; "
+          f"{describe_layout(g.layout)}", flush=True)
+
+    model = PretrainModel(
+        cfg, generator=torch.Generator().manual_seed(args.seed)).to(dev)
+    teacher = make_teacher(model)
+    opt = make_pretrain_optimizer(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    bs = g.num_nodes_padded
+    step = make_pretrain_step(cfg, bs, generator=gen)
+
+    for _ in range(2):
+        step(model, teacher, opt, g)
+    for k in sc.launch_counts:
+        sc.launch_counts[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    losses = step(model, teacher, opt, g)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"kernel launches of one step: {sc.launch_counts}")
+    print("losses: " + ", ".join(f"{k} {float(v):.5f}"
+                                 for k, v in losses.items()))
+
+    stage_ms = np.zeros(len(STAGES))
+    for _ in range(args.reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        draws = draw_step(cfg, g, gen)
+        opt.zero_grad()
+        loss, _, _ = pretrain_forward(
+            model, teacher, cfg, augmented(cfg, g, draws), g, bs=bs,
+            draws=draws, drop_seed=draws["drop_seed"], generator=gen)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ema_update_teacher(teacher, model.encoder, cfg.sem_encoder_decay)
+        ev[3].record()
+        torch.cuda.synchronize()
+        stage_ms += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    stage_ms /= args.reps
+    print(f"pretrain step: {stage_ms.sum():.3f} ms (CUDA events, mean of "
+          f"{args.reps}): " + ", ".join(
+              f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stage_ms)),
+          flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            step(model, teacher, opt, g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = kernel_table(prof, args.reps, wall_ms, args.top, "step",
+                          ranges=DROP_RANGES)
+    busy = sum(_device_us(e) for e in events if _on_device(e)
+               and e.key not in DROP_RANGES) / 1e3 / args.reps
+    per, ranges = group_shares(prof, args.reps)
+    if busy > 0:
+        print("device time per step by group:")
+        for name, ms in per.items():
+            print(f"  {name}: {ms:.3f} ms ({100 * ms / busy:.1f}% of busy)")
+        for name, ms in sorted(ranges.items()):
+            print(f"  range {name}: {ms:.3f} ms ({100 * ms / busy:.1f}% "
+                  f"of busy; its kernels are counted above too)")
+    else:
+        print("the profiler saw no device time: the shares are not "
+              "measured")
+
+    seed = torch.tensor(12345, device=dev)
+    for tag, hub in (("hub_r", g.layout.hub_r), ("hub_s", g.layout.hub_s)):
+        if hub is None:
+            continue
+        nz = hub.cnt_nz[0].numel() + (0 if hub.sc_nz is None
+                                      else hub.sc_nz[0].numel())
+        sparse = cuda_ms(lambda: masked_hub_blocks(hub, seed, cfg.edge_p),
+                         args.reps)
+        dense = cuda_ms(
+            lambda: masked_hub_blocks_dense(hub, seed, cfg.edge_p), 2)
+        grid = hub.cnt.numel() + (0 if hub.sc_cnt is None
+                                  else hub.sc_cnt.numel())
+        print(f"masked {tag} blocks: {sparse:.3f} ms hashing the {nz} "
+              f"nonzero pairs (the step's form); {dense:.3f} ms hashing "
+              f"the whole {grid} grid (the JAX package's form)", flush=True)
+    print(f"peak device memory of a step {peak_gb:.2f} GB ({held_gb:.2f} GB "
+          f"held before it: graph, layout, model, teacher, AdamW state)")
+    print(card_line(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

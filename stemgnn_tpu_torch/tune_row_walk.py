@@ -1,6 +1,6 @@
 """Replays, on the card, the choice of the row walk's rows in flight per warp
-(U), register caps and epilogue prefetch for kernels 2 and 3
-(``csrc/gathered_scatter_rows_sorted.cu``,
+(U), register caps and epilogue prefetch for kernels 1, 2 and 3
+(``csrc/scatter_rows_sorted.cu``, ``csrc/gathered_scatter_rows_sorted.cu``,
 ``csrc/masked_scatter_rows_sorted.cu``, ``csrc/row_walk.cuh``).
 
     python -m stemgnn_tpu_torch.tune_row_walk [--reps 20]
@@ -8,9 +8,11 @@
 Builds every variant of :data:`VARIANTS` with ``nvcc -D`` values (one
 ``nvcc`` per variant and source that the variant changes, all started
 together, into ``_build/tune/``), then times each variant by CUDA events
-through the port's own wrappers at the shapes the smoke times: the node
-path's forward and backward hub tails of ``arxiv_synthetic_pl`` (kernel 2
-with t0 and without a table), kernel 2's xe mode and kernel 3 over the
+through the port's own wrappers at the shapes the smoke times: the
+pretrain step's forward and backward dropout tails of ``arxiv_synthetic_pl``
+(kernel 1, bf16 messages), the node path's forward and backward hub tails
+(kernel 2 with t0 and without a table), kernel 2's xe mode and kernel 3 over
+the
 whole arxiv graph with 11 random edge types, and both at the link path's
 WN18RR-size layout (``kg_synthetic``).  Each variant's output is checked
 against the plain version at the smoke's tolerance.  Prints each variant's
@@ -38,13 +40,18 @@ from stemgnn_tpu_torch.core.device import resolve_device
 from stemgnn_tpu_torch.data.registry import load_dataset
 from stemgnn_tpu_torch.ops import scatter as sc
 from stemgnn_tpu_torch.ops.edge_layout import build_edge_layout
-from stemgnn_tpu_torch.ops.fused_sage import (hub_partials, inv_deg,
-                                              table_row)
+from stemgnn_tpu_torch.ops.fused_sage import (DropView, hub_partials,
+                                              inv_deg, table_row)
 from stemgnn_tpu_torch.profile_encode import (_device_us, _on_device,
                                               card_line)
+from stemgnn_tpu_torch.profile_pretrain import dropout_tail_cases
 from stemgnn_tpu_torch.train.graph_setup import fused_full_graph
 
-K2, K3 = "gathered_scatter_rows_sorted", "masked_scatter_rows_sorted"
+K1, K2, K3 = ("scatter_rows_sorted", "gathered_scatter_rows_sorted",
+              "masked_scatter_rows_sorted")
+KERNELS = (K1, K2, K3)
+# the -D prefix of each kernel's own choices
+_PREFIX = {K1: "K1_", K2: "K2_", K3: "K3_"}
 D, SEED, TYPES = 768, 42, 11
 WN18RR_ENTITIES, WN18RR_TRIPLES = 40_943, 93_003
 # f32 out against the plain version: the smoke's tolerance
@@ -53,7 +60,7 @@ RTOL, ATOL = 1e-4, 1e-3
 # -D values per variant; the sources' defaults are "chosen".  U: rows in
 # flight a warp; MIN_BLOCKS: blocks of 128 threads an SM that the register
 # cap must allow (1 = no cap, 5 = 96 registers, 8 = 64).
-_ALL = ("K2_", "K2_XE_", "K3_")
+_ALL = ("K1_", "K2_", "K2_XE_", "K3_")
 
 
 def _each(u, blocks):
@@ -73,12 +80,14 @@ VARIANTS = {
     "u1_cap64": _each(1, 8),
     "xe_u1_nocap": dict(K2_XE_MIN_BLOCKS=1),
     "k3_u1_cap64": dict(K3_MIN_BLOCKS=8),
+    "k1_u2": dict(K1_UNROLL=2),
+    "k1_u1_nocap": dict(K1_MIN_BLOCKS=1),
+    "k1_prefetch": dict(K1_PREFETCH=1),
 }
 
 
 def _touches(name: str, defines: dict) -> bool:
-    prefix = "K2_" if name == K2 else "K3_"
-    return any(k.startswith(prefix) or k.startswith("ROW_WALK_")
+    return any(k.startswith(_PREFIX[name]) or k.startswith("ROW_WALK_")
                for k in defines)
 
 
@@ -89,7 +98,7 @@ def build_variants(variants: dict) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for var, defines in variants.items():
-        for name in (K2, K3):
+        for name in KERNELS:
             if var != "chosen" and not _touches(name, defines):
                 continue
             path = os.path.join(out_dir, f"{name}-{var}.so")
@@ -108,14 +117,16 @@ def build_variants(variants: dict) -> dict:
         fn.argtypes, fn.restype = sc.KERNELS[key[1]], ctypes.c_int
         built[key] = (lib, log)
     for var in variants:
-        for name in (K2, K3):
+        for name in KERNELS:
             built.setdefault((var, name), built[("chosen", name)])
     return built
 
 
 # whole-row instances with f32 out (and bf16 dm) by the start of their
 # mangled template arguments: the instances the paths launch
-_PATH_INSTANCES = {K2: {"Li0Ef": "plain", "Li1Ef": "t0", "Li2Ef": "xe"},
+_PATH_INSTANCES = {K1: {"13__nv_bfloat16f": "bf16 messages",
+                        "ff": "f32 messages"},
+                   K2: {"Li0Ef": "plain", "Li1Ef": "t0", "Li2Ef": "xe"},
                    K3: {"Lb0E13__nv_bfloat16f": "untyped",
                         "Lb1E13__nv_bfloat16f": "typed"}}
 
@@ -153,6 +164,11 @@ def cases(dev) -> dict:
     gp = (torch.randn(src.shape, device=dev, generator=gen)
           * inv_deg(lay)).to(torch.bfloat16)
     ft, bt, n_pad = lay.hub_r.tail, lay.hub_s.tail, lay.num_nodes_padded
+    view = DropView(lay, torch.tensor(12345, device=dev), 0.2)
+    for direction, (args, kw, plan) in dropout_tail_cases(
+            graph, view, src, t0).items():
+        out[f"pretrain {direction} tail"] = (
+            sc.scatter_rows_sorted, tuple(args.values()), {**kw, **plan})
     out["node fwd tail (t0)"] = (sc.gathered_scatter_rows_sorted, (
         ft.senders_r[None, :], ft.lrow_r, ft.block_ptr_r, src, t0), dict(
         num_nodes_padded=n_pad, relu=True,
@@ -261,15 +277,14 @@ def main(argv=None):
     print(f"built {len(VARIANTS)} variants in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for var in VARIANTS:
-        for name in (K2, K3):
+        for name in KERNELS:
             print(f"  {var} {name}: "
                   f"{path_registers(name, built[(var, name)][1])}",
                   flush=True)
     times, plans = {}, []
     for case, (fn, a, kw) in cases(dev).items():
-        name = K2 if fn is sc.gathered_scatter_rows_sorted else K3
-        ref = (sc.gathered_scatter_rows_sorted_ref if name == K2
-               else sc.masked_scatter_rows_sorted_ref)
+        name = fn.__name__
+        ref = getattr(sc, name + "_ref")
         plain_kw = {k: v for k, v in kw.items() if k != "plan"}
         want = ref(*a, **plain_kw)
         for var in VARIANTS:

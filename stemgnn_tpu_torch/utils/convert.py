@@ -5,7 +5,9 @@ The port's modules name their parameters and buffers after the JAX pytree
 paths and keep the same layouts (``Linear.w`` is ``[in, out]`` on both
 sides), so a conversion is a rename: ``layers/#0/lin_l/w`` in a checkpoint
 is ``layers.0.lin_l.w`` in ``Encoder.state_dict()``.  Nothing is transposed.
-A finetune task model adds the ``decoder`` tree (``models.task``).
+A finetune task model adds the ``decoder`` tree (``models.task``); a
+pretrain model the decoders of ``models.pretrain`` and a teacher encoder
+whose BatchNorm statistics are the JAX state's ``sem_encoder``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stemgnn_tpu_torch.models.pretrain import PretrainModel
 from stemgnn_tpu_torch.models.task import TaskModel, task_model_init
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
@@ -100,3 +103,27 @@ def task_model_to_jax(model: TaskModel):
     params, state = to_jax_pytree(model.encoder, model.vq)
     params["decoder"] = _module_trees(model.decoder)[0]
     return params, state
+
+
+def pretrain_from_jax(params_np: dict, teacher_np: dict, state_np: dict,
+                      cfg):
+    """``(PretrainModel, teacher Encoder)`` on the CPU from the trees of the
+    JAX ``pretrain_init`` (``params``, ``teacher_params``, ``state`` with
+    ``encoder``, ``vq`` and ``sem_encoder``); ``cfg`` is a
+    PretrainConfig.  The teacher takes no gradients."""
+    model = _load(PretrainModel(cfg), params_np,
+                  {"encoder": state_np["encoder"], "vq": state_np["vq"]})
+    teacher = _load(Encoder(cfg.encoder), teacher_np,
+                    state_np["sem_encoder"])
+    for p in teacher.parameters():
+        p.requires_grad_(False)
+    return model, teacher
+
+
+def pretrain_to_jax(model: PretrainModel, teacher: Encoder):
+    """The reverse direction: ``(params, teacher_params, state)`` as nested
+    numpy trees in the JAX package's form."""
+    params, state = _module_trees(model)
+    teacher_params, teacher_state = _module_trees(teacher)
+    state["sem_encoder"] = teacher_state
+    return params, teacher_params, state

@@ -1,7 +1,8 @@
-"""Codebook primitives used by the eval path of the VQ (counterpart of
-``stemgnn_tpu/vq/codebook.py``): l2 normalization, distances and the affine
-codebook map.  k-means, EMA statistics and dead-code expiry come with
-training."""
+"""Codebook primitives of the VQ (counterpart of
+``stemgnn_tpu/vq/codebook.py`` and of ``_orthogonal_loss`` in
+``stemgnn_tpu/vq/quantize.py``): l2 normalization, distances, the affine
+codebook map and the orthogonal regularizer of a learnable codebook.
+k-means, EMA statistics and dead-code expiry are not ported."""
 
 from __future__ import annotations
 
@@ -35,3 +36,26 @@ def affine_transform_embed(stats: dict, embed, eps: float = 1e-5):
     b_std = torch.sqrt(torch.clamp(stats["batch_var"], min=eps))
     return ((embed - stats["codebook_mean"]) * (b_std / c_std)
             + stats["batch_mean"])
+
+
+def orthogonal_subset(num_codes: int, max_codes, generator=None,
+                      device=None):
+    """The codes the orthogonal term covers: all of them, or a uniform
+    random ``max_codes`` of them without repeats (JAX: the first
+    ``max_codes`` of a random permutation)."""
+    if not max_codes or num_codes <= max_codes:
+        return None
+    return torch.randperm(num_codes, generator=generator,
+                          device=device)[:max_codes]
+
+
+def orthogonal_loss(embed, ids=None):
+    """``sum(sim^2) / (h * n^2) - 1 / n`` over the cosine similarities of
+    the codes ``ids`` (all when None) of each codebook (vq.py:232-237,
+    1011-1028); differentiable in ``embed`` [h, C, d]."""
+    if ids is not None:
+        embed = embed[:, ids]
+    h, n = embed.shape[0], embed.shape[1]
+    normed = l2norm(embed)
+    sim = torch.einsum("hid,hjd->hij", normed, normed)
+    return (sim ** 2).sum() / (h * n ** 2) - 1.0 / n

@@ -1,18 +1,23 @@
 """Multi-head vector quantization (counterpart of ``vq_apply`` in
-``stemgnn_tpu/vq/quantize.py``, :148-300): eval, and training with a frozen
-codebook.
+``stemgnn_tpu/vq/quantize.py``, :148-300): eval, training with a frozen
+codebook (finetune) and training with a learnable codebook (pretrain).
 
 project_in -> per-head split -> l2norm (cosine) -> affine codebook map
 (when ``affine_param``, euclidean only) -> distances -> argmax -> codebook
 gather -> project_out, all in f32.  Shapes: z [N, dim]; per-head xh
 [H, N', d]; ``embed`` [num_codebooks, C, d]; indices [N, H].
 
-Training with ``freeze_codebook=True`` (all that finetune uses): the
-codebook gets no gradient, the codes pass straight through
-(``xh + (q - xh).detach()``) and ``loss`` carries the commitment term over
-the ``mask`` rows; EMA and the orthogonal term are off when frozen.  A
-learnable codebook (EMA, orthogonal loss, k-means init) and the bf16
-pipeline are not ported yet.
+Training: the codes pass straight through (``xh + (q - xh).detach()``) and
+``loss`` carries the commitment term over the ``mask`` rows.  With
+``freeze_codebook=True`` (finetune) the codebook gets no gradient.  Without
+it and with ``effective_learnable`` (``orthogonal_reg_weight > 0``, the
+pretrain default, quantize.py:185-186, 265-287) the codebook is trained by
+the optimizer: the commitment term reaches it through the selected rows and
+the orthogonal term (:func:`~stemgnn_tpu_torch.vq.codebook.
+orthogonal_loss`, over a random subset of ``orthogonal_reg_max_codes``
+codes) through all of them.  The EMA update, dead-code expiry, the k-means
+init, the affine statistics' update, stochastic or gumbel code sampling and
+the bf16 pipeline are not ported and raise.
 """
 
 from __future__ import annotations
@@ -82,17 +87,25 @@ class VectorQuantize(nn.Module):
         return q.reshape(q.shape[1] // cfg.heads, cfg.heads * q.shape[2])
 
     def forward(self, z, mask=None, freeze_codebook: bool = False,
-                with_quantize: bool = True):
+                with_quantize: bool = True, ortho_ids=None, generator=None):
         """Quantize z [N, dim]: returns ``quantize`` [N, dim] f32 (None
         unless ``with_quantize``), ``indices`` [N, H], ``codes`` [N, H*d],
-        ``distances`` and ``loss`` (the weighted commitment term in
-        training, 0 in eval).  ``mask`` [N] marks the rows the loss
-        covers."""
+        ``distances`` and ``loss`` (in training the weighted commitment
+        term, plus the weighted orthogonal term when the codebook learns; 0
+        in eval).  ``mask`` [N] marks the rows the loss covers.
+        ``ortho_ids`` are the codes the orthogonal term samples (drawn
+        from ``generator`` when None)."""
         cfg = self.cfg
-        if self.training and not freeze_codebook:
+        learn = self.training and not freeze_codebook
+        if learn and (cfg.ema_update or cfg.affine_param
+                      or cfg.stochastic_sample_codes
+                      or cfg.straight_through_gumbel):
             raise NotImplementedError(
-                "VQ training with a learnable codebook (EMA, orthogonal "
-                "loss, k-means) is not ported; pass freeze_codebook=True")
+                "VQ training with the EMA update, the affine statistics or "
+                "stochastic/gumbel code sampling is not ported")
+        if learn and not bool(self.initted):
+            raise NotImplementedError("the codebook's k-means init is not "
+                                      "ported (initted is False)")
         xp = self.project_in(z) if cfg.requires_projection else z
         xh = self._to_heads(xp).float()
         if cfg.use_cosine_sim:
@@ -112,11 +125,20 @@ class VectorQuantize(nn.Module):
             embed, 1, ind[:, :, None].expand(-1, -1, embed.shape[-1])).float()
         loss = torch.zeros((), device=z.device)
         if self.training:
-            commit_q = quantize_h.detach()          # frozen codebook
+            # the commitment term trains a learnable codebook too
+            commit_q = (quantize_h if learn and cfg.effective_learnable
+                        else quantize_h.detach())
             quantize_h = xh + (quantize_h - xh).detach()   # straight through
             if cfg.commitment_weight > 0:
                 loss = loss + self._commitment(commit_q, xh, mask) \
                     * cfg.commitment_weight
+            if learn and cfg.orthogonal_reg_weight > 0:
+                if ortho_ids is None:
+                    ortho_ids = cb.orthogonal_subset(
+                        cfg.codebook_size, cfg.orthogonal_reg_max_codes,
+                        generator, self.embed.device)
+                loss = loss + cb.orthogonal_loss(self.embed, ortho_ids) \
+                    * cfg.orthogonal_reg_weight
         codes = self._from_heads(quantize_h)
         out = None
         if with_quantize:

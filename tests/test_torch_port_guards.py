@@ -142,3 +142,31 @@ def test_kernel_wrapper_raises_instead_of_running_the_plain_version():
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.count("raised:") == 6
+
+
+def test_pretrain_modules_import_without_jax_or_the_jax_package():
+    proc = _run("""
+        import importlib
+        for mod in ("ops.pairhash", "nn.decoders", "train.augment",
+                    "train.optim", "models.pretrain", "train.pretrain_loop",
+                    "utils.convert", "profile_pretrain"):
+            importlib.import_module("stemgnn_tpu_torch." + mod)
+        bad = [m for m in sys.modules
+               if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
+               or (m.startswith("jax") and sys.modules[m] is not None)]
+        assert not bad, bad
+        print("imported")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+def test_profile_pretrain_without_cuda_exits_nonzero_with_a_clear_message():
+    proc = _run("""
+        import torch
+        assert not torch.cuda.is_available()
+        from stemgnn_tpu_torch.profile_pretrain import main
+        main(sys.argv[1:])
+    """, "--feat_dim", "8")
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr

@@ -36,9 +36,10 @@ def _as_np(a):
 # the masked kernel's x-windows: that kernel is not ported, so the port
 # leaves them unset (JAX builds them whatever its gates say)
 _NOT_PORTED = ("win_lo_s", "win_nsub_s", "win_w")
-# the GPU row walk's plans, which JAX has no counterpart of
-# (tests/test_torch_port_rowplan.py checks them)
-_PORT_ONLY = ("plan_r", "plan_s")
+# the GPU row walk's plans and the count blocks' nonzero pairs, which JAX
+# has no counterpart of (tests/test_torch_port_rowplan.py and
+# tests/test_torch_port_pretrain.py check them)
+_PORT_ONLY = ("plan_r", "plan_s", "cnt_nz", "sc_nz")
 
 
 def _assert_same(port, ref, path="layout"):

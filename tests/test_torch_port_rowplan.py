@@ -1,4 +1,4 @@
-"""The row plan of the GPU kernels 2 and 3 (stemgnn_tpu_torch/ops/
+"""The row plan of the GPU kernels 1, 2 and 3 (stemgnn_tpu_torch/ops/
 edge_layout.py ``RowPlan``, ``row_plan``) on the CPU.
 
 The plan lists a layout direction's counted edges in output-row order, cut
@@ -248,6 +248,17 @@ def _gathered_walk(plan, x, table, with_xe, *, relu, init=None, scale=None,
                         out_dtype)
 
 
+def _scatter_walk(plan, m, *, num_nodes_padded, relu, init=None, scale=None,
+                  gate=None, out_dtype=torch.float32):
+    """Kernel 1's walk: the message rows at the plan's layout positions,
+    relu'd, summed per item, finished with the epilogue."""
+    msg = m.index_select(0, plan.pos.long()).float()
+    if relu:
+        msg = torch.relu(msg)
+    return sc._epilogue(_walk(plan, msg, num_nodes_padded), init, scale,
+                        gate, out_dtype)
+
+
 def _masked_walk(plan, dm, x, table, out_dtype=torch.float32):
     pre = _rows_or_zero(x, plan.senders.long())
     if table is not None:
@@ -340,6 +351,79 @@ def test_gathered_walk_reads_a_zero_row_for_keys_outside_the_graph():
         lay.xe_r[None, :], num_nodes_padded=128, relu=True)
     _assert_walk_matches(_gathered_walk(plan, x, tab, True, relu=True), want,
                          plan)
+
+
+@pytest.mark.parametrize("chunk", [ROW_CHUNK, 3])
+@pytest.mark.parametrize("epilogue", ["none", "init+scale+gate"])
+@pytest.mark.parametrize("m_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["uniform_empty_rows", "power_law_long_row",
+                                  "sentinel_padding", "hub_tail"])
+def test_scatter_walk_matches_the_plain_version(kind, m_dtype, epilogue,
+                                                chunk):
+    """Kernel 1's walk over both orders (relu forward, none backward), with
+    bf16 and f32 messages, padded message slots holding large values that
+    no counted edge reads, empty rows under init/scale/gate, split rows
+    (chunk 3) and bf16 outputs: bit for bit on unsplit rows."""
+    rng = np.random.default_rng(12)
+    s, r, n_pad, kw = _graph(kind, rng)
+    lay = build_edge_layout(s, r, n_pad, **kw)
+    d = 24
+    opt = {}
+    if epilogue != "none":
+        opt = dict(init=torch.from_numpy(
+                       rng.standard_normal((n_pad, d)).astype(np.float32)),
+                   scale=torch.from_numpy(
+                       (rng.random((n_pad, 1)) + 0.5).astype(np.float32)),
+                   gate=_bf16(rng.standard_normal((n_pad, d))))
+    splits = 0
+    for _, lay_, order in _directions(lay):
+        lrow = getattr(lay_, "lrow_" + order)
+        bp = getattr(lay_, "block_ptr_" + order)
+        e_pad = lay_.num_edges_padded
+        m = rng.standard_normal((e_pad, d)).astype(np.float32)
+        m[~getattr(lay_, "mask_" + order).numpy()] = 3.0e38
+        m = torch.from_numpy(m).to(m_dtype)
+        plan = row_plan(lrow, bp, chunk=chunk)
+        splits += plan.num_split
+        for out_dtype in (torch.float32, torch.bfloat16):
+            kw2 = dict(num_nodes_padded=n_pad, relu=order == "r",
+                       out_dtype=out_dtype, **opt)
+            want = sc.scatter_rows_sorted_ref(m, lrow, bp, **kw2)
+            got = _scatter_walk(plan, m, **kw2)
+            assert torch.isfinite(got).all()
+            _assert_walk_matches(got, want, plan, out_dtype)
+    assert splits > 0 or chunk == ROW_CHUNK
+
+
+def test_scatter_walk_on_dropout_tails_with_zeroed_messages():
+    """Kernel 1 as the pair-hash dropout drives it: a hub tail's gathered
+    messages times their keep (dropped edges' messages are zero), the hub
+    sums as init, the kept-degree mean as scale, on the tail's own plan."""
+    from stemgnn_tpu_torch.ops.fused_sage import (DropView, hub_partials,
+                                                  tail_messages)
+    rng = np.random.default_rng(13)
+    s, r = _power_law(rng, 600, 4000)
+    n_pad = 640
+    lay = build_edge_layout(s, r, n_pad, hub_size=8, sc_hub_size=8,
+                            hub_min_coverage=-1.0)
+    view = DropView(lay, 2 ** 31 - 9, 0.3)
+    x = _bf16(rng.standard_normal((n_pad, 32)))
+    t0 = _bf16(rng.standard_normal((1, 32)))
+    tail = lay.hub_r.tail
+    keep = view.keep(tail, "r")
+    assert 0 < int((tail.mask_r & ~keep).sum()) < int(tail.mask_r.sum())
+    m = tail_messages(x, tail, t0, "r") * keep.to(torch.bfloat16)[:, None]
+    kw2 = dict(num_nodes_padded=n_pad, relu=True,
+               init=hub_partials(x, lay.hub_r, t0,
+                                 blocks=view.hub(lay.hub_r)[:2]),
+               scale=view.inv_deg())
+    for chunk in (ROW_CHUNK, 3):
+        plan = (tail.plan_r if chunk == ROW_CHUNK else
+                row_plan(tail.lrow_r, tail.block_ptr_r, chunk=chunk))
+        want = sc.scatter_rows_sorted_ref(m, tail.lrow_r, tail.block_ptr_r,
+                                          **kw2)
+        _assert_walk_matches(_scatter_walk(plan, m, **kw2), want,
+                             plan)
 
 
 @pytest.mark.parametrize("chunk", [ROW_CHUNK, 3])
@@ -550,6 +634,32 @@ def test_non_cpu_calls_need_the_plan_of_their_arrays():
                 x, num_nodes_padded=128, plan=plan)
 
 
+def test_kernel1_non_cpu_calls_need_the_plan_of_their_arrays():
+    """Kernel 1's wrapper, like kernels 2 and 3, raises on a device other
+    than the CPU without a plan or with the plan of other arrays, and on
+    the CPU runs its plain version whatever plan it is given, counting no
+    launch."""
+    rng = np.random.default_rng(14)
+    lay = build_edge_layout(rng.integers(0, 100, 300),
+                            rng.integers(0, 100, 300), 128, profile=V5E)
+    m = torch.empty(lay.num_edges_padded, 8, dtype=torch.bfloat16,
+                    device="meta")
+    lrow, bp = lay.lrow_r.to("meta"), lay.block_ptr_r.to("meta")
+    for plan, what in ((None, "needs the RowPlan"),
+                       (lay.plan_s, "not built from")):
+        with pytest.raises(ValueError, match=what):
+            sc.scatter_rows_sorted(m, lrow, bp, num_nodes_padded=128,
+                                   plan=plan)
+    mc = _bf16(rng.standard_normal((lay.num_edges_padded, 8)))
+    args = (mc, lay.lrow_r, lay.block_ptr_r)
+    before = dict(sc.launch_counts)
+    want = sc.scatter_rows_sorted_ref(*args, num_nodes_padded=128, relu=True)
+    for plan in (None, lay.plan_r, lay.plan_s):
+        assert torch.equal(sc.scatter_rows_sorted(
+            *args, num_nodes_padded=128, relu=True, plan=plan), want)
+    assert sc.launch_counts == before
+
+
 def test_plan_refuses_arrays_changed_or_swapped_after_it_was_built():
     rng = np.random.default_rng(10)
     lay = build_edge_layout(rng.integers(0, 100, 300),
@@ -615,7 +725,7 @@ def test_tuning_variants_name_macros_their_sources_define(variant):
     """Every -D value of ``tune_row_walk``'s variants overrides a default
     that the kernel source it is built into defines (a misspelt name would
     build the chosen kernel under another label)."""
-    for name in (tune.K2, tune.K3):
+    for name in tune.KERNELS:
         if not tune._touches(name, tune.VARIANTS[variant]):
             continue
         with open(sc._source(name)) as f:
@@ -625,7 +735,7 @@ def test_tuning_variants_name_macros_their_sources_define(variant):
                 text += f.read()
         for key in tune.VARIANTS[variant]:
             if key.startswith("ROW_WALK_") or key.startswith(
-                    "K2_" if name == tune.K2 else "K3_"):
+                    tune._PREFIX[name]):
                 assert f"#ifndef {key}\n#define {key} " in text, key
 
 
