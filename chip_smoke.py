@@ -58,13 +58,27 @@ starts and timed when it ends:
                one step's gradients against the plain versions, the pair
                hash on the card against the CPU's; step ms, peak memory;
                kernel 1 on the step's dropout tails vs its plain version;
-  9. typed   — the link finetune on typed edges: ``finetune.main`` on
+  9. pretrain_mb — the minibatch pretrain: the native sampler built from
+               the port's copy of its source (the native route asserted);
+               the CLI chain at full width on ``arxiv_synthetic_pl``
+               (``pretrain.main`` for one epoch cut at 8 steps, a resume
+               that saves epoch 2, ``finetune.main`` and ``infer.main``
+               from those checkpoints, and a finetune with no checkpoint,
+               whose codebook is k-means-initialized), its run directory
+               removed at the end; then ``run_pretrain`` on both routes,
+               12 steps each: ``"on"`` (each batch's own layout) launches
+               kernel 1 three times and kernel 2 twice a step, ``"auto"``
+               neither; finite losses that move, one step's gradients on
+               the ``"on"`` route against the plain versions, step ms,
+               wall ms a step, the sampler's and the layout build's host
+               ms a batch, the idle share and peak memory;
+ 10. typed   — the link finetune on typed edges: ``finetune.main`` on
                ``kg_synthetic``, then ``run_finetune`` at WN18RR's size, 3
                epochs each: kernel 3 once per step, kernel 2 (xe mode)
                twice per step and twice per evaluation, kernel 1 never;
                finite losses, one step's gradients against the plain
                versions; step ms, epoch walls, peak memory;
- 10. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
+ 11. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
                at the main paths' shapes (kernel 1 also on the pretrain
                step's dropout tails), by CUDA events.
 
@@ -72,10 +86,12 @@ Prints the ``{"kernels": [...]}`` line of this run's measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result line, on any failure and
 when no CUDA device is available.  Writes nothing into the repository but
-the kernels' build directory.
+the build directory of the kernels and the sampler (the pretrain CLI's
+checkpoints are removed at the end of their phase).
 """
 
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -90,9 +106,14 @@ import torch
 from stemgnn_tpu_torch.core.config import (EncoderConfig, FinetuneConfig,
                                            VQConfig)
 from stemgnn_tpu_torch import finetune as finetune_cli
+from stemgnn_tpu_torch.data import native_sampler
+from stemgnn_tpu_torch.data.merge import merge_datasets
 from stemgnn_tpu_torch.data.registry import load_dataset
+from stemgnn_tpu_torch.data.sampler import (CSCGraph, NeighborBatchIterator,
+                                            get_train_node_idx)
 from stemgnn_tpu_torch.finetune import main as finetune_main
 from stemgnn_tpu_torch.infer import main as infer_main
+from stemgnn_tpu_torch import pretrain as pretrain_cli
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.layers import Linear
 from stemgnn_tpu_torch.ops import scatter as sc
@@ -108,9 +129,11 @@ from stemgnn_tpu_torch.profile_pretrain import (dropout_tail_cases,
 from stemgnn_tpu_torch.train.finetune_loop import run_finetune
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
-from stemgnn_tpu_torch.train.pretrain_loop import (augmented, draw_step,
+from stemgnn_tpu_torch.train.pretrain_loop import (augmented, batch_graph,
+                                                   draw_step,
                                                    make_pretrain_optimizer,
-                                                   make_pretrain_step)
+                                                   make_pretrain_step,
+                                                   run_pretrain)
 from stemgnn_tpu_torch.utils.checkpoint import save_pytree
 from stemgnn_tpu_torch.utils.convert import from_jax_pytree, to_jax_pytree
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
@@ -121,6 +144,9 @@ NUM_CLASSES = 40
 SEED = 42
 EPOCHS = 3
 PRETRAIN_STEPS = 3
+# the minibatch pretrain: the reference's batches (pretrain.yaml) and the
+# steps of each run_pretrain route
+MB_BATCH, MB_FANOUT, MB_STEPS = 1024, 10, 12
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 K1, K2 = "scatter_rows_sorted", "gathered_scatter_rows_sorted"
@@ -746,10 +772,10 @@ def check_link_step(res):
                 step_grads(model, loss_fn, mask, g, y, plain=True))
 
 
-def check_losses(res):
+def check_losses(res, epochs=EPOCHS):
     losses = [e["loss"] for e in res["epoch_losses"]]
     print(f"  losses {losses}", flush=True)
-    if len(losses) != EPOCHS or not np.isfinite(losses).all():
+    if len(losses) != epochs or not np.isfinite(losses).all():
         raise AssertionError(f"losses {losses}")
 
 
@@ -908,6 +934,199 @@ def pretrain_run(graph, dev, paths, errs):
     del model, teacher, opt, draws, aug, view
     torch.cuda.empty_cache()
     return cases
+
+
+def mb_check_losses(tag, hist, steps):
+    """One epoch's history of ``run_pretrain``: ``steps`` steps whose
+    losses are finite and move."""
+    losses = [v for h in hist for v in h["step_losses"]]
+    print(f"  {tag}: step losses {['%.4f' % v for v in losses]}", flush=True)
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: losses {losses}")
+    if len(set(losses)) == 1:
+        raise AssertionError(f"{tag}: the loss does not move")
+
+
+def remove_run_dir(save_root):
+    """Remove a pretrain run's directory and then its parents
+    (``ckpts/pretrain_model``, ``ckpts``) where they are left empty."""
+    shutil.rmtree(save_root, ignore_errors=True)
+    parent = os.path.dirname(save_root)
+    for _ in range(2):
+        try:
+            os.rmdir(parent)
+        except OSError:
+            break
+        parent = os.path.dirname(parent)
+
+
+def pretrain_mb_cli(ds, tmp, dev, paths):
+    """The CLI chain at full width: pretrain (one epoch cut at 8 steps), a
+    resume that saves epoch 2, the node finetune and the encode from the
+    port's own checkpoint, then a finetune with no checkpoint (the k-means
+    init); the run directory is removed at the end."""
+    run_id = f"chip_smoke_mb_{os.getpid()}"
+    base = ["--pretrain_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
+            "--seed", str(SEED), "--pretrain_run_id", run_id, "--epochs",
+            "2"]
+    save_root = None
+    try:
+        for tag, extra, epoch in (("pretrain", ["--max_steps", "8"], 1),
+                                  ("resume", ["--resume", "--max_steps",
+                                              "4"], 2)):
+            argv = base + extra
+            print(f"  python -m stemgnn_tpu_torch.pretrain {' '.join(argv)}",
+                  flush=True)
+            reset_counts()
+            t0 = time.perf_counter()
+            _, _, hist, save_root = pretrain_cli.main(argv)
+            paths[f"pretrain_cli_{tag}"] = read_counts()
+            print(f"  {tag} wall {time.perf_counter() - t0:.2f} s "
+                  f"(dataset, sampler set-up, {len(hist[0]['step_losses'])}"
+                  f" steps, checkpoint)", flush=True)
+            expect_counts(f"pretrain CLI ({tag}, fused_minibatch auto)",
+                          paths[f"pretrain_cli_{tag}"], {})
+            mb_check_losses(f"pretrain CLI ({tag})", hist,
+                            8 if epoch == 1 else 4)
+            for part in ("encoder", "vq", "full"):
+                if not os.path.exists(os.path.join(save_root,
+                                                   f"{part}_{epoch}.npz")):
+                    raise AssertionError(f"{part}_{epoch}.npz not written")
+        print(f"  checkpoints {sorted(os.listdir(save_root))}", flush=True)
+
+        argv = ["--finetune_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
+                "--pretrain_path", save_root, "--pretrain_model_epoch", "2",
+                "--seed", str(SEED), "--epochs", "2", "--repeat", "1"]
+        print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+              flush=True)
+        reset_counts()
+        res = finetune_main(argv)
+        paths["finetune_from_pretrain_cli"] = read_counts()
+        expect_counts("finetune from the port's checkpoint (2 x (train "
+                      "step + eval))", paths["finetune_from_pretrain_cli"],
+                      {K2: 2 * (3 + 2)})
+        check_losses(res, 2)
+        del res
+
+        out = os.path.join(tmp, "mb_out.npz")
+        argv = ["--finetune_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
+                "--pretrain_path", save_root, "--pretrain_model_epoch", "2",
+                "--seed", str(SEED), "--out", out]
+        print(f"  python -m stemgnn_tpu_torch.infer {' '.join(argv)}",
+              flush=True)
+        reset_counts()
+        res = infer_main(argv)
+        paths["encode_from_pretrain_cli"] = read_counts()
+        expect_counts("encode from the port's checkpoint",
+                      paths["encode_from_pretrain_cli"], {K2: 2})
+        check_encode_outputs(out, res["num_nodes"])
+        del res
+    finally:
+        if save_root is not None:
+            remove_run_dir(save_root)
+
+    argv = ["--finetune_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
+            "--seed", str(SEED), "--epochs", "2", "--repeat", "1"]
+    print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)} (no "
+          f"checkpoint: the codebook's k-means init)", flush=True)
+    reset_counts()
+    res = finetune_main(argv)
+    paths["finetune_kmeans_init"] = read_counts()
+    expect_counts("finetune with the k-means init (one eval-mode encode, "
+                  "2 x (train step + eval))", paths["finetune_kmeans_init"],
+                  {K2: 2 + 2 * (3 + 2)})
+    vq = res["model"].vq
+    sizes = vq.cluster_size.sum(1).tolist()
+    if not bool(vq.initted) or sizes != [float(ds.num_nodes)] * len(sizes):
+        raise AssertionError(f"k-means init: initted {bool(vq.initted)}, "
+                             f"bins sum to {sizes}")
+    check_losses(res, 2)
+    del res, vq
+
+
+def pretrain_mb_run(ds, dev, paths):
+    """``run_pretrain`` at full width on both routes, ``MB_STEPS`` steps
+    each (module docstring, phase 9)."""
+    merged = merge_datasets([ds])
+    node_table = torch.from_numpy(merged["node_text_feat"]).float().to(dev)
+    edge_table = torch.from_numpy(merged["edge_text_feat"]).float().to(dev)
+    csc = CSCGraph.from_edge_index(merged["edge_index"], ds.num_nodes)
+    for route in ("auto", "on"):
+        cfg = dataclasses.replace(pretrain_config(FEAT_DIM),
+                                  batch_size=MB_BATCH, fanout=MB_FANOUT,
+                                  fused_minibatch=route)
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        reset_counts()
+        t0 = time.perf_counter()
+        model, teacher, hist = run_pretrain(merged, cfg, weights=[1.0],
+                                            max_steps=MB_STEPS, device=dev,
+                                            verbose=False)
+        paths[f"pretrain_mb_{route}"] = read_counts()
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {K1: 3, K2: 2} if route == "on" else {}
+        expect_counts(f"run_pretrain {route} ({MB_STEPS} steps)",
+                      paths[f"pretrain_mb_{route}"],
+                      {k: MB_STEPS * v for k, v in per_step.items()})
+        rate = {k: v / MB_STEPS
+                for k, v in paths[f"pretrain_mb_{route}"].items()}
+        print(f"  {route}: launches a step {rate}", flush=True)
+        mb_check_losses(f"run_pretrain {route}", hist, MB_STEPS)
+        h = hist[0]
+
+        # one batch of the loop, with its layout on the "on" route
+        rng = np.random.default_rng(SEED + 1)
+        it = NeighborBatchIterator(
+            csc, merged["x"], merged["xe"],
+            get_train_node_idx(merged["ptr"], [1.0], rng), MB_BATCH,
+            [MB_FANOUT, MB_FANOUT], rng, drop_last=True)
+        if not it._native:
+            raise AssertionError("the sampler did not take the native route")
+        ig = next(iter(it))[0]
+        g = batch_graph(ig, node_table, edge_table, dev, route == "on")
+        print(f"  {route}: batch of {ig.n_node} nodes / {ig.n_edge} edges, "
+              f"padded {ig.num_nodes_padded} / {ig.num_edges_padded}"
+              + ("" if g.layout is None else
+                 f"; {describe_layout(g.layout)}"), flush=True)
+        if route == "on":
+            draws = draw_step(cfg, g, torch.Generator(device=dev)
+                              .manual_seed(7))
+            aug = augmented(cfg, g, draws)
+
+            def grads(plain):
+                m, t = copy.deepcopy(model), copy.deepcopy(teacher)
+                loss, _, _ = pretrain_forward(
+                    m, t, cfg, aug, g, bs=MB_BATCH, draws=draws,
+                    drop_seed=draws["drop_seed"], plain=plain,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+                loss.backward()
+                return {k: p.grad for k, p in m.named_parameters()}
+            reset_counts()
+            g_kernel = grads(False)
+            expect_counts("one minibatch forward + backward", read_counts(),
+                          per_step)
+            check_grads("the plain versions (minibatch, on)", g_kernel,
+                        grads(True))
+            del g_kernel, draws, aug
+        opt = make_pretrain_optimizer(model, cfg)
+        step = make_pretrain_step(cfg, MB_BATCH, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        step_ms = cuda_ms(lambda: step(model, teacher, opt, g), 5)
+        wall_ms = h["epoch_s"] * 1e3 / MB_STEPS
+        print(f"  {route}: device {h['device_ms']:.3f} ms a step by CUDA "
+              f"events in the loop, wall {wall_ms:.3f} ms a step over the "
+              f"{MB_STEPS}-step epoch, idle share {h['idle']:.4f} (1 - the "
+              f"steps' event time / the epoch's wall; run_pretrain "
+              f"{run_s:.2f} s with its set-up); one batch alone "
+              f"{step_ms:.3f} ms (CUDA events, mean of 5); host ms a batch: "
+              f"sampler {h['host/sample_ms']:.3f}, layout build "
+              f"{h.get('host/layout_ms', 0.0):.3f}, transfer + gather "
+              f"{h['host/transfer_ms']:.3f}; peak device "
+              f"memory {peak_gb:.2f} GB, {peak_gb - held_gb:.2f} GB above "
+              f"the {held_gb:.2f} GB held before", flush=True)
+        del model, teacher, opt, g
+        torch.cuda.empty_cache()
 
 
 def save_checkpoint(tmp, gen):
@@ -1178,6 +1397,15 @@ def main():
 
     with phase("pretrain"):
         k1_drop_cases = pretrain_run(graph, dev, paths, errs)
+
+    with phase("pretrain_mb"):
+        t0 = time.perf_counter()
+        lib = native_sampler.build(force=True)
+        native_sampler.load()
+        print(f"  native sampler built from the port's copy of its source "
+              f"in {time.perf_counter() - t0:.2f} s ({lib})", flush=True)
+        pretrain_mb_cli(ds, tmp, dev, paths)
+        pretrain_mb_run(ds, dev, paths)
 
     with phase("typed"):
         k3_path = typed_run(tmp, dev, paths)

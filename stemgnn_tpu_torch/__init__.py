@@ -12,8 +12,11 @@ of a ported path is a hand-written CUDA kernel under ``csrc/``, built with
 ``nvcc`` at first use (``ops/scatter.py``); on CPU tensors each wrapper runs
 its plain PyTorch version.
 
-Ported so far: the serving path, ``python -m stemgnn_tpu_torch.infer
---mode encode`` (2-layer SAGE encoder + multi-head cosine VQ, eval), and
-the full-batch node finetune, ``python -m stemgnn_tpu_torch.finetune``
-(frozen VQ, per-head decoder, forward and backward through the kernels).
+Ported so far: the minibatch pretrain, ``python -m
+stemgnn_tpu_torch.pretrain`` (the neighbour sampler, the four losses, the
+EMA teacher, checkpoints and resume); the serving path, ``python -m
+stemgnn_tpu_torch.infer --mode encode`` (2-layer SAGE encoder + multi-head
+cosine VQ, eval); and the full-batch node and link finetune, ``python -m
+stemgnn_tpu_torch.finetune`` (frozen VQ, per-head decoder, forward and
+backward through the kernels), which read the pretrain's checkpoints.
 """

@@ -198,3 +198,12 @@ def from_dict(cls_or_default, d: dict):
     dc = (cls_or_default if dataclasses.is_dataclass(cls_or_default)
           else cls_or_default())
     return _update(dc, d)
+
+
+
+def load_yaml(path: str) -> dict:
+    """One of the repo's ``configs/*.yaml`` as a dict (PyYAML's
+    ``safe_load``, as the JAX package reads them)."""
+    import yaml
+    with open(path) as f:
+        return yaml.safe_load(f)

@@ -81,3 +81,105 @@ def make_graph(node_feat, senders, receivers, edge_feat=None,
         node_mask=pad(np.ones(n, bool), n_pad),
         edge_mask=pad(np.ones(e, bool), e_pad),
         n_node=n, n_edge=e, edge_feat=ef)
+
+
+@dataclass
+class IndexedGraph:
+    """A padded graph that carries feature-table indices instead of
+    features (JAX ``IndexedGraph``): the batch format of the minibatch
+    pretrain.  The node table [N_global, D] and the edge-type table [T, D]
+    stay on the device; a batch moves only its id arrays, which are numpy on
+    the host (:func:`make_indexed_graph`) and tensors after
+    :func:`indexed_to_device`."""
+
+    node_ids: object                    # [N_pad] int32 into the node table
+    senders: object                     # [E_pad] int32 (batch-local)
+    receivers: object                   # [E_pad] int32 (batch-local)
+    node_mask: object                   # [N_pad] bool
+    edge_mask: object                   # [E_pad] bool
+    n_node: int
+    n_edge: int
+    xe_ids: object = None               # [E_pad] int32 into the edge table
+
+    @property
+    def num_nodes_padded(self) -> int:
+        return self.node_ids.shape[0]
+
+    @property
+    def num_edges_padded(self) -> int:
+        return self.senders.shape[0]
+
+
+def make_indexed_graph(node_ids, senders, receivers, xe_ids=None,
+                       node_pad_to: Optional[int] = None,
+                       edge_pad_to: Optional[int] = None,
+                       node_multiple: int = 8,
+                       edge_multiple: int = 128) -> IndexedGraph:
+    """Host prep of an :class:`IndexedGraph` (numpy in, numpy out): padded
+    slots hold id 0 and mask False."""
+    node_ids = np.asarray(node_ids, np.int32)
+    senders = np.asarray(senders, np.int32)
+    receivers = np.asarray(receivers, np.int32)
+    n, e = node_ids.shape[0], senders.shape[0]
+    n_pad = node_pad_to if node_pad_to is not None else round_up(
+        max(n, 1), node_multiple)
+    e_pad = edge_pad_to if edge_pad_to is not None else round_up(
+        max(e, 1), edge_multiple)
+    if n_pad < n or e_pad < e:
+        raise ValueError(f"pad sizes ({n_pad},{e_pad}) < data ({n},{e})")
+
+    def pad1(a, width):
+        out = np.zeros(width, np.int32)
+        out[:len(a)] = a
+        return out
+
+    return IndexedGraph(
+        node_ids=pad1(node_ids, n_pad), senders=pad1(senders, e_pad),
+        receivers=pad1(receivers, e_pad), node_mask=np.arange(n_pad) < n,
+        edge_mask=np.arange(e_pad) < e, n_node=n, n_edge=e,
+        xe_ids=None if xe_ids is None else pad1(xe_ids, e_pad))
+
+
+def host_to_device(a, device):
+    """A numpy array (or CPU tensor) as a tensor on ``device``.  Off the CPU
+    it goes through pinned memory with ``non_blocking=True``, so the host
+    does not wait for the kernels already queued (a pageable copy
+    synchronizes the stream); the caching host allocator keeps the pinned
+    block until the copy is done."""
+    t = torch.as_tensor(a)
+    if torch.device(device).type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def indexed_to_device(ig: IndexedGraph, device) -> IndexedGraph:
+    """``ig`` with tensor leaves on ``device`` (:func:`host_to_device`)."""
+    def move(a):
+        return None if a is None else host_to_device(a, device)
+    return IndexedGraph(node_ids=move(ig.node_ids), senders=move(ig.senders),
+                        receivers=move(ig.receivers),
+                        node_mask=move(ig.node_mask),
+                        edge_mask=move(ig.edge_mask), n_node=ig.n_node,
+                        n_edge=ig.n_edge, xe_ids=move(ig.xe_ids))
+
+
+def materialize_graph(ig: IndexedGraph, node_table,
+                      edge_table=None) -> Graph:
+    """Device-side feature gather (JAX ``materialize_graph``): an
+    :class:`IndexedGraph` with tensor leaves and the resident tables ->
+    :class:`Graph`.  Padded rows gather row 0 (ids clipped into the table)
+    and are zeroed; edge features come from the edge table by ``xe_ids``,
+    zeroed on padded edges."""
+    def gather(table, ids, mask):
+        rows = table.index_select(
+            0, ids.long().clamp(0, table.shape[0] - 1))
+        return torch.where(mask[:, None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+    ef = None
+    if edge_table is not None and ig.xe_ids is not None:
+        ef = gather(edge_table, ig.xe_ids, ig.edge_mask)
+    return Graph(node_feat=gather(node_table, ig.node_ids, ig.node_mask),
+                 senders=ig.senders.long(), receivers=ig.receivers.long(),
+                 node_mask=ig.node_mask, edge_mask=ig.edge_mask,
+                 n_node=ig.n_node, n_edge=ig.n_edge, edge_feat=ef)

@@ -3,7 +3,9 @@ node and link branches with ``--batch_size 0``).
 
 Loads a pretrain checkpoint (``<path>/encoder_<epoch>.npz`` and
 ``vq_<epoch>.npz`` in the JAX package's format, with the architecture from
-``config.json`` beside them when present), finetunes a task decoder on a
+``config.json`` beside them when present, as ``python -m
+stemgnn_tpu_torch.pretrain`` writes them under
+``ckpts/pretrain_model/<run_id>/``), finetunes a task decoder on a
 node dataset's full graph (node classification) or a knowledge graph's
 typed edges (link task: relation classification of ``kg_synthetic``'s
 edges) with the VQ frozen, and prints each epoch's loss and train/val/test
@@ -14,6 +16,8 @@ backward) unless ``--device cpu`` is given; without CUDA and without
 ``--device cpu`` it exits with an error.  Flag values outside this slice
 (graph tasks, the WN18RR/FB15K237 loader, minibatches, MoE, chunked eval,
 model export, no VQ or an unfrozen VQ, ...) are refused with an error.
+Without a checkpoint the codebook is k-means-initialized from the full
+graph's eval-mode encoding before training.
 
   python -m stemgnn_tpu_torch.finetune --finetune_dataset arxiv_synthetic_pl \\
       --pretrain_path ckpts/pretrain_model/default --epochs 3 --repeat 1
@@ -47,7 +51,10 @@ def get_args():
     p.add_argument("--pretrain_model_epoch", "--pt_epochs", type=int,
                    default=25)
     p.add_argument("--pretrain_run_id", "--pt_run_id", default="")
-    p.add_argument("--pretrain_path", default="")
+    p.add_argument("--pretrain_path", default="",
+                   help="directory of encoder_<epoch>.npz / vq_<epoch>.npz, "
+                        "as python -m stemgnn_tpu_torch.pretrain writes "
+                        "them (default: ckpts/pretrain_model/<run_id>)")
     p.add_argument("--feat_dim", "--input_dim", type=int, default=768)
     p.add_argument("--hidden_dim", type=int, default=768)
     p.add_argument("--num_layers", type=int, default=2)

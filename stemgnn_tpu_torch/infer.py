@@ -3,7 +3,8 @@
 
 ``--mode encode`` (the default and, so far, the only mode) loads a pretrain
 checkpoint (``<path>/encoder_<epoch>.npz`` and ``vq_<epoch>.npz``, with the
-architecture from ``config.json`` beside them when present), encodes a node
+architecture from ``config.json`` beside them when present, as ``python -m
+stemgnn_tpu_torch.pretrain`` writes them), encodes a node
 dataset's full graph and writes per-node ``embeddings`` [N, D],
 ``quantized`` embeddings [N, D] and VQ ``codes`` [N, H] into one npz.
 
@@ -45,7 +46,10 @@ def get_args():
     p.add_argument("--feat_dim", type=int, default=768)
     p.add_argument("--text_encoder", default="hash")
     p.add_argument("--pretrain_run_id", default="")
-    p.add_argument("--pretrain_path", default="")
+    p.add_argument("--pretrain_path", default="",
+                   help="directory of encoder_<epoch>.npz / vq_<epoch>.npz, "
+                        "as python -m stemgnn_tpu_torch.pretrain writes "
+                        "them (default: ckpts/pretrain_model/<run_id>)")
     p.add_argument("--pretrain_model_epoch", type=int, default=50)
     p.add_argument("--model", default="",
                    help="task-model npz (mode=predict, not ported yet)")

@@ -22,7 +22,7 @@ from torch import nn
 from stemgnn_tpu_torch.core.config import FinetuneConfig
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.layers import Linear
-from stemgnn_tpu_torch.vq.quantize import VectorQuantize
+from stemgnn_tpu_torch.vq.quantize import VectorQuantize, vq_kmeans_init
 
 
 class TaskModel(nn.Module):
@@ -56,6 +56,24 @@ def encode(model: TaskModel, g, *, generator=None, plain: bool = False):
                          node_mask=g.node_mask, layout=g.layout,
                          edge_table=g.edge_table, plain=plain,
                          generator=generator)
+
+
+def maybe_kmeans_init_vq(model: TaskModel, cfg: FinetuneConfig, g, *,
+                         generator=None, means=None):
+    """k-means-init the VQ codebook from the eval-mode encoding of the graph
+    ``g`` when the task uses the VQ and the codebook is not initted yet (JAX
+    ``maybe_kmeans_init_vq``; the reference's lazy init on the first
+    forward, vq.py:646).  A host check; call once before training.  Returns
+    the bins [h, c] of the init, or None when nothing was done."""
+    if not cfg.use_vq or bool(model.vq.initted):
+        return None
+    was_training = model.training
+    model.eval()
+    with torch.no_grad():
+        z = encode(model, g)
+    model.train(was_training)
+    return vq_kmeans_init(model.vq, z, mask=g.node_mask, generator=generator,
+                          means=means)
 
 
 def task_logits(model: TaskModel, cfg: FinetuneConfig, z, mask=None):

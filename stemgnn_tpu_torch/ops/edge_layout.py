@@ -6,8 +6,9 @@ Host-side, once per graph, in numpy: sort the COO edge list by receiver
 edge offsets (``block_ptr``) so a kernel walks each output block's
 contiguous edge range, and, with ``hub_size > 0``, split the top
 gather-frequency "hub" nodes off into dense count blocks (:class:`HubDense`).
-The finished arrays become tensors on the requested device; the dense count
-blocks are built there from small index arrays.
+The finished arrays become tensors on the requested device (pinned,
+non-blocking copies off the CPU); the dense count blocks are built there
+from small index arrays.
 
 ``gwin`` decides per direction (``use_gwin_r``/``use_gwin_s``, on the
 layout and on each hub tail) whether the aggregation gathers its rows inside
@@ -38,7 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stemgnn_tpu_torch.core.graph import round_up
+from stemgnn_tpu_torch.core.graph import host_to_device, round_up
 from stemgnn_tpu_torch.ops.chip_profile import ChipProfile, current_profile
 
 # Edges per work item of the row walk at most: a longer row is cut into
@@ -156,7 +157,7 @@ def _plan_from_numpy(host: dict, chunk: int, device) -> RowPlan:
         _plan_arrays(host["local_row"], host["block_ptr"], chunk)
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return host_to_device(np.ascontiguousarray(a), device)
 
     def permuted(name):
         a = host.get(name)
@@ -361,8 +362,8 @@ def _dense_counts(rows: np.ndarray, cols: np.ndarray, shape, device):
     accumulate), so only the small int arrays cross to the device."""
     cnt = torch.zeros(shape, dtype=torch.float32, device=device)
     if rows.size:
-        r = torch.from_numpy(rows).to(device)
-        c = torch.from_numpy(cols).to(device)
+        r = host_to_device(rows, device)
+        c = host_to_device(cols, device)
         cnt.index_put_((r, c), torch.ones(r.shape[0], device=device),
                        accumulate=True)
     return cnt.to(torch.bfloat16)
@@ -370,8 +371,8 @@ def _dense_counts(rows: np.ndarray, cols: np.ndarray, shape, device):
 
 def _pairs(keys: np.ndarray, width: int, device):
     """(rows, cols) int64 tensors of unique ``row * width + col`` keys."""
-    return (torch.from_numpy(keys // width).to(device),
-            torch.from_numpy(keys % width).to(device))
+    return (host_to_device(keys // width, device),
+            host_to_device(keys % width, device))
 
 
 def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
@@ -492,14 +493,14 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
         e_pad_to=tail_e_pad_to, feat_dim_hint=feat_dim_hint, gwin=gwin,
         profile=prof, device=device)
     return HubDense(
-        hub_ids=torch.from_numpy(hub_ids_pad).to(device), cnt=cnt,
+        hub_ids=host_to_device(hub_ids_pad, device), cnt=cnt,
         tail=tail_layout, hub_size=h, coverage=coverage,
         sc_ids=(None if sc_ids_pad is None
-                else torch.from_numpy(sc_ids_pad).to(device)),
+                else host_to_device(sc_ids_pad, device)),
         sc_cnt=cnt_sc, sc_size=h2, sc_coverage=sc_cov,
         cnt_nz=_pairs(hub_pairs, h_pad, device), sc_nz=sc_nz,
         hub_xe=(None if hub_xe_pad is None
-                else torch.from_numpy(hub_xe_pad).to(device)))
+                else host_to_device(hub_xe_pad, device)))
 
 
 def build_edge_layout(senders, receivers, num_nodes_padded: int,
@@ -606,8 +607,8 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
                                  **hub_kw)
 
     def t(a):
-        return None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a)).to(device)
+        return None if a is None else host_to_device(
+            np.ascontiguousarray(a), device)
 
     host = dict(lrow_r=lrow(fw["b"], fw["m"]),
                 block_ptr_r=_block_ptr(fw["b"], num_nodes_padded, node_block),
@@ -663,3 +664,4 @@ def gwin_gate(senders, receivers, num_nodes_padded: int, edge_mask=None,
                             edge_mask=mask, feat_dim_hint=feat_dim_hint,
                             profile=prof)
     return lay.use_gwin_r, lay.use_gwin_s
+

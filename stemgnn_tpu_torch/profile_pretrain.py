@@ -25,12 +25,26 @@ decoders) and its EMA teacher, and runs ``train.pretrain_loop``'s step at
     the JAX package uses (the whole (node, hub) grid hashed);
   * peak device memory of a step and the card's name and power limit.
 
+    python -m stemgnn_tpu_torch.profile_pretrain --minibatch
+
+runs ``run_pretrain`` itself instead (batches of 1,024 seeds, fanout 10,
+as ``configs/pretrain.yaml``), on both routes (``auto``: gather +
+``index_add_``; ``on``: the batch's own layout through kernels 1 and 2):
+after a warm-up run, one epoch cut at ``--steps`` steps gives, from the
+loop's own history, the host ms a batch of the sampler, of the layout build
+and of the transfer, the wall ms a step, the device ms a step (CUDA events
+recorded in the loop) and the device's idle share, plus the kernel launches
+a step and peak device memory; one batch gives the step's split by stage
+(CUDA events); and two runs under ``torch.profiler`` that differ by
+``--reps`` steps give the device ms a step by kernel group.
+
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -40,7 +54,10 @@ from torch.profiler import ProfilerActivity, profile
 from stemgnn_tpu_torch.core.config import (EncoderConfig, PretrainConfig,
                                            VQConfig)
 from stemgnn_tpu_torch.core.device import resolve_device
+from stemgnn_tpu_torch.data.merge import merge_datasets
 from stemgnn_tpu_torch.data.registry import load_dataset
+from stemgnn_tpu_torch.data.sampler import (CSCGraph, NeighborBatchIterator,
+                                            get_train_node_idx)
 from stemgnn_tpu_torch.models.pretrain import (PretrainModel,
                                                ema_update_teacher,
                                                make_teacher,
@@ -53,12 +70,16 @@ from stemgnn_tpu_torch.ops.fused_sage import (hub_partials,
 from stemgnn_tpu_torch.profile_encode import (_device_us, _on_device,
                                               card_line, kernel_table)
 from stemgnn_tpu_torch.train.graph_setup import describe_layout
-from stemgnn_tpu_torch.train.pretrain_loop import (augmented, draw_step,
+from stemgnn_tpu_torch.train.pretrain_loop import (augmented, batch_graph,
+                                                   draw_step,
                                                    make_pretrain_optimizer,
                                                    make_pretrain_step,
-                                                   pretrain_graph)
+                                                   pretrain_graph,
+                                                   run_pretrain)
 
 STAGES = ("forward+losses", "backward", "AdamW+clip+EMA")
+# the minibatch mode: the reference's batches (configs/pretrain.yaml)
+MB_BATCH, MB_FANOUT = 1024, 10
 # the profiler ranges of ops.fused_sage.DropView's masks
 DROP_RANGES = ("drop_hash:hub", "drop_hash:keep", "drop_hash:inv_deg")
 # device kernels by name, in the order they are matched
@@ -145,6 +166,129 @@ def group_shares(prof, reps: int):
     return per, ranges
 
 
+def stage_ms(cfg, model, teacher, opt, g, gen, bs: int, reps: int):
+    """The step's device ms by stage (CUDA events, mean of ``reps``):
+    forward with the losses (draws and augmentation included), backward,
+    and AdamW with the clip plus the teacher's EMA update."""
+    out = np.zeros(len(STAGES))
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        draws = draw_step(cfg, g, gen)
+        opt.zero_grad()
+        loss, _, _ = pretrain_forward(
+            model, teacher, cfg, augmented(cfg, g, draws), g, bs=bs,
+            draws=draws, drop_seed=draws["drop_seed"], generator=gen)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ema_update_teacher(teacher, model.encoder, cfg.sem_encoder_decay)
+        ev[3].record()
+        torch.cuda.synchronize()
+        out += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    return out / reps
+
+
+def print_groups(per: dict, ranges: dict, busy: float):
+    if busy <= 0:
+        print("the profiler saw no device time: the shares are not "
+              "measured")
+        return
+    print("device time per step by group:")
+    for name, ms in per.items():
+        print(f"  {name}: {ms:.3f} ms ({100 * ms / busy:.1f}% of busy)")
+    for name, ms in sorted(ranges.items()):
+        print(f"  range {name}: {ms:.3f} ms ({100 * ms / busy:.1f}% of "
+              f"busy; its kernels are counted above too)")
+
+
+def minibatch_main(args, dev):
+    """``run_pretrain``'s minibatch loop on both routes (module
+    docstring)."""
+    t0 = time.perf_counter()
+    ds = load_dataset(args.dataset, feat_dim=args.feat_dim, seed=args.seed)
+    merged = merge_datasets([ds])
+    print(f"host: dataset {time.perf_counter() - t0:.2f} s; "
+          f"{ds.num_nodes} nodes, {ds.num_edges} edges", flush=True)
+    for route in ("auto", "on"):
+        cfg = dataclasses.replace(pretrain_config(args.feat_dim),
+                                  batch_size=MB_BATCH, fanout=MB_FANOUT,
+                                  fused_minibatch=route, seed=args.seed)
+
+        def run(steps):
+            return run_pretrain(merged, cfg, weights=[1.0], device=dev,
+                                max_steps=steps, verbose=False)
+
+        run(3)          # the kernels built, cuBLAS and the allocator warm
+        for k in sc.launch_counts:
+            sc.launch_counts[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, teacher, hist = run(args.steps)
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {k: v / args.steps for k, v in sc.launch_counts.items()}
+        h = hist[0]
+        print(f"[{route}] run_pretrain, one epoch cut at {args.steps} steps "
+              f"({run_s:.2f} s with its set-up): host ms a batch: sampler "
+              f"{h['host/sample_ms']:.3f}, layout build "
+              f"{h.get('host/layout_ms', 0.0):.3f}, transfer + gather "
+              f"{h['host/transfer_ms']:.3f}; wall "
+              f"{1e3 * h['epoch_s'] / args.steps:.3f} ms a step; device "
+              f"{h['device_ms']:.3f} ms a step (CUDA events in the loop); "
+              f"idle share {h['idle']:.4f}", flush=True)
+        print(f"[{route}] kernel launches a step: {per_step}; peak device "
+              f"memory {peak_gb:.2f} GB (the k-means seed's batch "
+              f"included)", flush=True)
+
+        # the stage split, on one batch of the loop's kind
+        rng = np.random.default_rng(args.seed + 1)
+        it = NeighborBatchIterator(
+            CSCGraph.from_edge_index(merged["edge_index"], ds.num_nodes),
+            merged["x"], merged["xe"],
+            get_train_node_idx(merged["ptr"], [1.0], rng), cfg.batch_size,
+            [cfg.fanout] * cfg.encoder.num_layers, rng, drop_last=True)
+        ig = next(iter(it))[0]
+        node_table = torch.from_numpy(
+            merged["node_text_feat"]).float().to(dev)
+        edge_table = torch.from_numpy(
+            merged["edge_text_feat"]).float().to(dev)
+        g = batch_graph(ig, node_table, edge_table, dev, route == "on")
+        opt = make_pretrain_optimizer(model, cfg)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        stages = stage_ms(cfg, model, teacher, opt, g, gen, cfg.batch_size,
+                          args.reps)
+        print(f"[{route}] one batch of {ig.n_node} nodes / {ig.n_edge} "
+              f"edges (padded {ig.num_nodes_padded} / "
+              f"{ig.num_edges_padded}): step {stages.sum():.3f} ms (CUDA "
+              f"events, mean of {args.reps}): " + ", ".join(
+                  f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stages)),
+              flush=True)
+        del model, teacher, opt, g, node_table, edge_table
+        torch.cuda.empty_cache()
+
+        # the kernel groups a step: two runs under the profiler that differ
+        # by --reps steps, so the set-up before the loop cancels out
+        per = []
+        for steps in (2, 2 + args.reps):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                h = run(steps)[2][0]
+            per.append(group_shares(prof, args.reps))
+        groups = {k: per[1][0][k] - per[0][0][k] for k in per[0][0]}
+        ranges = {k: per[1][1].get(k, 0.0) - per[0][1].get(k, 0.0)
+                  for k in per[1][1]}
+        busy = sum(groups.values())
+        print(f"[{route}] under the profiler ({2 + args.reps} steps): wall "
+              f"{1e3 * h['epoch_s'] / (2 + args.reps):.3f} ms a step, "
+              f"device {h['device_ms']:.3f} ms a step (CUDA events), idle "
+              f"share {h['idle']:.4f}; kernels {busy:.3f} ms a step",
+              flush=True)
+        print_groups(groups, ranges, busy)
+    print(card_line(), flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("profile_pretrain")
     p.add_argument("--dataset", default="arxiv_synthetic_pl")
@@ -152,9 +296,16 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--top", type=int, default=20)
+    p.add_argument("--minibatch", action="store_true",
+                   help="profile run_pretrain's minibatch loop instead")
+    p.add_argument("--steps", type=int, default=20,
+                   help="--minibatch: the steps of the timed epoch")
     args = p.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.minibatch:
+        minibatch_main(args, dev)
+        return
 
     t0 = time.perf_counter()
     ds = load_dataset(args.dataset, feat_dim=args.feat_dim, seed=args.seed)
@@ -190,27 +341,10 @@ def main(argv=None):
     print("losses: " + ", ".join(f"{k} {float(v):.5f}"
                                  for k, v in losses.items()))
 
-    stage_ms = np.zeros(len(STAGES))
-    for _ in range(args.reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        draws = draw_step(cfg, g, gen)
-        opt.zero_grad()
-        loss, _, _ = pretrain_forward(
-            model, teacher, cfg, augmented(cfg, g, draws), g, bs=bs,
-            draws=draws, drop_seed=draws["drop_seed"], generator=gen)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        opt.step()
-        ema_update_teacher(teacher, model.encoder, cfg.sem_encoder_decay)
-        ev[3].record()
-        torch.cuda.synchronize()
-        stage_ms += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-    stage_ms /= args.reps
-    print(f"pretrain step: {stage_ms.sum():.3f} ms (CUDA events, mean of "
+    stages = stage_ms(cfg, model, teacher, opt, g, gen, bs, args.reps)
+    print(f"pretrain step: {stages.sum():.3f} ms (CUDA events, mean of "
           f"{args.reps}): " + ", ".join(
-              f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stage_ms)),
+              f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stages)),
           flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -224,17 +358,7 @@ def main(argv=None):
                           ranges=DROP_RANGES)
     busy = sum(_device_us(e) for e in events if _on_device(e)
                and e.key not in DROP_RANGES) / 1e3 / args.reps
-    per, ranges = group_shares(prof, args.reps)
-    if busy > 0:
-        print("device time per step by group:")
-        for name, ms in per.items():
-            print(f"  {name}: {ms:.3f} ms ({100 * ms / busy:.1f}% of busy)")
-        for name, ms in sorted(ranges.items()):
-            print(f"  range {name}: {ms:.3f} ms ({100 * ms / busy:.1f}% "
-                  f"of busy; its kernels are counted above too)")
-    else:
-        print("the profiler saw no device time: the shares are not "
-              "measured")
+    print_groups(*group_shares(prof, args.reps), busy)
 
     seed = torch.tensor(12345, device=dev)
     for tag, hub in (("hub_r", g.layout.hub_r), ("hub_s", g.layout.hub_s)):

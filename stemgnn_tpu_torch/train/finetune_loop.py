@@ -19,8 +19,11 @@ Jacobian penalty.
 Each epoch is one train step and one evaluation, logged and checked for
 early stopping before the next.  JAX's ``epoch_chunk`` scan (K epochs per
 dispatch, with up to K-1 updates past an early stop) has no counterpart:
-PyTorch dispatches eagerly.  Minibatch training, graph tasks, MoE and the
-layer-wise chunked eval are not ported yet.
+PyTorch dispatches eagerly.  A codebook that is not initted (a finetune
+without a pretrain checkpoint) is k-means-initialized first, over the full
+graph's eval-mode encoding.  Minibatch training, graph tasks, MoE and the
+layer-wise chunked eval (with JAX's graph-free k-means route) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import torch
 from stemgnn_tpu_torch.core.config import FinetuneConfig
 from stemgnn_tpu_torch.models.task import (activation_loss,
                                            decoder_jacobian_penalty, encode,
-                                           task_logits, task_model_init)
+                                           maybe_kmeans_init_vq, task_logits,
+                                           task_model_init)
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph,
                                                  maybe_reorder_dataset)
@@ -150,12 +154,24 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
             else copy.deepcopy(pretrained["encoder"]),
             None if pretrained is None else copy.deepcopy(pretrained["vq"]),
             generator=torch.Generator().manual_seed(idx))
-        if cfg.use_vq and not bool(model.vq.initted):
-            raise NotImplementedError(
-                "the VQ codebook is not initialized (initted is False): its "
-                "k-means init is not ported yet; finetune from a pretrain "
-                "checkpoint whose VQ state is initted")
         model.to(device)
+        if cfg.use_vq and not bool(model.vq.initted):
+            # JAX finetune_loop.py:584-586: k-means over the full graph's
+            # eval-mode encoding
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            bins = maybe_kmeans_init_vq(
+                model, cfg, graph,
+                generator=torch.Generator(device=device).manual_seed(idx))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            if verbose:
+                used = (bins > 0).sum(1).tolist()
+                print(f"[split {idx}] k-means init of the codebook: "
+                      f"{(time.perf_counter() - t0) * 1e3:.1f} ms, codes "
+                      f"used per head {used} of {bins.shape[1]}",
+                      flush=True)
         trainable, _ = _split_params(model, cfg)
         opt = make_optimizer(trainable, cfg)
         stopper = EarlyStopping(patience=cfg.early_stop)

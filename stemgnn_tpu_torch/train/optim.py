@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -68,3 +69,40 @@ class Optimizer:
         self.opt.step()
         if self.sched is not None:
             self.sched.step()
+
+    def state_tree(self) -> dict:
+        """The optimizer's state as numpy arrays, for a checkpoint: AdamW's
+        step count and moments per parameter (in ``params`` order), the
+        learning rate and the schedule's step."""
+        out = {"step": [], "exp_avg": [], "exp_avg_sq": []}
+        for p in self.params:
+            st = self.opt.state.get(p) or {
+                "step": torch.zeros(()), "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p)}
+            out["step"].append(np.asarray(float(st["step"]), np.float32))
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[k].append(st[k].detach().cpu().numpy())
+        out["lr"] = np.asarray(self.opt.param_groups[0]["lr"])
+        out["sched_step"] = np.asarray(
+            0 if self.sched is None else self.sched.last_epoch)
+        return out
+
+    def load_state_tree(self, tree: dict):
+        """Restore :meth:`state_tree`'s arrays, bit for bit."""
+        if len(tree["step"]) != len(self.params):
+            raise ValueError(f"optimizer state of {len(tree['step'])} "
+                             f"parameters for {len(self.params)}")
+        for p, step, m, v in zip(self.params, tree["step"], tree["exp_avg"],
+                                 tree["exp_avg_sq"]):
+            self.opt.state[p] = {
+                "step": torch.tensor(float(step), dtype=torch.float32),
+                "exp_avg": torch.from_numpy(np.array(m)).to(p.device),
+                "exp_avg_sq": torch.from_numpy(np.array(v)).to(p.device)}
+        lr = float(tree["lr"])
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        if self.sched is not None:
+            sd = self.sched.state_dict()
+            n = int(tree["sched_step"])
+            sd.update(last_epoch=n, _step_count=n + 1, _last_lr=[lr])
+            self.sched.load_state_dict(sd)

@@ -82,3 +82,17 @@ def load_meta(path: str) -> Optional[dict]:
             return json.load(f)
     except FileNotFoundError:
         return None
+
+
+def latest_checkpoint(ckpt_dir: str, prefix: str) -> Optional[str]:
+    """The highest-epoch ``{prefix}_{i}.npz`` in ``ckpt_dir``, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    best, best_i = None, -1
+    pat = re.compile(re.escape(prefix) + r"_(\d+)\.npz$")
+    for f in os.listdir(ckpt_dir):
+        m = pat.match(f)
+        if m and int(m.group(1)) > best_i:
+            best_i = int(m.group(1))
+            best = os.path.join(ckpt_dir, f)
+    return best

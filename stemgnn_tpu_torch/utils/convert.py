@@ -111,13 +111,20 @@ def pretrain_from_jax(params_np: dict, teacher_np: dict, state_np: dict,
     JAX ``pretrain_init`` (``params``, ``teacher_params``, ``state`` with
     ``encoder``, ``vq`` and ``sem_encoder``); ``cfg`` is a
     PretrainConfig.  The teacher takes no gradients."""
-    model = _load(PretrainModel(cfg), params_np,
-                  {"encoder": state_np["encoder"], "vq": state_np["vq"]})
-    teacher = _load(Encoder(cfg.encoder), teacher_np,
-                    state_np["sem_encoder"])
+    model, teacher = PretrainModel(cfg), Encoder(cfg.encoder)
+    load_pretrain_trees(model, teacher, params_np, teacher_np, state_np)
     for p in teacher.parameters():
         p.requires_grad_(False)
     return model, teacher
+
+
+def load_pretrain_trees(model: PretrainModel, teacher: Encoder,
+                        params_np: dict, teacher_np: dict, state_np: dict):
+    """Copy the JAX-form trees of :func:`pretrain_to_jax` into existing
+    modules, in place (each tensor keeps its device)."""
+    _load(model, params_np, {"encoder": state_np["encoder"],
+                             "vq": state_np["vq"]})
+    _load(teacher, teacher_np, state_np["sem_encoder"])
 
 
 def pretrain_to_jax(model: PretrainModel, teacher: Encoder):

@@ -15,9 +15,10 @@ pretrain default, quantize.py:185-186, 265-287) the codebook is trained by
 the optimizer: the commitment term reaches it through the selected rows and
 the orthogonal term (:func:`~stemgnn_tpu_torch.vq.codebook.
 orthogonal_loss`, over a random subset of ``orthogonal_reg_max_codes``
-codes) through all of them.  The EMA update, dead-code expiry, the k-means
-init, the affine statistics' update, stochastic or gumbel code sampling and
-the bf16 pipeline are not ported and raise.
+codes) through all of them.  A codebook built with ``kmeans_init`` starts
+at zero with ``initted`` False until :func:`vq_kmeans_init` seeds it.  The
+EMA update, dead-code expiry, the affine statistics' update, stochastic or
+gumbel code sampling and the bf16 pipeline are not ported and raise.
 """
 
 from __future__ import annotations
@@ -103,9 +104,6 @@ class VectorQuantize(nn.Module):
             raise NotImplementedError(
                 "VQ training with the EMA update, the affine statistics or "
                 "stochastic/gumbel code sampling is not ported")
-        if learn and not bool(self.initted):
-            raise NotImplementedError("the codebook's k-means init is not "
-                                      "ported (initted is False)")
         xp = self.project_in(z) if cfg.requires_projection else z
         xh = self._to_heads(xp).float()
         if cfg.use_cosine_sim:
@@ -160,3 +158,27 @@ class VectorQuantize(nn.Module):
         m = m[None, :, None]
         den = m.sum() * se.shape[0] * se.shape[-1]
         return (se * m).sum() / torch.clamp(den, min=1.0)
+
+
+@torch.no_grad()
+def vq_kmeans_init(vq: VectorQuantize, z, mask=None, generator=None,
+                   means=None):
+    """Seed ``vq``'s codebook by k-means over one batch ``z`` [N, dim]
+    (vq.py:573-595, JAX ``vq_kmeans_init``), in place: ``embed`` the
+    means, ``embed_avg`` the means times their bins, ``cluster_size`` the
+    bins, ``initted`` True.  ``mask`` [N] marks the rows to cluster;
+    ``generator`` draws the initial means unless ``means`` [h, c, d] are
+    handed in.  Returns the bins [h, c]."""
+    cfg = vq.cfg
+    xp = vq.project_in(z) if cfg.requires_projection else z
+    xh = vq._to_heads(xp).float()
+    if cfg.use_cosine_sim:
+        xh = cb.l2norm(xh)
+    embed, bins = cb.kmeans(xh, cfg.codebook_size, cfg.kmeans_iters,
+                            cfg.use_cosine_sim, mask=mask,
+                            generator=generator, means=means)
+    vq.embed.copy_(embed)
+    vq.embed_avg.copy_(embed * bins[..., None])
+    vq.cluster_size.copy_(bins)
+    vq.initted.fill_(True)
+    return bins

@@ -170,3 +170,94 @@ def test_profile_pretrain_without_cuda_exits_nonzero_with_a_clear_message():
     """, "--feat_dim", "8")
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
+
+
+def test_minibatch_modules_import_without_jax_or_the_jax_package():
+    proc = _run("""
+        import importlib
+        for mod in ("data.sampler", "data.native_sampler", "data.merge",
+                    "utils.seeding", "utils.observability", "pretrain",
+                    "train.pretrain_loop", "models.task"):
+            importlib.import_module("stemgnn_tpu_torch." + mod)
+        bad = [m for m in sys.modules
+               if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
+               or (m.startswith("jax") and sys.modules[m] is not None)]
+        assert not bad, bad
+        print("imported")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+def test_pretrain_cli_without_cuda_exits_nonzero_with_a_clear_message():
+    proc = _run("""
+        import torch
+        assert not torch.cuda.is_available()
+        from stemgnn_tpu_torch.pretrain import main
+        main(sys.argv[1:])
+    """, "--pretrain_dataset", "cora_synthetic", "--feat_dim", "8")
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "--device cpu" in proc.stderr
+
+
+def test_native_sampler_raises_when_it_cannot_be_built():
+    """``use_native=True`` (the default) never slides to the numpy sampler:
+    with a compiler that is missing, or one that fails, building into an
+    empty directory, the iterator raises with the compiler's command."""
+    proc = _run("""
+        import tempfile
+        import numpy as np
+        from stemgnn_tpu_torch.data import native_sampler
+        from stemgnn_tpu_torch.data.sampler import (CSCGraph,
+                                                    NeighborBatchIterator)
+        ei = np.array([[1, 2, 3], [0, 0, 1]])
+        for cxx in ("/nonexistent/bin/g++", "false"):
+            native_sampler.CXX = cxx
+            native_sampler.BUILD_DIR = tempfile.mkdtemp()
+            native_sampler._libs.clear()
+            try:
+                NeighborBatchIterator(CSCGraph.from_edge_index(ei, 4),
+                                      np.arange(4), None, np.arange(4), 2,
+                                      [2], np.random.default_rng(0))
+            except RuntimeError as ex:
+                assert cxx in str(ex), ex
+                print("raised:", ex)
+            else:
+                raise SystemExit(f"built with the compiler {cxx}")
+        it = NeighborBatchIterator(CSCGraph.from_edge_index(ei, 4),
+                                   np.arange(4), None, np.arange(4), 2, [2],
+                                   np.random.default_rng(0),
+                                   use_native=False)
+        assert not it._native
+    """)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("raised:") == 2
+
+
+def test_port_never_reads_the_jax_native_directory():
+    """The port builds its own copy of the sampler source into its own
+    build directory; no port file names the JAX package's native
+    directory or library."""
+    hits = []
+    for base, _, files in os.walk(os.path.join(ROOT, "stemgnn_tpu_torch")):
+        if "_build" in base:
+            continue
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
+                with open(os.path.join(base, f)) as fh:
+                    text = fh.read()
+                if "stemgnn_tpu/native" in text or \
+                        "libstemgnn_sampler" in text or \
+                        '"native"' in text:
+                    hits.append(f)
+    assert not hits
+    proc = _run("""
+        from stemgnn_tpu_torch.data import native_sampler
+        print(native_sampler.SOURCE)
+        print(native_sampler.library_path())
+    """)
+    src, lib = proc.stdout.split()
+    assert src == os.path.join(ROOT, "stemgnn_tpu_torch", "csrc",
+                               "sampler.cpp")
+    assert lib.startswith(os.path.join(ROOT, "stemgnn_tpu_torch", "_build"))

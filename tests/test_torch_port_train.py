@@ -380,16 +380,31 @@ def test_finetune_cli_trains_on_the_cpu(tmp_path):
 
 
 def test_finetune_refuses_a_vq_without_kmeans_init(tmp_path):
-    """A codebook that is not initted needs the k-means init, which is not
-    ported: a clear error, not a silent train on zero codes."""
+    """A codebook that is not initted used to be refused; the k-means init
+    is ported now, so the CLI seeds it (JAX finetune_loop.py:584-586) and
+    trains: the codebook ends initted, its codes unit rows (cosine), every
+    valid node counted once per head in ``cluster_size``, and the frozen
+    codebook equal to ``embed_avg / cluster_size`` re-normalized where a
+    code has nodes (the k-means means, untouched by training)."""
     cfg, params, state = _jax_task()
     state["vq"]["initted"] = np.asarray(False)
     for part in ("encoder", "vq"):
         jax_ckpt.save_pytree(str(tmp_path / f"{part}_50.npz"),
                              {"params": params[part], "state": state[part]})
-    with pytest.raises(NotImplementedError, match="k-means"):
-        port_cli.main(["--finetune_dataset", "cora_synthetic", "--feat_dim",
-                       str(D), "--hidden_dim", str(D), "--code_dim", str(D),
-                       "--codebook_size", "16", "--pretrain_path",
-                       str(tmp_path), "--pretrain_model_epoch", "50",
-                       "--epochs", "1", "--repeat", "1", "--device", "cpu"])
+    res = port_cli.main(["--finetune_dataset", "cora_synthetic", "--feat_dim",
+                         str(D), "--hidden_dim", str(D), "--code_dim", str(D),
+                         "--codebook_size", "16", "--pretrain_path",
+                         str(tmp_path), "--pretrain_model_epoch", "50",
+                         "--epochs", "1", "--repeat", "1", "--device", "cpu"])
+    vq = res["model"].vq
+    assert bool(vq.initted)
+    embed = vq.embed.detach()
+    torch.testing.assert_close(torch.linalg.vector_norm(embed, dim=-1),
+                               torch.ones(embed.shape[:2]))
+    n = res["graph"].n_node
+    assert vq.cluster_size.sum(1).tolist() == [float(n)] * embed.shape[0]
+    used = vq.cluster_size > 0
+    mean = vq.embed_avg / torch.clamp(vq.cluster_size, min=1.0)[..., None]
+    torch.testing.assert_close(embed[used], mean[used], rtol=1e-5,
+                               atol=1e-6)
+    assert np.isfinite(res["epoch_losses"][0]["loss"])
