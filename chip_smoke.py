@@ -78,7 +78,23 @@ starts and timed when it ends:
                twice per step and twice per evaluation, kernel 1 never;
                finite losses, one step's gradients against the plain
                versions; step ms, epoch walls, peak memory;
- 11. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
+ 11. ood     — the five robustness evaluations, each script's ``main``
+               (``stemgnn_tpu_torch.scripts.*``) with one run of 3 epochs
+               at full width on ``arxiv_synthetic_fragile`` (169,343 nodes,
+               the graph they were built for): ``tri_objective`` (four
+               missing-feature re-evaluations), ``random_edge_drop``,
+               ``degree_shift_ood``, ``homophily_shift_ood`` and
+               ``missing_feature`` (from this run's checkpoint, with its
+               TSV; the others k-means-initialize the codebook): kernel 2
+               twice in the k-means init, five times an epoch and twice a
+               re-evaluation, kernels 1 and 3 never; the JSON keys of the
+               JAX scripts, accuracies finite and in [0, 100]; on the
+               edge-dropped and the missing-feature graphs, the best
+               snapshot's ``z`` and one step's gradients against the plain
+               versions; wall, host seconds of the buckets, perturbations
+               and layout builds, step / eval ms, peak memory (the graph
+               is generated once and handed to all five scripts);
+ 12. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
                at the main paths' shapes (kernel 1 also on the pretrain
                step's dropout tails), by CUDA events.
 
@@ -87,7 +103,8 @@ card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result line, on any failure and
 when no CUDA device is available.  Writes nothing into the repository but
 the build directory of the kernels and the sampler (the pretrain CLI's
-checkpoints are removed at the end of their phase).
+checkpoints are removed at the end of their phase; the evaluations' TSV
+goes to a temporary directory).
 """
 
 import copy
@@ -111,11 +128,13 @@ from stemgnn_tpu_torch.data.merge import merge_datasets
 from stemgnn_tpu_torch.data.registry import load_dataset
 from stemgnn_tpu_torch.data.sampler import (CSCGraph, NeighborBatchIterator,
                                             get_train_node_idx)
+from stemgnn_tpu_torch.eval.runner import snapshot_model
 from stemgnn_tpu_torch.finetune import main as finetune_main
 from stemgnn_tpu_torch.infer import main as infer_main
 from stemgnn_tpu_torch import pretrain as pretrain_cli
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.layers import Linear
+from stemgnn_tpu_torch.ops import fused_sage
 from stemgnn_tpu_torch.ops import scatter as sc
 from stemgnn_tpu_torch.models.pretrain import (PretrainModel, make_teacher,
                                                pretrain_forward)
@@ -124,9 +143,15 @@ from stemgnn_tpu_torch.ops.fused_sage import (DropView, hub_partials,
                                               inv_deg, table_row,
                                               tail_messages)
 from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep, pair_hash_uniform
+from stemgnn_tpu_torch.models.task import encode as task_encode
 from stemgnn_tpu_torch.profile_pretrain import (dropout_tail_cases,
                                                 pretrain_config)
-from stemgnn_tpu_torch.train.finetune_loop import run_finetune
+from stemgnn_tpu_torch.scripts import _common as scripts_common
+from stemgnn_tpu_torch.scripts import (degree_shift_ood, homophily_shift_ood,
+                                       missing_feature, random_edge_drop,
+                                       tri_objective)
+from stemgnn_tpu_torch.train.finetune_loop import (_make_node_steps,
+                                                   run_finetune)
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
 from stemgnn_tpu_torch.train.pretrain_loop import (augmented, batch_graph,
@@ -155,6 +180,31 @@ KG = "kg_synthetic"
 KG_TYPES = 11
 # WN18RR's entity and triple counts (the generator keeps its 11 relations)
 WN18RR_ENTITIES, WN18RR_TRIPLES = 40_943, 93_003
+# the robustness evaluations' graph and the JSON keys of the JAX scripts
+# (scripts/*.py): the payload's, and one run's row
+OOD_DATASET = "arxiv_synthetic_fragile"
+OOD_KEYS = {
+    "tri_objective": (
+        ["buckets", "boundaries", "runs", "summary"],
+        ["fit", "ood", "perturb", "perturb_p0.2", "perturb_p0.4",
+         "perturb_p0.6", "perturb_p0.8", "OOD3", "OOD2", "OOD1", "ID",
+         "best_epoch"]),
+    "random_edge_drop": (
+        ["drop_prob", "drop_mode", "perturb", "runs", "summary"],
+        ["clean/train", "clean/valid", "clean/test", "perturbed/train",
+         "perturbed/valid", "perturbed/test", "best_epoch"]),
+    "degree_shift_ood": (
+        ["buckets", "boundaries", "runs", "summary"],
+        ["OOD-low", "ID", "OOD-high", "split/train", "split/valid",
+         "split/test", "best_epoch"]),
+    "homophily_shift_ood": (
+        ["buckets", "boundaries", "diagnostics", "runs", "summary"],
+        ["OOD-low", "ID", "OOD-high", "best_epoch"]),
+    "missing_feature": (
+        ["missing_prob", "perturb", "runs", "summary"],
+        ["clean/train", "clean/valid", "clean/test", "perturbed/train",
+         "perturbed/valid", "perturbed/test", "best_epoch"]),
+}
 # f32 sums of the same values in another order; bf16 outputs may differ by
 # one bf16 ulp (<= 2^-7 relative) where the f32 values straddle a rounding
 TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2.0 ** -7, 1e-3)}
@@ -1129,6 +1179,174 @@ def pretrain_mb_run(ds, dev, paths):
         torch.cuda.empty_cache()
 
 
+def ood_run(tmp, dev, paths):
+    """The five robustness evaluations (module docstring, phase 11): each
+    script's ``main`` with its launches, JSON and times; the kernel-vs-plain
+    checks on the edge-dropped and the missing-feature graphs."""
+    mods = {"tri_objective": tri_objective,
+            "random_edge_drop": random_edge_drop,
+            "degree_shift_ood": degree_shift_ood,
+            "homophily_shift_ood": homophily_shift_ood,
+            "missing_feature": missing_feature}
+    # the re-evaluations a run makes
+    reevals = {"tri_objective": 4, "random_edge_drop": 1,
+               "degree_shift_ood": 0, "homophily_shift_ood": 0,
+               "missing_feature": 1}
+    results = {}
+    # the five scripts load the same seeded graph (the generator is
+    # deterministic and no script changes the arrays it is given): it is
+    # generated once, by the first, and handed to the others
+    real_load, loaded = scripts_common.load_dataset, {}
+
+    def load_once(name, **kw):
+        key = (name, tuple(sorted(kw.items())))
+        if key not in loaded:
+            t0 = time.perf_counter()
+            loaded[key] = real_load(name, **kw)
+            print(f"  {name} generated in {time.perf_counter() - t0:.2f} s "
+                  f"(shared by the five scripts)", flush=True)
+        return loaded[key]
+    scripts_common.load_dataset = load_once
+    try:
+        for name, mod in mods.items():
+            results[name] = ood_script(name, mod, reevals[name], tmp, paths)
+    finally:
+        scripts_common.load_dataset = real_load
+    ood_route_checks(results["random_edge_drop"], "edge-dropped", dev)
+    # the missing-feature graph keeps the training graph's structure, so
+    # its step makes the training path's kernel-2 launches
+    k2 = ood_route_checks(results["tri_objective"],
+                          "missing-feature (p = 0.8)", dev, time_k2=True)
+    del results
+    torch.cuda.empty_cache()
+    return k2
+
+
+def ood_script(name, mod, reevals, tmp, paths):
+    """One evaluation script's ``main`` (``reevals`` re-evaluations a run):
+    its launches, JSON, k-means init, TSV and times.  Returns its result."""
+    argv = ["--finetune_dataset", OOD_DATASET, "--feat_dim",
+            str(FEAT_DIM), "--seed", str(SEED), "--epochs", str(EPOCHS),
+            "--runs", "1", "--debug", "--device", "cuda"]
+    from_ckpt = name == "missing_feature"
+    if from_ckpt:
+        argv += ["--pretrain_path", tmp, "--pretrain_model_epoch", "50",
+                 "--normalize", "batch", "--save_tsv", "1"]
+    print(f"  python -m stemgnn_tpu_torch.scripts.{name} "
+          f"{' '.join(argv)}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    t0 = time.perf_counter()
+    res = mod.main(argv)
+    paths[f"ood_{name}"] = read_counts()
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = (0 if from_ckpt else 2) + 5 * EPOCHS + 2 * reevals
+    expect_counts(f"{name} ({'' if from_ckpt else 'k-means init, '}"
+                  f"{EPOCHS} x (train step + eval), {reevals} "
+                  f"re-evaluations)", paths[f"ood_{name}"], {K2: want})
+    check_ood_payload(name, res["payload"])
+    st, host = res["best"]["stats"], res["host_s"]
+    if from_ckpt == ("kmeans_s" in st):
+        raise AssertionError(f"{name}: k-means init "
+                             f"{'ran' if from_ckpt else 'did not run'}")
+    if from_ckpt and not any(f.endswith(".tsv") for f in os.listdir(tmp)):
+        raise AssertionError("missing_feature wrote no TSV")
+    layout_s = st["layout_s"]
+    print(f"  {name}: wall {wall_s:.2f} s; host s: buckets "
+          f"{host.get('buckets_s', 0.0):.3f}, perturbations "
+          f"{['%.3f' % v for v in host.get('perturb_s', [])]}, layout "
+          f"builds {['%.3f' % v for v in layout_s]} (training graph, "
+          f"then each re-evaluation's), k-means init "
+          f"{st.get('kmeans_s', 0.0):.3f}; device ms (CUDA events): "
+          f"steps {['%.3f' % v for v in st.get('step_ms', [])]}, evals "
+          f"{['%.3f' % v for v in st.get('eval_ms', [])]}, "
+          f"re-evaluations "
+          f"{['%.3f' % v for v in st.get('reeval_ms', [])]}; peak "
+          f"device memory {peak_gb:.2f} GB, {peak_gb - held_gb:.2f} GB "
+          f"above the {held_gb:.2f} GB held before", flush=True)
+    return res
+
+
+def check_ood_payload(name, payload):
+    """The JAX script's keys, and every accuracy of the run finite and in
+    [0, 100]."""
+    top, row_keys = OOD_KEYS[name]
+    rows = payload["runs"]
+    if list(payload) != top or len(rows) != 1 or list(rows[0]) != row_keys:
+        raise AssertionError(f"{name}: keys {list(payload)} / "
+                             f"{[list(r) for r in rows]} differ from the JAX "
+                             f"script's {top} / {row_keys}")
+    accs = {k: v for k, v in rows[0].items() if k != "best_epoch"}
+    if not all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in accs.values()):
+        raise AssertionError(f"{name}: accuracies {accs}")
+    print(f"  {name}: {json.dumps(accs)}; best epoch "
+          f"{rows[0]['best_epoch']}", flush=True)
+
+
+def ood_route_checks(res, what, dev, time_k2=False):
+    """On the perturbed graph of a script's last re-evaluation, built again
+    here (the same layout): the best snapshot's ``z`` through the kernels
+    against the plain versions, and one training step's gradients.  With
+    ``time_k2``, kernel 2's launches of that step are recorded, and its
+    first forward and its backward launch checked against the plain version
+    and timed (:func:`time_case`).  Returns {direction: (max_abs_err,
+    times)}, empty without ``time_k2``."""
+    best, cfg = res["best"], res["cfg"]
+    t0 = time.perf_counter()
+    graph = fused_full_graph(res["perturbed"], cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {what} graph: {res['perturbed'].num_edges} edges, layout "
+          f"built in {time.perf_counter() - t0:.3f} s; "
+          f"{describe_layout(graph.layout)}", flush=True)
+    model = snapshot_model(best).eval()
+    n = res["perturbed"].num_nodes
+    with torch.no_grad():
+        reset_counts()
+        z = task_encode(model, graph)
+        expect_counts(f"the snapshot's encode on the {what} graph",
+                      read_counts(), {K2: 2})
+        check_z(f"the plain versions on the {what} graph", z,
+                task_encode(model, graph, plain=True), n)
+    y = torch.from_numpy(best["y"]).to(dev)
+    mask = torch.from_numpy(best["masks"]["train"]).to(dev)
+    loss_fn = _make_node_steps(cfg)[0]
+    reset_counts()
+    calls = []
+    real = fused_sage.gathered_scatter_rows_sorted
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    fused_sage.gathered_scatter_rows_sorted = record
+    try:
+        g_kernel = step_grads(model, loss_fn, mask, graph, y)
+    finally:
+        fused_sage.gathered_scatter_rows_sorted = real
+    expect_counts(f"one training step on the {what} graph", read_counts(),
+                  {K2: 3})
+    check_grads(f"the plain versions on the {what} graph", g_kernel,
+                step_grads(model, loss_fn, mask, graph, y, plain=True))
+    out = {}
+    cases = (("ood_fwd", calls[0]), ("ood_bwd", calls[-1])) if time_k2 else ()
+    for direction, (a, kw) in cases:
+        args = dict(zip(("keys", "local_row", "block_ptr", "x", "table"), a))
+        kw = dict(kw)
+        extra = {"plan": kw.pop("plan")}
+        err = check_kernel(
+            f"kernel 2 {direction} launch of the step on the {what} graph "
+            f"E_pad={args['keys'].shape[1]} D={FEAT_DIM}",
+            real(**args, **kw, **extra),
+            sc.gathered_scatter_rows_sorted_ref(**args, **kw),
+            kw["out_dtype"])
+        out[direction] = (err, time_case(
+            K2, direction, args, kw, extra, real,
+            sc.gathered_scatter_rows_sorted_ref))
+    del graph, model, g_kernel, calls
+    return out
+
+
 def save_checkpoint(tmp, gen):
     """A JAX-format pretrain checkpoint with random weights and non-trivial
     BatchNorm statistics, and its config.json; returns the encoder and VQ
@@ -1182,12 +1400,14 @@ def check_z(tag, z, want, n):
 def step_grads(model, loss_fn, mask, graph, y, plain=False):
     """One training step's gradients of a copy of ``model`` (BatchNorm
     statistics of the original untouched), dropout from a fresh seeded
-    generator so every route draws the same masks."""
+    generator so every route draws the same masks; parameters the loss does
+    not reach (BatchNorm's under normalize "none") have none."""
     m = copy.deepcopy(model)
     gen = torch.Generator(device=graph.node_feat.device).manual_seed(7)
     loss, _ = loss_fn(m, mask, graph, y, gen, plain)
     loss.backward()
-    return {k: p.grad for k, p in m.named_parameters() if p.requires_grad}
+    return {k: p.grad for k, p in m.named_parameters()
+            if p.requires_grad and p.grad is not None}
 
 
 def check_grads(tag, got, want):
@@ -1409,6 +1629,9 @@ def main():
 
     with phase("typed"):
         k3_path = typed_run(tmp, dev, paths)
+
+    with phase("ood"):
+        k2_ood = ood_run(tmp, dev, paths)
     tmp_dir.cleanup()
 
     with phase("times"):
@@ -1447,6 +1670,9 @@ def main():
                 entry.update({f"{direction}_{key}": v
                               for key, v in k[direction].items()})
         if name == K2:
+            for direction, (err, t) in k2_ood.items():
+                entry[f"{direction}_max_abs_err"] = err
+                entry.update({f"{direction}_{key}": v for key, v in t.items()})
             xe = typed_times[K2]
             entry.update(replaced_ms=fwd["replaced_ms"],
                          bwd_replaced_ms=bwd["replaced_ms"],
@@ -1480,16 +1706,18 @@ def time_case(name, direction, args, kw, extra, fn, ref):
     """Times of one real launch: the kernel, its plain version, its bound,
     a library yardstick and, for kernel 2, the route it replaces (gather +
     kernel 1 on the same tail)."""
-    dev = kw["init"].device
     n_pad, d = kw["num_nodes_padded"], FEAT_DIM
     bp, lrow = args["block_ptr"], args["local_row"]
+    dev = bp.device
     e_used = int(bp[-1])
     live = lrow.reshape(-1)[:e_used] < 128
     ms = cuda_ms(lambda: fn(**args, **kw, **extra), 20)
     plain = cuda_ms(lambda: ref(**args, **kw), 5)
     # each input read once, each output written once: the epilogue's init
-    # (f32), scale or gate, out (f32), block_ptr, and the edge stream
-    epi = n_pad * d * 4 * 2 + bp.numel() * 4
+    # (f32, where there is one), scale or gate, out (f32), block_ptr, and
+    # the edge stream
+    epi = n_pad * d * 4 + bp.numel() * 4
+    epi += n_pad * d * 4 if kw.get("init") is not None else 0
     epi += n_pad * 4 if kw.get("scale") is not None else 0
     epi += n_pad * d * 2 if kw.get("gate") is not None else 0
     flops = e_used * d * (2 if kw["relu"] else 1) + 2 * n_pad * d

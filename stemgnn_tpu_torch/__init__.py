@@ -18,5 +18,8 @@ EMA teacher, checkpoints and resume); the serving path, ``python -m
 stemgnn_tpu_torch.infer --mode encode`` (2-layer SAGE encoder + multi-head
 cosine VQ, eval); and the full-batch node and link finetune, ``python -m
 stemgnn_tpu_torch.finetune`` (frozen VQ, per-head decoder, forward and
-backward through the kernels), which read the pretrain's checkpoints.
+backward through the kernels), which read the pretrain's checkpoints; and
+the five robustness evaluations, ``python -m
+stemgnn_tpu_torch.scripts.<name>`` (degree and homophily shift, missing
+features, edge drops, the tri-objective) on ``eval/``.
 """

@@ -59,18 +59,19 @@ def encode(model: TaskModel, g, *, generator=None, plain: bool = False):
 
 
 def maybe_kmeans_init_vq(model: TaskModel, cfg: FinetuneConfig, g, *,
-                         generator=None, means=None):
+                         generator=None, means=None, plain: bool = False):
     """k-means-init the VQ codebook from the eval-mode encoding of the graph
     ``g`` when the task uses the VQ and the codebook is not initted yet (JAX
     ``maybe_kmeans_init_vq``; the reference's lazy init on the first
     forward, vq.py:646).  A host check; call once before training.  Returns
-    the bins [h, c] of the init, or None when nothing was done."""
+    the bins [h, c] of the init, or None when nothing was done.  ``plain``
+    encodes through the aggregation kernels' plain versions."""
     if not cfg.use_vq or bool(model.vq.initted):
         return None
     was_training = model.training
     model.eval()
     with torch.no_grad():
-        z = encode(model, g)
+        z = encode(model, g, plain=plain)
     model.train(was_training)
     return vq_kmeans_init(model.vq, z, mask=g.node_mask, generator=generator,
                           means=means)

@@ -96,6 +96,13 @@ def _make_node_steps(cfg: FinetuneConfig, task_kind: str = "node"):
         _, parts = loss_fn(model, train_mask, graph, y, generator, plain)
         opt.zero_grad(set_to_none=True)
         parts["loss"].backward()
+        # optax decays a leaf the loss does not reach (the BatchNorm
+        # parameters under normalize "none") with its zero gradient;
+        # torch's AdamW would skip a parameter without one
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         opt.step()
         return {k: v.detach() for k, v in parts.items()}
 
