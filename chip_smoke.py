@@ -6,10 +6,12 @@
 Drives the port's entry points at arxiv scale (``arxiv_synthetic_pl``:
 169,343 nodes, 2,370,802 edges, D = 768, 2-layer SAGE + 4-head cosine VQ,
 random weights from a seeded generator): the full-graph pretrain step, the
-encode CLI and the node finetune CLI, and the typed-edge link finetune on
-``kg_synthetic`` (11 relation types, at its default size and at WN18RR's
-40,943 entities and 93,003 triples), and holds every CUDA kernel of their
-paths against its plain PyTorch version.  Phases, each announced before it
+encode CLI and the node finetune CLI, the minibatch pretrain, the
+typed-edge link finetune on ``kg_synthetic`` (11 relation types, at its
+default size and at WN18RR's 40,943 entities and 93,003 triples), the five
+robustness evaluations and the reference's link presets on the cached
+WN18RR and FB15K237, and holds every CUDA kernel of their paths against its
+plain PyTorch version.  Phases, each announced before it
 starts and timed when it ends:
 
   1. device  — the card's name and power limit (nvidia-smi);
@@ -92,13 +94,39 @@ starts and timed when it ends:
                edge-dropped and the missing-feature graphs, the best
                snapshot's ``z`` and one step's gradients against the plain
                versions; wall, host seconds of the buckets, perturbations
-               and layout builds, step / eval ms, peak memory (the graph
-               is generated once and handed to all five scripts);
- 12. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
+               and layout builds (a missing-feature re-evaluation swaps
+               its features into the training graph's layout), step /
+               eval ms, peak memory;
+ 12. kg      — the reference's knowledge-graph link presets through
+               ``finetune.main --use_params`` on the repository's cached
+               WN18RR (40,943 entities, 93,003 triples, 11 relations; full
+               batch, 3 epochs) and FB15K237 (14,537 entities, 38,001
+               triples, 228 relations; batches of 1,024 edges with 30
+               neighbours over 2 hops, 2 epochs, ``--save_model``), one edge
+               text each (T = 1, the factored branch): entities, edges,
+               classes and hub blocks; kernel 2 twice in the k-means init,
+               three times a full-batch step, twice an evaluation and never
+               in a minibatch step, kernels 1 and 3 never; finite losses;
+               WN18RR's encoder and decoder moved and its frozen VQ not,
+               one step's gradients and ``z`` against the plain versions,
+               step and evaluation ms, and kernel 2 checked and timed at
+               its evaluation's first launch; FB15K237's batches, host ms
+               a batch (sampler, copies), batch step ms, idle share and
+               evaluation ms; ``infer.main --mode predict`` on the saved
+               model (probabilities of all 38,001 edges, rows summing to
+               1, the best epoch's predictions); one epoch with
+               ``--eval_chunked 1`` (no full graph, no kernel), its
+               layer-wise ``z`` against the fused encode and its
+               probabilities against the fused evaluation's where the
+               edges' endpoints keep their VQ codes (the ``z``
+               tolerance; at least 90% of the edges keep them);
+ 13. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
                at the main paths' shapes (kernel 1 also on the pretrain
                step's dropout tails), by CUDA events.
 
-Prints the ``{"kernels": [...]}`` line of this run's measurements, the
+Each dataset is generated or read once and shared by the phases that load
+it (the entry points change none of its arrays).  Prints the
+``{"kernels": [...]}`` line of this run's measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result line, on any failure and
 when no CUDA device is available.  Writes nothing into the repository but
@@ -107,8 +135,10 @@ checkpoints are removed at the end of their phase; the evaluations' TSV
 goes to a temporary directory).
 """
 
+import contextlib
 import copy
 import dataclasses
+import inspect
 import json
 import os
 import shutil
@@ -123,13 +153,14 @@ import torch
 from stemgnn_tpu_torch.core.config import (EncoderConfig, FinetuneConfig,
                                            VQConfig)
 from stemgnn_tpu_torch import finetune as finetune_cli
-from stemgnn_tpu_torch.data import native_sampler
+from stemgnn_tpu_torch.data import native_sampler, registry
 from stemgnn_tpu_torch.data.merge import merge_datasets
 from stemgnn_tpu_torch.data.registry import load_dataset
 from stemgnn_tpu_torch.data.sampler import (CSCGraph, NeighborBatchIterator,
                                             get_train_node_idx)
 from stemgnn_tpu_torch.eval.runner import snapshot_model
 from stemgnn_tpu_torch.finetune import main as finetune_main
+from stemgnn_tpu_torch import infer as infer_cli
 from stemgnn_tpu_torch.infer import main as infer_main
 from stemgnn_tpu_torch import pretrain as pretrain_cli
 from stemgnn_tpu_torch.nn.encoder import Encoder
@@ -154,6 +185,8 @@ from stemgnn_tpu_torch.train.finetune_loop import (_make_node_steps,
                                                    run_finetune)
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
+from stemgnn_tpu_torch.train.infer import (layerwise_encode,
+                                           layerwise_eval_predict)
 from stemgnn_tpu_torch.train.pretrain_loop import (augmented, batch_graph,
                                                    draw_step,
                                                    make_pretrain_optimizer,
@@ -1193,25 +1226,8 @@ def ood_run(tmp, dev, paths):
                "degree_shift_ood": 0, "homophily_shift_ood": 0,
                "missing_feature": 1}
     results = {}
-    # the five scripts load the same seeded graph (the generator is
-    # deterministic and no script changes the arrays it is given): it is
-    # generated once, by the first, and handed to the others
-    real_load, loaded = scripts_common.load_dataset, {}
-
-    def load_once(name, **kw):
-        key = (name, tuple(sorted(kw.items())))
-        if key not in loaded:
-            t0 = time.perf_counter()
-            loaded[key] = real_load(name, **kw)
-            print(f"  {name} generated in {time.perf_counter() - t0:.2f} s "
-                  f"(shared by the five scripts)", flush=True)
-        return loaded[key]
-    scripts_common.load_dataset = load_once
-    try:
-        for name, mod in mods.items():
-            results[name] = ood_script(name, mod, reevals[name], tmp, paths)
-    finally:
-        scripts_common.load_dataset = real_load
+    for name, mod in mods.items():
+        results[name] = ood_script(name, mod, reevals[name], tmp, paths)
     ood_route_checks(results["random_edge_drop"], "edge-dropped", dev)
     # the missing-feature graph keeps the training graph's structure, so
     # its step makes the training path's kernel-2 launches
@@ -1258,7 +1274,10 @@ def ood_script(name, mod, reevals, tmp, paths):
           f"{host.get('buckets_s', 0.0):.3f}, perturbations "
           f"{['%.3f' % v for v in host.get('perturb_s', [])]}, layout "
           f"builds {['%.3f' % v for v in layout_s]} (training graph, "
-          f"then each re-evaluation's), k-means init "
+          f"then each edge-dropped re-evaluation's), feature swaps "
+          f"{['%.3f' % v for v in st.get('feat_swap_s', [])]} (each "
+          f"missing-feature re-evaluation over the training layout), "
+          f"k-means init "
           f"{st.get('kmeans_s', 0.0):.3f}; device ms (CUDA events): "
           f"steps {['%.3f' % v for v in st.get('step_ms', [])]}, evals "
           f"{['%.3f' % v for v in st.get('eval_ms', [])]}, "
@@ -1345,6 +1364,233 @@ def ood_route_checks(res, what, dev, time_k2=False):
             sc.gathered_scatter_rows_sorted_ref))
     del graph, model, g_kernel, calls
     return out
+
+
+@contextlib.contextmanager
+def shared_datasets():
+    """Every phase's loads of one (name, width, seed, encoder, size) through
+    the port's registry return one dataset object, generated or read once:
+    the entry points the smoke drives (the CLIs, the evaluation scripts)
+    read their arrays and change none of them."""
+    mods = (sys.modules[__name__], finetune_cli, infer_cli, pretrain_cli,
+            scripts_common)
+    real = registry.load_dataset
+    sig = inspect.signature(real)
+    loaded = {}
+
+    def load_once(*a, **kw):
+        bound = sig.bind(*a, **kw)
+        bound.apply_defaults()
+        key = json.dumps(bound.arguments, sort_keys=True, default=str)
+        if key not in loaded:
+            t0 = time.perf_counter()
+            loaded[key] = real(*a, **kw)
+            print(f"  {bound.arguments['name']} loaded in "
+                  f"{time.perf_counter() - t0:.2f} s (shared by every "
+                  f"phase that loads it)", flush=True)
+        return loaded[key]
+    saved = [m.load_dataset for m in mods]
+    for m in mods:
+        m.load_dataset = load_once
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.load_dataset = f
+
+
+def kg_describe(name, res):
+    g = res["graph"]
+    print(f"  {name}: {g.n_node} entities, {g.n_edge} edges, "
+          f"{res['cfg'].num_classes} relation classes; "
+          f"{describe_layout(g.layout)}", flush=True)
+
+
+def kg_run(tmp, dev, paths):
+    """The knowledge-graph link presets (module docstring, phase 12).
+    Returns kernel 2's check and times at the WN18RR evaluation's first
+    launch."""
+    base = ["--use_params", "--repeat", "1", "--seed", str(SEED),
+            "--debug"]
+    # WN18RR: the full-batch preset
+    argv = ["--finetune_dataset", "WN18RR", "--epochs", str(EPOCHS), *base]
+    print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = finetune_main(argv)
+    paths["kg_wn18rr"] = read_counts()
+    wall_s = time.perf_counter() - t0
+    kg_describe("WN18RR", res)
+    expect_counts(f"WN18RR (k-means init, {EPOCHS} x (train step + eval))",
+                  paths["kg_wn18rr"], {K2: 2 + EPOCHS * (3 + 2)})
+    check_losses(res)
+    model, g, y, mask = res["model"], res["graph"], res["y"], res[
+        "train_mask"]
+    init = res["init_params"]
+    for name, p in model.named_parameters():
+        same = torch.equal(p.detach().cpu(), init[name])
+        if same != name.startswith("vq."):
+            raise AssertionError(f"{name} {'did not move' if same else 'moved'}")
+    print("  every encoder parameter and the decoder moved; the frozen VQ "
+          "did not", flush=True)
+    loss_fn, train_step, eval_step = res["steps"]
+    reset_counts()
+    g_kernel = step_grads(model, loss_fn, mask, g, y)
+    expect_counts("one WN18RR training step", read_counts(), {K2: 3})
+    check_grads("the plain versions (WN18RR)", g_kernel,
+                step_grads(model, loss_fn, mask, g, y, plain=True))
+    del g_kernel
+    calls = []
+    real = fused_sage.gathered_scatter_rows_sorted
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    reset_counts()
+    fused_sage.gathered_scatter_rows_sorted = record
+    try:
+        eval_step(model, g)
+    finally:
+        fused_sage.gathered_scatter_rows_sorted = real
+    expect_counts("one WN18RR evaluation", read_counts(), {K2: 2})
+    with torch.no_grad():
+        model.eval()
+        check_z("the plain versions (WN18RR)", task_encode(model, g),
+                task_encode(model, g, plain=True), g.n_node)
+    opt = torch.optim.AdamW([p for p in model.parameters()
+                             if p.requires_grad], lr=1e-3, weight_decay=0.01)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step_ms = cuda_ms(lambda: train_step(model, opt, mask, g, y, gen), 5)
+    eval_ms = cuda_ms(lambda: eval_step(model, g), 5)
+    print(f"  WN18RR: finetune wall {wall_s:.2f} s with its set-up; "
+          f"training step {step_ms:.3f} ms, evaluation {eval_ms:.3f} ms, by "
+          f"CUDA events; per-epoch wall "
+          f"{['%.3f' % v for v in res['epoch_s']]} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    a, kw = calls[0]
+    args = dict(zip(("keys", "local_row", "block_ptr", "x", "table"), a))
+    kw = dict(kw)
+    extra = {"plan": kw.pop("plan")}
+    err = check_kernel(
+        f"kernel 2 at the WN18RR evaluation's first launch E_pad="
+        f"{args['keys'].shape[1]} D={FEAT_DIM}", real(**args, **kw, **extra),
+        sc.gathered_scatter_rows_sorted_ref(**args, **kw), kw["out_dtype"])
+    k2_kg = (err, time_case(K2, "kg_eval", args, kw, extra, real,
+                            sc.gathered_scatter_rows_sorted_ref))
+    del res, model, g, opt, calls, args, kw, extra
+    torch.cuda.empty_cache()
+
+    # FB15K237: the minibatch preset, the export and its predictions
+    model_path = os.path.join(tmp, "fb15k237_task.npz")
+    argv = ["--finetune_dataset", "FB15K237", "--epochs", "2", *base,
+            "--save_model", model_path]
+    print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+          flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = finetune_main(argv)
+    paths["kg_fb15k237"] = read_counts()
+    wall_s = time.perf_counter() - t0
+    kg_describe("FB15K237", res)
+    expect_counts("FB15K237 (k-means init, 2 x (minibatch epoch + eval))",
+                  paths["kg_fb15k237"], {K2: 2 + 2 * 2})
+    check_losses(res, 2)
+    for e, h in enumerate(res["history"]):
+        print(f"  FB15K237 epoch {e}: {h['batches']} batches of 1024 "
+              f"edges; host ms a batch: sampler {h['host/sample_ms']:.3f}, "
+              f"copies + gather {h['host/transfer_ms']:.3f}; batch step "
+              f"{h['device_ms']:.3f} ms device (CUDA events), idle share "
+              f"{h['idle']:.4f} of the epoch's {h['epoch_s']:.3f} s; "
+              f"evaluation {h['eval_ms']:.3f} ms", flush=True)
+    print(f"  FB15K237: finetune wall {wall_s:.2f} s with its set-up",
+          flush=True)
+    fb_graph, fb_eval, best_pred = (res["graph"], res["steps"][2],
+                                    res["best_pred"])
+    del res
+
+    out = os.path.join(tmp, "fb15k237_pred.npz")
+    argv = ["--mode", "predict", "--finetune_dataset", "FB15K237",
+            "--model", model_path, "--out", out]
+    print(f"  python -m stemgnn_tpu_torch.infer {' '.join(argv)}",
+          flush=True)
+    reset_counts()
+    pres = infer_main(argv)
+    paths["kg_predict"] = read_counts()
+    expect_counts("infer --mode predict (one evaluation)",
+                  paths["kg_predict"], {K2: 2})
+    got = np.load(out)
+    probs, pred = got["probs"], got["pred"]
+    n_e = fb_graph.n_edge
+    if probs.shape != (38_001, 228) or n_e != 38_001:
+        raise AssertionError(f"probs {probs.shape} over {n_e} edges")
+    sums = probs.sum(1)
+    if not np.allclose(sums, 1.0, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"probability rows sum to {sums.min()}.."
+                             f"{sums.max()}")
+    want = best_pred[:n_e]
+    if not np.array_equal(pred, want.argmax(-1)):
+        raise AssertionError("--mode predict disagrees with the best "
+                             "epoch's evaluation")
+    print(f"  predictions of {n_e} edges equal the best epoch's evaluation; "
+          f"probabilities max_abs_err {np.abs(probs - want).max():.3e}, "
+          f"rows sum to 1 within {np.abs(sums - 1).max():.1e}", flush=True)
+    del pres
+
+    # one epoch with the layer-wise chunked evaluation
+    argv = ["--finetune_dataset", "FB15K237", "--epochs", "1", *base,
+            "--eval_chunked", "1"]
+    print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+          flush=True)
+    reset_counts()
+    res = finetune_main(argv)
+    paths["kg_chunked"] = read_counts()
+    expect_counts("FB15K237 with the chunked evaluation (graph-free k-means "
+                  "init, 1 x (minibatch epoch + layer-wise eval))",
+                  paths["kg_chunked"], {})
+    check_losses(res, 1)
+    if res["graph"] is not None:
+        raise AssertionError("the chunked evaluation built the full graph")
+    model = res["model"].eval()
+    ds = load_dataset("FB15K237", feat_dim=FEAT_DIM, seed=SEED)
+    t0 = time.perf_counter()
+    chunked = layerwise_eval_predict(model, res["cfg"], ds, "link",
+                                     fb_graph.num_edges_padded,
+                                     device=dev)[:n_e]
+    lw_s = time.perf_counter() - t0
+    z_lw, _ = layerwise_encode(
+        model.encoder, ds.node_features(), ds.edge_index[0],
+        ds.edge_index[1], xe=ds.xe, edge_table=ds.edge_text_feat,
+        num_nodes=ds.num_nodes, device=dev)
+    reset_counts()
+    with torch.no_grad():
+        z_fused = task_encode(model, fb_graph)
+        fused = fb_eval(model, fb_graph)[:n_e].cpu().numpy()
+    expect_counts("the fused encode and evaluation of the chunked run's "
+                  "model", read_counts(), {K2: 2 + 2})
+    check_z("the fused encode (layer-wise, FB15K237)", z_lw, z_fused,
+            ds.num_nodes)
+    with torch.no_grad():
+        codes_lw = model.vq(z_lw[:ds.num_nodes])["indices"]
+        codes_f = model.vq(z_fused[:ds.num_nodes])["indices"]
+    s_, r_ = (torch.from_numpy(np.asarray(a)).to(dev) for a in ds.edge_index)
+    same = ((codes_lw[s_] == codes_f[s_]).all(1)
+            & (codes_lw[r_] == codes_f[r_]).all(1)).cpu().numpy()
+    check_close("chunked vs fused probabilities (edges whose endpoints keep "
+                "their codes)", torch.from_numpy(chunked[same]),
+                torch.from_numpy(fused[same]), Z_RTOL, Z_ATOL,
+                what="the chunked evaluation")
+    agree = float((chunked.argmax(-1) == fused.argmax(-1)).mean())
+    print(f"  chunked evaluation {lw_s:.3f} s; {same.mean():.4f} of the "
+          f"edges keep every code on both routes; predictions equal on "
+          f"{agree:.4f} of the edges", flush=True)
+    if same.mean() < 0.9:
+        raise AssertionError(f"only {same.mean():.4f} of the edges keep "
+                             f"their codes")
+    del res, model, fb_graph, z_lw, z_fused
+    torch.cuda.empty_cache()
+    return k2_kg
 
 
 def save_checkpoint(tmp, gen):
@@ -1434,6 +1680,8 @@ def main():
     dev = torch.device("cuda")
     t_all = time.perf_counter()
     paths = {}                                      # path -> launch counts
+    shared = contextlib.ExitStack()
+    shared.enter_context(shared_datasets())
 
     with phase("device"):
         card = card_line()
@@ -1632,7 +1880,11 @@ def main():
 
     with phase("ood"):
         k2_ood = ood_run(tmp, dev, paths)
+
+    with phase("kg"):
+        k2_kg = kg_run(tmp, dev, paths)
     tmp_dir.cleanup()
+    shared.close()
 
     with phase("times"):
         kernels = []
@@ -1670,7 +1922,7 @@ def main():
                 entry.update({f"{direction}_{key}": v
                               for key, v in k[direction].items()})
         if name == K2:
-            for direction, (err, t) in k2_ood.items():
+            for direction, (err, t) in (*k2_ood.items(), ("kg_eval", k2_kg)):
                 entry[f"{direction}_max_abs_err"] = err
                 entry.update({f"{direction}_{key}": v for key, v in t.items()})
             xe = typed_times[K2]

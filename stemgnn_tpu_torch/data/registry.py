@@ -8,9 +8,10 @@ skew) and ``arxiv_synthetic_fragile`` (the arxiv-scale graph whose labels
 the robustness evaluations can perturb: class signal in 16 feature dims,
 half the nodes signal-free), and the link dataset ``kg_synthetic`` (a
 knowledge graph with 11 relation types; ``num_entities``/``num_edges``
-size it).  Every other name
-of the JAX registry raises ``NotImplementedError`` until its loader is
-ported.
+size it), and the link datasets ``WN18RR`` and ``FB15K237`` from the
+repository's processed caches (``data/kg.py``; ``text_encoder`` picks the
+cache, ``hash`` or ``tfidf``).  Every other name of the JAX registry raises
+``NotImplementedError`` until its loader is ported.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Dict
 
 from stemgnn_tpu_torch.data import synthetic
+from stemgnn_tpu_torch.data.kg import KG_DATASETS, load_kg_dataset
 
 dataset2task: Dict[str, str] = {
     "cora": "node", "pubmed": "node", "arxiv": "node", "wikics": "node",
@@ -65,14 +67,13 @@ def load_dataset(name: str, feat_dim: int = 768, seed: int = 0,
     if name == "kg_synthetic":
         return synthetic.synthetic_link_dataset(name=name, feat_dim=feat_dim,
                                                 seed=seed, **kw)
-    if name in ("WN18RR", "FB15K237"):
-        raise NotImplementedError(
-            f"dataset {name!r} (a link task) needs the knowledge-graph "
-            f"loader data/kg.py, which is not ported to stemgnn_tpu_torch "
-            f"yet; kg_synthetic is the ported link dataset")
+    if name in KG_DATASETS:
+        return load_kg_dataset(name, text_encoder=text_encoder,
+                               feat_dim=feat_dim, **kw)
     if name in dataset2task:
         raise NotImplementedError(
             f"dataset {name!r} is not ported to stemgnn_tpu_torch yet; the "
             f"port loads cora_synthetic, arxiv_synthetic, "
-            f"arxiv_synthetic_pl, arxiv_synthetic_fragile and kg_synthetic")
+            f"arxiv_synthetic_pl, arxiv_synthetic_fragile, kg_synthetic, "
+            f"WN18RR and FB15K237")
     raise KeyError(f"Unknown dataset {name}")

@@ -20,6 +20,7 @@ other batches.  Also hosts the weighted multi-dataset seed resampling
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -126,22 +127,26 @@ def get_train_node_idx(ptr: np.ndarray, weights: Sequence[float],
 
 
 class NeighborBatchIterator:
-    """Shuffled seed batches -> padded graphs of ids on the host: ``(graph,
-    number of seeds, global node ids)`` per batch, the graph an
-    :class:`~stemgnn_tpu_torch.core.graph.IndexedGraph` whose features are
-    gathered on the device (``core.graph.materialize_graph``).
+    """Seed batches (shuffled unless ``shuffle=False``) -> padded graphs of
+    ids on the host: ``(graph, number of seeds, global node ids)`` per
+    batch, the graph an :class:`~stemgnn_tpu_torch.core.graph.IndexedGraph`
+    whose features are gathered on the device
+    (``core.graph.materialize_graph``).  :meth:`make_batch` samples one
+    batch around any seed chunk, as the link finetune does for the
+    endpoints of its edge batches.
 
     Padding buckets: nodes to ``node_pad`` and edges to ``edge_pad`` when
-    given, else probed from the seeds.  ``truncations`` counts batches
-    clamped at the closure caps (edges dropped), ``escalations`` bucket
-    regrowths (no edge dropped)."""
+    given, else probed from ``probe_chunks`` (default: chunks of the seeds).
+    ``truncations`` counts batches clamped at the closure caps (edges
+    dropped), ``escalations`` bucket regrowths (no edge dropped)."""
 
     def __init__(self, csc: CSCGraph, x_ids: np.ndarray,
                  xe_ids: Optional[np.ndarray], seeds: np.ndarray,
                  batch_size: int, fanouts: Sequence[int],
                  rng: np.random.Generator, node_pad: Optional[int] = None,
                  edge_pad: Optional[int] = None, drop_last: bool = False,
-                 use_native: bool = True):
+                 use_native: bool = True, shuffle: bool = True,
+                 probe_chunks=None):
         self.csc = csc
         self.x_ids = x_ids
         self.xe_ids = xe_ids
@@ -149,6 +154,7 @@ class NeighborBatchIterator:
         self.batch_size = batch_size
         self.fanouts = list(fanouts)
         self.rng = rng
+        self.shuffle = shuffle
         self.drop_last = drop_last
         self.truncations = 0
         self.escalations = 0
@@ -168,10 +174,18 @@ class NeighborBatchIterator:
         worst_e = round_up(max(edge_closure, 128), 128)
         if node_pad is None and edge_pad is None and len(self.seeds):
             # Empirical buckets: probe chunks are consecutive slices of a
-            # permutation (the epoch loop's batching); pads = probe max + a
-            # spread-scaled margin, cached on the CSC graph per (batch
-            # size, fanouts)
-            cache_key = (batch_size, tuple(self.fanouts))
+            # permutation (the epoch loop's batching) unless the caller
+            # hands in its own (the link finetune's endpoint sets, which
+            # are degree-biased); pads = probe max + a spread-scaled
+            # margin, cached on the CSC graph per (batch size, fanouts,
+            # probe identity)
+            pad_tag = ""
+            if probe_chunks is not None:
+                h = hashlib.blake2b(digest_size=8)
+                for c in probe_chunks[:4]:
+                    h.update(np.ascontiguousarray(c).tobytes())
+                pad_tag = h.hexdigest()
+            cache_key = (batch_size, tuple(self.fanouts), pad_tag)
             cache = getattr(csc, "_pad_cache", None)
             if cache is None:
                 cache = {}
@@ -180,18 +194,21 @@ class NeighborBatchIterator:
                 node_pad, edge_pad = cache[cache_key]
             else:
                 probe_rng = np.random.default_rng(0xC0FFEE)
-                perm = probe_rng.permutation(len(self.seeds))
-                probe_chunks = [
-                    self.seeds[perm[i * batch_size:(i + 1) * batch_size]]
-                    for i in range(min(
-                        16, max(len(perm) // max(batch_size, 1), 1)))]
+                if probe_chunks is None:
+                    perm = probe_rng.permutation(len(self.seeds))
+                    probe_chunks = [
+                        self.seeds[perm[i * batch_size:(i + 1) * batch_size]]
+                        for i in range(min(
+                            16, max(len(perm) // max(batch_size, 1), 1)))]
                 szs = []
                 for chunk in probe_chunks:
+                    if len(chunk) == 0:
+                        continue
                     nodes, es, _, _, _ = self._sample(chunk, probe_rng,
                                                       node_cap=worst_n,
                                                       edge_cap=worst_e)
                     szs.append((len(nodes), len(es)))
-                arr = np.asarray(szs)
+                arr = np.asarray(szs) if szs else np.ones((1, 2), np.int64)
 
                 def bucket(col, cap, floor):
                     mx, mn = int(col.max()), int(col.min())
@@ -214,7 +231,8 @@ class NeighborBatchIterator:
         self._worst_e = worst_e
 
     def __iter__(self):
-        order = self.rng.permutation(len(self.seeds))
+        order = (self.rng.permutation(len(self.seeds)) if self.shuffle
+                 else np.arange(len(self.seeds)))
         bs = self.batch_size
         for i in range(0, len(order), bs):
             chunk = self.seeds[order[i: i + bs]]

@@ -12,7 +12,9 @@ Built on the finetune loop's steps (``train/finetune_loop``): on CUDA the
 full graph carries the fused layout, so kernel 2
 (``gathered_scatter_rows_sorted``) runs three times a training step, twice
 an evaluation, twice in the k-means init of a codebook that is not initted,
-and twice in each re-evaluation, over the perturbed graph's own layout.
+and twice in each re-evaluation: over the training graph's layout with the
+perturbed features swapped in when the edges are unchanged (missing
+features), else over the perturbed graph's own layout (edge drops).
 
 The loop trains exactly ``cfg.epochs`` epochs, one step and one evaluation
 at a time.  JAX's default epoch-chunk scan trains in chunks of
@@ -23,6 +25,7 @@ at a time.  JAX's default epoch-chunk scan trains in chunks of
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 from typing import Dict, Optional
 
@@ -30,10 +33,12 @@ import numpy as np
 import torch
 
 from stemgnn_tpu_torch.core.config import FinetuneConfig
+from stemgnn_tpu_torch.core.graph import host_to_device
 from stemgnn_tpu_torch.data.dataset import TAGDataset
 from stemgnn_tpu_torch.models.task import (maybe_kmeans_init_vq,
                                            task_model_init)
-from stemgnn_tpu_torch.train.finetune_loop import (_make_node_steps,
+from stemgnn_tpu_torch.train.finetune_loop import (_Events,
+                                                   _make_node_steps,
                                                    _split_params,
                                                    make_optimizer)
 from stemgnn_tpu_torch.train.graph_setup import fused_full_graph
@@ -69,34 +74,6 @@ def _graph(ds, cfg, device, use_layout, gwin, stats):
     return graph
 
 
-class _Events:
-    """Device milliseconds of named regions by CUDA events, read at the
-    end; nothing is recorded on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.on = device.type == "cuda"
-        self.pairs = {}
-
-    def start(self, name):
-        if self.on:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.pairs.setdefault(name, []).append([ev, None])
-
-    def stop(self, name):
-        if self.on:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.pairs[name][-1][1] = ev
-
-    def into(self, stats: dict):
-        if self.on:
-            torch.cuda.synchronize()
-        for name, pairs in self.pairs.items():
-            stats.setdefault(name, []).extend(
-                a.elapsed_time(b) for a, b in pairs)
-
-
 def _init_model(cfg: FinetuneConfig, pretrained, seed: int):
     """A task model around the pretrained encoder and VQ (the JAX-format
     trees of ``train.pretrain_loop.load_pretrained_for_finetune``, copied)
@@ -129,7 +106,8 @@ def train_node_with_buckets(ds: TAGDataset, cfg: FinetuneConfig,
     (``epoch``, ``val``), its split and bucket accuracies (``split_acc``,
     ``bucket_acc``; x100), its snapshot (``state``: a device-side clone of
     the model's state dict, and the trained ``model`` it loads into), the
-    padded ``masks``, ``bucket_masks`` and labels ``y``, and ``stats``:
+    padded ``masks``, ``bucket_masks`` and labels ``y``, the training
+    ``graph`` with what it was built from (``graph_of``), and ``stats``:
     host seconds of the layout build (``layout_s``) and of the k-means init
     (``kmeans_s``), and on CUDA each step's and evaluation's device ms
     (``step_ms``, ``eval_ms``; CUDA events)."""
@@ -193,7 +171,7 @@ def train_node_with_buckets(ds: TAGDataset, cfg: FinetuneConfig,
     events.into(stats)
 
     best.update(model=model, masks=masks, bucket_masks=bucket_masks, y=y_np,
-                stats=stats)
+                stats=stats, graph=graph, graph_of=(ds, use_layout, gwin))
     return best
 
 
@@ -204,16 +182,49 @@ def snapshot_model(best: dict):
     return model
 
 
+def _same_edges(a: TAGDataset, b: TAGDataset) -> bool:
+    """Whether ``a`` and ``b`` have the same nodes, edges and edge types, so
+    the graph of one carries the other with its node features swapped."""
+    def same(x, y):
+        return x is y or (x is not None and y is not None
+                          and np.array_equal(x, y))
+    return (a.num_nodes == b.num_nodes and same(a.edge_index, b.edge_index)
+            and same(a.xe, b.xe) and same(a.edge_text_feat, b.edge_text_feat))
+
+
+def _graph_for(ds, cfg, best, device, use_layout, gwin):
+    """The full graph of ``ds`` for a re-evaluation.  A graph whose edges
+    are the training graph's (a missing-feature perturbation) reuses the
+    training graph's layout and row plans with the new feature table
+    swapped in, its host seconds appended to ``stats["feat_swap_s"]``; any
+    other (an edge-dropped graph) builds its own (``stats["layout_s"]``)."""
+    stats = best["stats"]
+    graph = best.get("graph")
+    if graph is None or best["graph_of"][1:] != (use_layout, gwin) \
+            or not _same_edges(ds, best["graph_of"][0]):
+        return _graph(ds, cfg, device, use_layout, gwin, stats)
+    t0 = time.perf_counter()
+    feat = np.zeros((graph.num_nodes_padded, ds.node_text_feat.shape[1]),
+                    np.float32)
+    feat[:ds.num_nodes] = ds.node_features()
+    graph = dataclasses.replace(graph, node_feat=host_to_device(
+        feat, device).to(graph.node_feat.dtype))
+    _sync(device)
+    stats.setdefault("feat_swap_s", []).append(time.perf_counter() - t0)
+    return graph
+
+
 def predict_snapshot_on(ds: TAGDataset, cfg: FinetuneConfig, best: dict, *,
                         plain: bool = False, use_layout: Optional[bool] = None,
                         gwin: str = "auto"):
     """Class probabilities [N_pad, C] (numpy) of the best snapshot on the
-    full graph of ``ds``, built anew on the snapshot's device; its layout
-    build's host seconds and (on CUDA) the evaluation's device ms are
-    appended to ``best["stats"]`` (``layout_s``, ``reeval_ms``)."""
+    full graph of ``ds`` (:func:`_graph_for`: the training graph's layout
+    when the edges are the same, else built anew on the snapshot's device);
+    on CUDA the evaluation's device ms is appended to
+    ``best["stats"]["reeval_ms"]``."""
     model = snapshot_model(best)
     device = next(model.parameters()).device
-    graph = _graph(ds, cfg, device, use_layout, gwin, best["stats"])
+    graph = _graph_for(ds, cfg, best, device, use_layout, gwin)
     _, _, eval_step = _make_node_steps(cfg, "node")
     events = _Events(device)
     events.start("reeval_ms")

@@ -1,27 +1,34 @@
 """Finetune CLI of the port (counterpart of the repo's ``finetune.py``, its
-node and link branches with ``--batch_size 0``).
+node and link branches).
 
 Loads a pretrain checkpoint (``<path>/encoder_<epoch>.npz`` and
 ``vq_<epoch>.npz`` in the JAX package's format, with the architecture from
 ``config.json`` beside them when present, as ``python -m
 stemgnn_tpu_torch.pretrain`` writes them under
-``ckpts/pretrain_model/<run_id>/``), finetunes a task decoder on a
-node dataset's full graph (node classification) or a knowledge graph's
-typed edges (link task: relation classification of ``kg_synthetic``'s
-edges) with the VQ frozen, and prints each epoch's loss and train/val/test
-accuracy and the final mean and std over the splits.
+``ckpts/pretrain_model/<run_id>/``), finetunes a task decoder on a node
+dataset (node classification) or a knowledge graph's edges (link task:
+relation classification; ``kg_synthetic`` with typed edges, or the cached
+``WN18RR`` and ``FB15K237``), full batch or on neighbour-sampled
+minibatches (``--batch_size``), and prints each epoch's loss and
+train/val/test accuracy and the final mean and std over the splits.
+``--use_params`` applies the dataset's preset of ``configs/finetune.yaml``
+under the explicit flags, as the JAX CLI does: WN18RR trains full batch,
+FB15K237 on batches of 1,024 edges.  ``--save_model`` writes the best
+task model for ``python -m stemgnn_tpu_torch.infer --mode predict``;
+``--eval_chunked 1`` evaluates layer by layer over edge blocks.
 
 Runs on CUDA (hub-dense matmuls + the aggregation kernels, forward and
 backward) unless ``--device cpu`` is given; without CUDA and without
-``--device cpu`` it exits with an error.  Flag values outside this slice
-(graph tasks, the WN18RR/FB15K237 loader, minibatches, MoE, chunked eval,
-model export, no VQ or an unfrozen VQ, ...) are refused with an error.
-Without a checkpoint the codebook is k-means-initialized from the full
-graph's eval-mode encoding before training.
+``--device cpu`` it exits with an error.  Every flag of the JAX CLI is
+accepted; values outside the port (graph tasks, MoE, bf16, multi-GPU,
+buffer donation, node relabelling, neural text encoders) are refused with
+an error naming their ROADMAP item.  Without a checkpoint the codebook is
+k-means-initialized before training.
 
+  python -m stemgnn_tpu_torch.finetune --finetune_dataset WN18RR --use_params
+  python -m stemgnn_tpu_torch.finetune --finetune_dataset FB15K237 \\
+      --use_params --save_model fb.npz
   python -m stemgnn_tpu_torch.finetune --finetune_dataset arxiv_synthetic_pl \\
-      --pretrain_path ckpts/pretrain_model/default --epochs 3 --repeat 1
-  python -m stemgnn_tpu_torch.finetune --finetune_dataset kg_synthetic \\
       --pretrain_path ckpts/pretrain_model/default --epochs 3 --repeat 1
 """
 
@@ -32,6 +39,7 @@ import json
 import os.path as osp
 import sys
 
+from stemgnn_tpu_torch.core import config as cfglib
 from stemgnn_tpu_torch.core.config import (EncoderConfig, FinetuneConfig,
                                            VQConfig)
 from stemgnn_tpu_torch.core.device import resolve_device
@@ -39,18 +47,32 @@ from stemgnn_tpu_torch.data.registry import dataset2task, load_dataset
 from stemgnn_tpu_torch.train.finetune_loop import run_finetune
 from stemgnn_tpu_torch.utils import checkpoint as ckpt
 from stemgnn_tpu_torch.utils.convert import from_jax_pytree
+from stemgnn_tpu_torch.utils.observability import apply_wandb_sweep_config
+from stemgnn_tpu_torch.utils.seeding import seed_everything
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+NEURAL_TEXT_ENCODERS = ("ST", "st", "e5", "llama2_7b", "llama2_13b")
 
 
 def get_args():
-    """``finetune.py``'s flags and defaults, as far as this slice reads
-    them."""
+    """``finetune.py``'s flags, defaults and aliases, plus ``--device``."""
     p = argparse.ArgumentParser("Finetune")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--gpu", type=int, default=0,
+                   help="accepted for reference-CLI compatibility and "
+                        "ignored (--device picks the device)")
+    p.add_argument("--use_params", action="store_true",
+                   help="apply the dataset's configs/finetune.yaml preset "
+                        "under the explicit flags")
+    p.add_argument("--setting", default="standard", choices=["standard"])
     p.add_argument("--pretrain_dataset", "--pt_data", default="na")
+    p.add_argument("--pretrain_task", "--pt_task", default="all")
     p.add_argument("--pretrain_model_epoch", "--pt_epochs", type=int,
                    default=25)
     p.add_argument("--pretrain_run_id", "--pt_run_id", default="")
+    p.add_argument("--pretrain_seed", "--pt_seed", type=int, default=42,
+                   help="reference-CLI compatibility; checkpoints resolve "
+                        "by --pretrain_run_id")
     p.add_argument("--pretrain_path", default="",
                    help="directory of encoder_<epoch>.npz / vq_<epoch>.npz, "
                         "as python -m stemgnn_tpu_torch.pretrain writes "
@@ -72,6 +94,10 @@ def get_args():
     p.add_argument("--ortho_reg_max_codes", type=int, default=32)
     p.add_argument("--use_vq", type=int, default=1, choices=[0, 1])
     p.add_argument("--moe", action="store_true")
+    p.add_argument("--moe_layers", default="none",
+                   choices=["none", "all", "last"])
+    p.add_argument("--moe_experts", "--K", type=int, default=3)
+    p.add_argument("--moe_tau", "--tau", type=float, default=1.0)
     p.add_argument("--lamda_env", type=float, default=0.0)
     p.add_argument("--finetune_dataset", "--dataset", "--data",
                    default="cora_synthetic")
@@ -85,11 +111,27 @@ def get_args():
     p.add_argument("--separate_decoder_for_each_head", type=int, default=1)
     p.add_argument("--decoder_jac_coeff", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--text_encoder", default="hash")
-    p.add_argument("--save_model", default="")
-    p.add_argument("--eval_chunked", type=int, default=0, choices=[0, 1])
+    p.add_argument("--text_encoder", default="hash",
+                   choices=["hash", "tfidf", *NEURAL_TEXT_ENCODERS])
+    p.add_argument("--save_model", default="",
+                   help="write the best-val task model to this npz for "
+                        "infer --mode predict")
+    p.add_argument("--eval_every", type=int, default=1,
+                   help="graph task: evaluate every K epochs (node and link "
+                        "evaluate every epoch, as in JAX)")
+    p.add_argument("--eval_bf16", type=int, default=0, choices=[0, 1])
+    p.add_argument("--eval_batch_size", type=int, default=0,
+                   help="graph task: eval batch size (node and link do not "
+                        "read it, as in JAX)")
+    p.add_argument("--eval_train_auc", type=int, default=1, choices=[0, 1])
+    p.add_argument("--donate", action="store_true")
+    p.add_argument("--eval_chunked", type=int, default=0, choices=[0, 1],
+                   help="layer-wise streaming eval")
     p.add_argument("--use_fused_layout", type=int, default=1, choices=[0, 1])
     p.add_argument("--hub_size", type=int, default=2048)
+    p.add_argument("--halo_balance", action="store_true")
+    p.add_argument("--halo_order", default="none",
+                   choices=["none", "balance", "rcm", "community"])
     p.add_argument("--reorder", default="auto",
                    choices=["auto", "off", "rcm", "degree", "community"])
     p.add_argument("--halo_shards", type=int, default=0)
@@ -97,35 +139,63 @@ def get_args():
     return p
 
 
+def parse(argv=None):
+    """The arguments: with ``--use_params`` the dataset's preset of
+    ``configs/finetune.yaml`` becomes the defaults under the explicit flags
+    (JAX finetune.py:145-162: ``encoder`` flattened, ``dataset``,
+    ``epochs`` and ``lr`` renamed), then the wandb sweep round-trip (a
+    no-op offline or with ``--debug``)."""
+    parser = get_args()
+    args = parser.parse_args(argv)
+    task = dataset2task.get(args.finetune_dataset)
+    if args.use_params:
+        presets = cfglib.load_yaml(osp.join(ROOT, "configs", "finetune.yaml"))
+        preset = presets.get(task, {}).get(args.finetune_dataset, {})
+        rename = {"dataset": "finetune_dataset", "epochs": "finetune_epochs",
+                  "lr": "finetune_lr"}
+        flat = {}
+        for k, v in preset.items():
+            if k == "encoder":
+                flat.update(v)
+            else:
+                flat[rename.get(k, k)] = v
+        parser.set_defaults(**{k: v for k, v in flat.items()
+                               if hasattr(args, k)})
+        args = parser.parse_args(argv)
+    return apply_wandb_sweep_config(args, "STEM-GNN-Finetune",
+                                    debug=args.debug)
+
+
 def refusals(args) -> list:
-    """What this slice does not cover among the given flag values."""
+    """What the port does not cover among the given flag values, each with
+    its ROADMAP item."""
     name = args.finetune_dataset
     task = dataset2task.get(name)
     checks = (
-        (task == "graph", f"{name!r} is a graph task; the port finetunes "
-                          f"node and link tasks so far"),
-        (name in ("WN18RR", "FB15K237"),
-         f"{name!r} is a link task whose loader (data/kg.py, the reference "
-         f"KG triples) is not ported; kg_synthetic is the ported link "
-         f"dataset"),
-        (args.batch_size > 0, "--batch_size > 0: minibatch training is not "
-                              "ported; use --batch_size 0 (full batch)"),
-        (args.moe, "--moe: MoE-SAGE layers are not ported"),
-        (args.eval_chunked, "--eval_chunked 1: the layer-wise chunked eval "
-                            "is not ported"),
-        (bool(args.save_model), "--save_model: the task-model export is not "
-                                "ported"),
-        (args.use_vq == 0, "--use_vq 0: only the VQ path is ported"),
-        (args.freeze_vq == 0, "--freeze_vq 0: VQ training (EMA, orthogonal "
-                              "loss) is not ported; the VQ stays frozen"),
-        (args.bf16, "--bf16: bf16 compute is not ported"),
+        (task == "graph", f"{name!r} is a graph task; graph tasks are not "
+                          f"ported (ROADMAP Queue 1 item 7)"),
+        (args.moe, "--moe: MoE-SAGE layers are not ported (ROADMAP Queue 1 "
+                   "item 5)"),
         (args.backbone != "sage", f"--backbone {args.backbone}: only sage "
-                                  f"is ported"),
-        (args.halo_shards > 0, "--halo_shards: multi-GPU finetune is not "
-                               "ported"),
+                                  f"is ported (ROADMAP Queue 1 item 5)"),
+        (args.bf16, "--bf16: bf16 compute is not ported (ROADMAP Queue 1 "
+                    "item 4)"),
+        (args.eval_bf16, "--eval_bf16 1: the bf16 evaluation forward is not "
+                         "ported (ROADMAP Queue 1 item 4)"),
+        (args.donate, "--donate: buffer donation is a JAX mechanism with no "
+                      "PyTorch counterpart (ROADMAP, differences kept on "
+                      "purpose)"),
+        (args.halo_shards > 0, "--halo_shards: the multi-GPU finetune is "
+                               "not ported (ROADMAP Queue 1 item 10)"),
+        (args.halo_balance or args.halo_order != "none",
+         "--halo_balance / --halo_order: the halo partition's node orders "
+         "are not ported (ROADMAP Queue 1 item 10)"),
         (args.reorder in ("rcm", "degree", "community"),
          f"--reorder {args.reorder}: node relabelling (ops/reorder.py) is "
-         f"not ported; use auto or off"),
+         f"not ported (ROADMAP Queue 1 item 3); use auto or off"),
+        (args.text_encoder in NEURAL_TEXT_ENCODERS,
+         f"--text_encoder {args.text_encoder}: the neural text encoders are "
+         f"not ported (ROADMAP Queue 1 item 11)"),
     )
     return [msg for bad, msg in checks if bad]
 
@@ -150,7 +220,10 @@ def _pretrained(args):
             saved = json.load(f)
         for k_src, k_dst in (("hidden_dim", "hidden_dim"),
                              ("num_layers", "num_layers"),
-                             ("backbone", "backbone"), ("moe", "moe")):
+                             ("backbone", "backbone"), ("moe", "moe"),
+                             ("num_experts", "moe_experts"),
+                             ("tau", "moe_tau"),
+                             ("moe_layers", "moe_layers")):
             if k_src in saved.get("encoder", {}):
                 setattr(args, k_dst, saved["encoder"][k_src])
         for k_src, k_dst in (("codebook_size", "codebook_size"),
@@ -169,7 +242,9 @@ def make_config(args, num_classes: int) -> FinetuneConfig:
             input_dim=args.feat_dim, hidden_dim=args.hidden_dim,
             num_layers=args.num_layers, backbone=args.backbone,
             normalize=args.normalize, dropout=args.dropout,
-            activation=args.activation),
+            activation=args.activation, moe=args.moe,
+            num_experts=args.moe_experts, tau=args.moe_tau,
+            moe_layers=args.moe_layers),
         vq=VQConfig(
             dim=args.hidden_dim, codebook_size=args.codebook_size,
             codebook_dim=args.code_dim, heads=args.codebook_head,
@@ -188,14 +263,16 @@ def make_config(args, num_classes: int) -> FinetuneConfig:
         decoder_jac_coeff=args.decoder_jac_coeff, lamda_env=args.lamda_env,
         num_classes=num_classes, eval_chunked=bool(args.eval_chunked),
         use_fused_layout=bool(args.use_fused_layout), hub_size=args.hub_size,
-        reorder=args.reorder)
+        reorder=args.reorder, eval_every=args.eval_every,
+        eval_bf16=bool(args.eval_bf16), eval_batch_size=args.eval_batch_size,
+        eval_train_auc=bool(args.eval_train_auc))
 
 
 def main(argv=None):
     """Run the CLI.  Returns ``run_finetune``'s dict (the Logger and the
-    last split's model, graph and step functions) for callers that go on
-    working with them, as ``chip_smoke.py`` does."""
-    args = get_args().parse_args(argv)
+    last split's model, graph, step functions and history) for callers that
+    go on working with them, as ``chip_smoke.py`` does."""
+    args = parse(argv)
     bad = refusals(args)
     if bad:
         raise SystemExit("stemgnn_tpu_torch.finetune: " + "; ".join(bad))
@@ -207,6 +284,7 @@ def main(argv=None):
     if name not in dataset2task:
         raise KeyError(f"Unknown dataset {name}")
 
+    seed_everything(args.seed)
     ds = load_dataset(name, feat_dim=args.feat_dim, seed=args.seed,
                       text_encoder=args.text_encoder)
     enc, vq = _pretrained(args)
@@ -222,7 +300,7 @@ def main(argv=None):
         pretrained = {"encoder": encoder, "vq": quantizer}
         print("Loaded pretrained encoder and VQ.")
     res = run_finetune(ds, cfg, pretrained=pretrained, device=device,
-                       verbose=True)
+                       verbose=True, save_model_to=args.save_model)
     best = res["logger"].get_best()
     for k, label in (("train", "train:"), ("val", "val:  "),
                      ("test", "test: ")):

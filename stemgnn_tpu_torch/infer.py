@@ -1,19 +1,28 @@
 """Batch inference / export CLI of the port (counterpart of the repo's
 ``infer.py``).
 
-``--mode encode`` (the default and, so far, the only mode) loads a pretrain
-checkpoint (``<path>/encoder_<epoch>.npz`` and ``vq_<epoch>.npz``, with the
+``--mode encode`` (the default) loads a pretrain checkpoint
+(``<path>/encoder_<epoch>.npz`` and ``vq_<epoch>.npz``, with the
 architecture from ``config.json`` beside them when present, as ``python -m
-stemgnn_tpu_torch.pretrain`` writes them), encodes a node
-dataset's full graph and writes per-node ``embeddings`` [N, D],
-``quantized`` embeddings [N, D] and VQ ``codes`` [N, H] into one npz.
+stemgnn_tpu_torch.pretrain`` writes them), encodes a node dataset's full
+graph and writes per-node ``embeddings`` [N, D], ``quantized`` embeddings
+[N, D] and VQ ``codes`` [N, H] into one npz.
 
-Runs on CUDA (hub-dense matmuls + the ``scatter_rows_sorted`` kernel) unless
+``--mode predict`` loads a task model that ``finetune --save_model`` wrote
+(either package's: the same trees and meta) and writes the class
+probabilities ``probs`` [items, C] and their argmax ``pred`` for every node
+of a node dataset or every edge of a link dataset (the midpoints of its
+endpoints' embeddings).  Graph tasks are not ported (ROADMAP Queue 1 item
+7).
+
+Runs on CUDA (hub-dense matmuls + the aggregation kernels) unless
 ``--device cpu`` is given; without CUDA and without ``--device cpu`` it
 exits with an error.
 
   python -m stemgnn_tpu_torch.infer --finetune_dataset arxiv_synthetic_pl \\
       --pretrain_path ckpts/pretrain_model/default --out codes.npz
+  python -m stemgnn_tpu_torch.infer --mode predict --finetune_dataset \\
+      FB15K237 --model fb.npz --out preds.npz
 """
 
 from __future__ import annotations
@@ -27,13 +36,15 @@ import numpy as np
 import torch
 
 from stemgnn_tpu_torch.core.config import (EncoderConfig, FinetuneConfig,
-                                           VQConfig)
+                                           VQConfig, from_dict)
 from stemgnn_tpu_torch.core.device import resolve_device
 from stemgnn_tpu_torch.data.registry import dataset2task, load_dataset
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
 from stemgnn_tpu_torch.utils import checkpoint as ckpt
-from stemgnn_tpu_torch.utils.convert import from_jax_pytree
+from stemgnn_tpu_torch.models.task import encode, task_logits
+from stemgnn_tpu_torch.utils.convert import (from_jax_pytree,
+                                             task_model_from_jax)
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
@@ -52,7 +63,8 @@ def get_args():
                         "them (default: ckpts/pretrain_model/<run_id>)")
     p.add_argument("--pretrain_model_epoch", type=int, default=50)
     p.add_argument("--model", default="",
-                   help="task-model npz (mode=predict, not ported yet)")
+                   help="task-model npz from finetune --save_model "
+                        "(mode=predict)")
     p.add_argument("--out", default="inference_out.npz")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default=None,
@@ -93,11 +105,15 @@ def main(argv=None):
         raise SystemExit(f"stemgnn_tpu_torch.infer: {ex}") from ex
 
     name = args.finetune_dataset
-    if args.mode == "predict":
-        raise NotImplementedError("--mode predict is not ported yet")
     task = dataset2task.get(name)
     if task is None:
         raise KeyError(f"Unknown dataset {name}")
+    if task == "graph":
+        raise SystemExit(f"stemgnn_tpu_torch.infer: {name!r} is a graph "
+                         f"task; graph tasks are not ported (ROADMAP Queue "
+                         f"1 item 7)")
+    if args.mode == "predict":
+        return predict(args, task, device)
     if task != "node":
         raise NotImplementedError(f"{name!r} is a {task} task; the port "
                                   f"encodes node datasets so far")
@@ -132,6 +148,37 @@ def main(argv=None):
           f"[{n}, {res['indices'].shape[-1]}]", flush=True)
     return {"z": z, "vq": res, "graph": graph, "encoder": encoder,
             "quantizer": quantizer, "num_nodes": n}
+
+
+def predict(args, task: str, device):
+    """``--mode predict`` (JAX infer.py:69-110): the saved task model's
+    head-mean softmax probabilities over the fused full graph."""
+    if not args.model:
+        raise SystemExit("--mode predict needs --model (a task-model npz "
+                         "from finetune --save_model)")
+    payload = ckpt.load_pytree(args.model)
+    meta = ckpt.load_meta(args.model) or {}
+    cfg = from_dict(FinetuneConfig(), meta["config"])
+    model = task_model_from_jax(payload["params"], payload["state"],
+                                cfg).to(device).eval()
+    ds = load_dataset(args.finetune_dataset, feat_dim=args.feat_dim,
+                      seed=args.seed, text_encoder=args.text_encoder)
+    graph = fused_full_graph(ds, cfg, device=device)
+    if graph.layout is not None:
+        print(describe_layout(graph.layout), flush=True)
+    with torch.no_grad():
+        z = encode(model, graph)
+        if task == "link":
+            z = (z[graph.senders] + z[graph.receivers]) / 2.0
+            row_mask, n_items = graph.edge_mask, ds.num_edges
+        else:
+            row_mask, n_items = graph.node_mask, ds.num_nodes
+        logits, _ = task_logits(model, cfg, z, mask=row_mask)
+        probs = torch.softmax(logits.mean(1), dim=-1)[:n_items]
+    probs = probs.cpu().numpy()
+    np.savez_compressed(args.out, probs=probs, pred=probs.argmax(-1))
+    print(f"wrote {args.out}: probs {probs.shape}", flush=True)
+    return {"probs": probs, "graph": graph, "model": model, "cfg": cfg}
 
 
 if __name__ == "__main__":

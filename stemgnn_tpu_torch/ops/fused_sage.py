@@ -139,11 +139,17 @@ def tail_messages(src, lay: EdgeLayout, t0, order: str = "r"):
     return torch.where(mask[:, None], m, zero)
 
 
-def hub_partials(src, hub: HubDense, t0, relu: bool = True, blocks=None):
-    """[N_pad, D] f32 sums of the hub-covered messages ``f(src)``, f =
+def hub_partials(src, hub: HubDense, t0, relu: bool = True, blocks=None,
+                 out_dtype=torch.float32):
+    """[N_pad, D] sums of the hub-covered messages ``f(src)``, f =
     relu(. + t0) or the identity: gather-side hubs as
     ``cnt @ f(src[hub_ids])``, scatter-side hubs as ``sc_cnt @ f(src)``.
-    ``blocks`` replaces ``(cnt, sc_cnt)`` (the dropout's masked blocks)."""
+    ``blocks`` replaces ``(cnt, sc_cnt)`` (the dropout's masked blocks).
+
+    Each product sums in f32.  With a bf16 ``out_dtype`` the partials are
+    rounded as JAX's ``hub_bf16_acc`` rounds them (fused_sage.py:311-328):
+    the gather-hub product is stored in bf16, the sc block's product is
+    rounded to bf16 and added in bf16; with f32 both stay f32."""
     cnt, sc_cnt = (hub.cnt, hub.sc_cnt) if blocks is None else blocks
 
     def f(a):
@@ -152,9 +158,10 @@ def hub_partials(src, hub: HubDense, t0, relu: bool = True, blocks=None):
     if sc_cnt is not None:
         # one f(src) [N, D] pass feeds both dense blocks
         f_all = f(src)
-        out = _mm(cnt, f_all.index_select(0, hub.hub_ids))
-        return out.index_add_(0, hub.sc_ids, _mm(sc_cnt, f_all))
-    return _mm(cnt, f(src.index_select(0, hub.hub_ids)))
+        out = _mm(cnt, f_all.index_select(0, hub.hub_ids)).to(out_dtype)
+        return out.index_add_(0, hub.sc_ids,
+                              _mm(sc_cnt, f_all).to(out_dtype))
+    return _mm(cnt, f(src.index_select(0, hub.hub_ids))).to(out_dtype)
 
 
 def direction_keep(lay: EdgeLayout, seed, p: float, order: str):
@@ -305,7 +312,7 @@ def _hub_split(src, hub: HubDense, order: str, layout: EdgeLayout, *,
     if drop is not None:
         blocks = drop.hub(hub)[:2]
         keep = drop.keep(hub.tail, order)
-    init = hub_partials(src, hub, t0, relu, blocks).to(out_dtype)
+    init = hub_partials(src, hub, t0, relu, blocks, out_dtype)
     return _tail(src, hub.tail, order, layout.num_nodes_padded, relu=relu,
                  t0=t0, init=init, scale=scale, gate=gate,
                  out_dtype=out_dtype, plain=plain, keep=keep)
@@ -353,7 +360,9 @@ def _typed_forward(x, layout, table, reduce, mdtype, plain):
             and mdtype == torch.bfloat16:
         xh = torch.relu(src.index_select(0, hub.hub_ids)
                         + tb.index_select(0, hub.hub_xe))
-        return _typed_tail(src, tb, hub.tail, n_pad, init=_mm(hub.cnt, xh),
+        # bf16 partials under a bf16 output, as JAX's hub_bf16_acc
+        return _typed_tail(src, tb, hub.tail, n_pad,
+                           init=_mm(hub.cnt, xh).to(out_dtype),
                            scale=inv_deg(layout) if reduce == "mean"
                            else None, out_dtype=out_dtype, plain=plain)
     # no epilogue: the f32 sums, then the mean, then the cast

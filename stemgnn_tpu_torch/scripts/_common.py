@@ -4,9 +4,10 @@ aliases, plus ``--device``.
 
 Flag values outside what the port covers are refused with an error that
 names the ROADMAP item that would bring them: backbones other than sage
-(Queue 1 item 5), ``--moe`` (item 5), ``--use_vq 0`` / ``--freeze_vq 0``
-(item 6), the datasets that need downloaded files (item 8) and the neural
-text encoders they would be encoded with (item 11).  Link and graph
+(Queue 1 item 5), ``--moe`` (item 5), the datasets that need downloaded
+files (item 8) and the neural text encoders they would be encoded with
+(item 11).  ``--use_vq 0`` (the no-VQ bypass) and ``--freeze_vq 0`` (the
+codebook trained with the rest) run as in JAX.  Link and graph
 datasets are refused as in the JAX scripts, which classify nodes only.
 """
 
@@ -84,11 +85,6 @@ def refusals(args) -> list:
         (args.moe, "--moe: MoE-SAGE layers, and with them --lamda_env's "
                    "environment regularizer, are not ported (ROADMAP Queue "
                    "1 item 5)"),
-        (args.use_vq == 0, "--use_vq 0: only the VQ path is ported (ROADMAP "
-                           "Queue 1 item 6)"),
-        (args.freeze_vq == 0, "--freeze_vq 0: finetuning the codebook is not "
-                              "ported; the VQ stays frozen (ROADMAP Queue 1 "
-                              "item 6)"),
     )
     return [msg for bad, msg in checks if bad]
 

@@ -424,6 +424,36 @@ def test_reevaluation_on_perturbed_graphs_matches_jax(jax_run, kind):
                                rtol=3e-2, atol=1e-2)
 
 
+def test_reused_layout_predictions_equal_a_fresh_layout(jax_run):
+    """A missing-feature re-evaluation reuses the training graph's layout
+    and row plans with the perturbed feature table swapped in: its
+    probabilities equal those over a layout built afresh for the perturbed
+    graph, bit for bit (layout route, bf16 messages), and no layout is
+    built for it; an edge-dropped graph still builds its own."""
+    cfg, ds_p = jax_run["cfg"], jax_run["ds_p"]
+    pc = _port_cfg(cfg)
+    best = pr.train_node_with_buckets(
+        ds_p, pc, jax_run["split"], {}, seed=SEED, device="cpu",
+        use_layout=True, model=task_model_from_jax(*jax_run["init"], pc))
+    masks = {k: jr._pad_mask(v, ds_p.num_nodes, ds_p.num_nodes)
+             for k, v in jax_run["split"].items()}
+    ds_mf = _perturbed("missing_features", ds_p, masks, pp)
+    assert best["graph"].layout is not None
+    reused = pr.predict_snapshot_on(ds_mf, pc, best, use_layout=True)
+    assert len(best["stats"]["layout_s"]) == 1
+    assert len(best["stats"]["feat_swap_s"]) == 1
+    fresh = pr.predict_snapshot_on(ds_mf, pc, dict(best, graph=None),
+                                   use_layout=True)
+    assert len(best["stats"]["layout_s"]) == 2
+    assert np.array_equal(reused, fresh)
+    # another route than the training graph's, or other edges: a new build
+    pr.predict_snapshot_on(ds_mf, pc, best, use_layout=False)
+    pr.predict_snapshot_on(_perturbed("edge_drops", ds_p, masks, pp), pc,
+                           best, use_layout=True)
+    assert len(best["stats"]["layout_s"]) == 4
+    assert len(best["stats"]["feat_swap_s"]) == 1
+
+
 def test_nanmean_std_and_pad_mask_equal_jax():
     for vals in ([1.0, 2.0, np.nan], [np.nan, np.nan], [3.0]):
         got, want = pr.nanmean_std(vals), jr.nanmean_std(vals)
@@ -503,8 +533,9 @@ def test_script_json_matches_the_jax_script(name, tmp_path, monkeypatch):
     (["--finetune_dataset", "cora"], "Queue 1 item 8"),
     (["--finetune_dataset", "pubmed", "--text_encoder", "e5"],
      "Queue 1 item 11"),
-    (["--use_vq", "0"], "Queue 1 item 6"),
-    (["--freeze_vq", "0"], "Queue 1 item 6"),
+    (["--backbone", "gin"], "Queue 1 item 5"),
+    (["--finetune_dataset", "FB15K237"],
+     "not a node-classification dataset"),
 ])
 @pytest.mark.parametrize("name", ["random_edge_drop", "tri_objective"])
 def test_scripts_refuse_what_the_port_does_not_cover(name, flags, needle):
@@ -512,6 +543,20 @@ def test_scripts_refuse_what_the_port_does_not_cover(name, flags, needle):
     with pytest.raises(SystemExit) as info:
         mod.main(["--device", "cpu", *SMALL, *flags])
     assert needle in str(info.value) and name in str(info.value)
+
+
+@pytest.mark.parametrize("flags", [["--use_vq", "0"], ["--freeze_vq", "0"]])
+@pytest.mark.parametrize("name", ["random_edge_drop", "tri_objective"])
+def test_scripts_run_without_the_vq_or_with_a_trained_codebook(name, flags):
+    """``--use_vq 0`` (the decoder reads ``project_in(z)``) and
+    ``--freeze_vq 0`` (the codebook in the optimizer), refused before, run
+    now: finite accuracies in [0, 100] in the JSON's run row."""
+    mod = importlib.import_module(f"stemgnn_tpu_torch.scripts.{name}")
+    res = mod.main(["--device", "cpu", "--finetune_dataset", "cora_synthetic",
+                    *SMALL, *flags])
+    row = res["payload"]["runs"][0]
+    accs = [v for k, v in row.items() if k != "best_epoch"]
+    assert accs and all(np.isfinite(v) and 0 <= v <= 100 for v in accs)
 
 
 def test_scripts_without_cuda_exit_nonzero(monkeypatch):

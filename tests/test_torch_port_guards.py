@@ -34,7 +34,8 @@ def test_port_and_smoke_import_without_jax_or_the_jax_package():
         for mod in ("ops.scatter", "finetune", "train.finetune_loop",
                     "models.task", "utils.metrics", "utils.early_stop",
                     "utils.logger", "data.synthetic", "ops.fused_sage",
-                    "ops.edge_layout"):
+                    "ops.edge_layout", "data.importers", "data.kg",
+                    "train.infer"):
             assert "stemgnn_tpu_torch." + mod in names, names
         print(len(names))
     """)
@@ -183,6 +184,29 @@ def test_minibatch_modules_import_without_jax_or_the_jax_package():
                if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
                or (m.startswith("jax") and sys.modules[m] is not None)]
         assert not bad, bad
+        print("imported")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+def test_kg_and_minibatch_finetune_modules_import_without_jax():
+    """The modules of the knowledge-graph slice (the npz caches, the KG
+    loader, the layer-wise inference) and the CLIs that use them import
+    neither JAX nor the JAX package, and the cache root is the repository's
+    own ``data_cache/`` (no path into the JAX package)."""
+    proc = _run("""
+        import importlib, os
+        for mod in ("data.importers", "data.kg", "data.registry",
+                    "train.infer", "train.finetune_loop", "finetune",
+                    "infer", "eval.runner"):
+            importlib.import_module("stemgnn_tpu_torch." + mod)
+        bad = [m for m in sys.modules
+               if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
+               or (m.startswith("jax") and sys.modules[m] is not None)]
+        assert not bad, bad
+        from stemgnn_tpu_torch.data.importers import DEFAULT_CACHE_ROOT
+        assert DEFAULT_CACHE_ROOT == os.path.join(os.getcwd(), "data_cache")
         print("imported")
     """)
     assert proc.returncode == 0, proc.stderr

@@ -340,20 +340,47 @@ def test_finetune_train_step_matches_jax(route):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--finetune_dataset", "WN18RR"], "link task"),
-    (["--batch_size", "32"], "--batch_size"),
+    (["--finetune_dataset", "mol_synthetic"], "graph task"),
+    (["--bf16"], "--bf16"),
     (["--moe"], "--moe"),
-    (["--eval_chunked", "1"], "--eval_chunked"),
-    (["--save_model", "model.npz"], "--save_model"),
-    (["--use_vq", "0"], "--use_vq 0"),
-    (["--freeze_vq", "0"], "--freeze_vq 0"),
+    (["--eval_bf16", "1"], "--eval_bf16 1"),
+    (["--donate"], "--donate"),
+    (["--halo_shards", "2"], "--halo_shards"),
+    (["--halo_order", "rcm"], "--halo_order"),
     (["--reorder", "rcm"], "--reorder rcm"),
     (["--backbone", "gcn"], "--backbone gcn"),
 ])
 def test_finetune_cli_refuses_what_the_slice_does_not_cover(flags, needle):
     with pytest.raises(SystemExit) as info:
-        port_cli.main(["--device", "cpu", *flags])
+        port_cli.main(["--device", "cpu", "--debug", *flags])
     assert needle in str(info.value)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--batch_size", "32"],
+    ["--batch_size", "32", "--eval_chunked", "1"],
+    ["--eval_chunked", "1"],
+    ["--save_model", "{tmp}/model.npz"],
+    ["--use_vq", "0"],
+    ["--freeze_vq", "0"],
+])
+def test_finetune_cli_runs_what_the_slice_now_covers(flags, tmp_path):
+    """The flag values the CLI used to refuse run now: minibatches, the
+    layer-wise chunked evaluation, the task-model export, the no-VQ bypass
+    and a trained codebook, one epoch of cora_synthetic at width D."""
+    flags = [f.format(tmp=tmp_path) for f in flags]
+    res = port_cli.main(["--device", "cpu", "--debug", "--finetune_dataset",
+                         "cora_synthetic", "--feat_dim", str(D),
+                         "--hidden_dim", str(D), "--code_dim", str(D),
+                         "--codebook_size", "16", "--epochs", "1",
+                         "--repeat", "1", *flags])
+    assert np.isfinite(res["epoch_losses"][0]["loss"])
+    if "--save_model" in flags:
+        assert os.path.exists(flags[-1]) and res["best_pred"] is not None
+    if "--batch_size" in flags:
+        assert res["history"][0]["batches"] == -(-140 // 32)
+    assert (res["graph"] is None) == ("--batch_size" in flags
+                                      and "--eval_chunked" in flags)
 
 
 def test_finetune_cli_trains_on_the_cpu(tmp_path):

@@ -90,9 +90,13 @@ def test_link_dataset_equals_jax():
                                num_entities=40943, num_edges=93003)
     assert (ds.num_nodes, ds.num_edges, ds.edge_text_feat.shape) == (
         40943, 93003, (11, 8))
-    for name in ("WN18RR", "FB15K237"):
-        with pytest.raises(NotImplementedError, match="data/kg.py"):
-            registry.load_dataset(name)
+    # the real knowledge graphs load from the repository's caches, with
+    # one edge text (the factored branch, T = 1)
+    for name, size in (("WN18RR", (40_943, 93_003, 11)),
+                       ("FB15K237", (14_537, 38_001, 228))):
+        kg = registry.load_dataset(name)
+        assert (kg.num_nodes, kg.num_edges, kg.num_classes) == size
+        assert kg.edge_text_feat.shape == (1, 768)
 
 
 @pytest.mark.parametrize("mode", ["forced", "auto"])
@@ -414,5 +418,6 @@ def test_finetune_cli_still_refuses_graph_tasks():
                        "mol_synthetic"])
     assert "graph task" in str(info.value)
     with pytest.raises(SystemExit) as info:
-        port_cli.main(["--device", "cpu", "--finetune_dataset", "FB15K237"])
-    assert "link task" in str(info.value) and "data/kg.py" in str(info.value)
+        port_cli.main(["--device", "cpu", "--finetune_dataset", "chempcba",
+                       "--use_params"])
+    assert "graph task" in str(info.value) and "item 7" in str(info.value)
