@@ -11,8 +11,8 @@ typed-edge link finetune on ``kg_synthetic`` (11 relation types, at its
 default size and at WN18RR's 40,943 entities and 93,003 triples), the five
 robustness evaluations and the reference's link presets on the cached
 WN18RR and FB15K237, and holds every CUDA kernel of their paths against its
-plain PyTorch version.  Phases, each announced before it
-starts and timed when it ends:
+plain PyTorch version; then the graph tasks on molecules.  Phases, each
+announced before it starts and timed when it ends:
 
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds the three kernels from ``stemgnn_tpu_torch/csrc``,
@@ -120,7 +120,28 @@ starts and timed when it ends:
                probabilities against the fused evaluation's where the
                edges' endpoints keep their VQ codes (the ``z``
                tolerance; at least 90% of the edges keep them);
- 13. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
+ 13. graph   — the graph tasks, which launch no kernel (a molecule batch
+               carries no layout, as in JAX): ``finetune.main --use_params``
+               on ``mol_synthetic`` (600 graphs, 4 tasks, batches of 64, 2
+               epochs; the materialized bundle, the host AUC), then 20,000
+               random valence-safe molecules (about half of MoleculeNet
+               HIV's count, 128 tasks, 60% NaN, 80/10/10), written to a
+               CSV under ``chiprun_out/``, featurized once, through
+               ``finetune.main --finetune_dataset smiles:<csv>`` with
+               chemhiv's preset values as flags (batches of 1,024, lr
+               3e-4), 2 epochs with
+               ``--save_model`` (the indexed bundle, the device AUC), then
+               ``infer.main --mode predict`` on the saved model and ``infer
+               .main --mode encode`` from phase slice's checkpoint: no
+               launch of any kernel; finite losses; the history's build /
+               copy host ms a batch, step ms, idle share and each split's
+               evaluation ms; the AUCs; the device AUC against the host AUC
+               over the best evaluation's predictions (1e-6); the predicted
+               probabilities against that evaluation's sigmoid (1e-6; a
+               molecule at a near-tie of two VQ codes may take the other
+               code in another batching, and is shown to); one step's
+               gradients against the plain route; peak memory;
+ 14. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
                at the main paths' shapes (kernel 1 also on the pretrain
                step's dropout tails), by CUDA events.
 
@@ -130,9 +151,10 @@ it (the entry points change none of its arrays).  Prints the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result line, on any failure and
 when no CUDA device is available.  Writes nothing into the repository but
-the build directory of the kernels and the sampler (the pretrain CLI's
-checkpoints are removed at the end of their phase; the evaluations' TSV
-goes to a temporary directory).
+the build directory of the kernels and the sampler and the graph phase's
+molecules under ``chiprun_out/`` (the pretrain CLI's checkpoints are
+removed at the end of their phase; the evaluations' TSV goes to a
+temporary directory).
 """
 
 import contextlib
@@ -175,13 +197,17 @@ from stemgnn_tpu_torch.ops.fused_sage import (DropView, hub_partials,
                                               tail_messages)
 from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep, pair_hash_uniform
 from stemgnn_tpu_torch.models.task import encode as task_encode
+from stemgnn_tpu_torch.models.task import pool_graph
 from stemgnn_tpu_torch.profile_pretrain import (dropout_tail_cases,
                                                 pretrain_config)
 from stemgnn_tpu_torch.scripts import _common as scripts_common
 from stemgnn_tpu_torch.scripts import (degree_shift_ood, homophily_shift_ood,
                                        missing_feature, random_edge_drop,
                                        tri_objective)
-from stemgnn_tpu_torch.train.finetune_loop import (_make_node_steps,
+from stemgnn_tpu_torch.data.synthetic import write_smiles_csv
+from stemgnn_tpu_torch.train.finetune_loop import (_batch_graph_list,
+                                                   _graph_feeder,
+                                                   _make_node_steps,
                                                    run_finetune)
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
@@ -194,6 +220,8 @@ from stemgnn_tpu_torch.train.pretrain_loop import (augmented, batch_graph,
                                                    run_pretrain)
 from stemgnn_tpu_torch.utils.checkpoint import save_pytree
 from stemgnn_tpu_torch.utils.convert import from_jax_pytree, to_jax_pytree
+from stemgnn_tpu_torch.utils.metrics import device_multitask_auc, eval_auc
+from stemgnn_tpu_torch.vq import codebook as cb
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
 
 DATASET = "arxiv_synthetic_pl"
@@ -213,6 +241,11 @@ KG = "kg_synthetic"
 KG_TYPES = 11
 # WN18RR's entity and triple counts (the generator keeps its 11 relations)
 WN18RR_ENTITIES, WN18RR_TRIPLES = 40_943, 93_003
+# the graph phase's indexed bundle with PCBA's 128 tasks: 20,000 molecules,
+# about half of MoleculeNet HIV's 41,127 (the reference's chemhiv); at
+# 41,127 the host work of the molecules took the whole smoke past its 4
+# minutes on an H100 machine with a slow host CPU (PERF.md, section 4)
+MOLECULES, MOL_TASKS = 20_000, 128
 # the robustness evaluations' graph and the JSON keys of the JAX scripts
 # (scripts/*.py): the payload's, and one run's row
 OOD_DATASET = "arxiv_synthetic_fragile"
@@ -1593,6 +1626,223 @@ def kg_run(tmp, dev, paths):
     return k2_kg
 
 
+def graph_history(tag, res):
+    """Print each epoch of a graph-task run's history."""
+    for e, h in enumerate(res["history"]):
+        ev = ""
+        if "eval_ms" in h:
+            ev = ("; evaluation " + ", ".join(
+                f"{k} {h[f'eval_ms/{k}']:.3f}" for k in ("train", "valid",
+                                                         "test")
+                if f"eval_ms/{k}" in h)
+                + f" ms device ({h['eval_route']}), {h['eval_s']:.3f} s wall")
+        print(f"  {tag} epoch {e}: {h['batches']} batches; host ms a batch: "
+              f"build {h['host/sample_ms']:.3f}, copies + gather "
+              f"{h['host/transfer_ms']:.3f}; step {h['device_ms']:.3f} ms "
+              f"device (CUDA events), idle share {h['idle']:.4f} of the "
+              f"epoch's {h['epoch_s']:.3f} s{ev}", flush=True)
+    b = res["logger"].get_single_best(0)
+    print(f"  {tag}: best epoch {b['epoch']}: AUC train {b['train']:.2f}, "
+          f"valid {b['val']:.2f}, test {b['test']:.2f}", flush=True)
+    for k in ("train", "val", "test"):
+        if not 0.0 <= b[k] <= 100.0:
+            raise AssertionError(f"{tag}: {k} AUC {b[k]}")
+
+
+def code_gaps(model, graphs, ids, to_device, bs):
+    """For the molecules ``ids`` (batched on their own), the smallest over
+    the heads of the gap between the similarities of the two codes nearest
+    to the pooled embedding: where it is within float noise of 0, another
+    batching may pick the other code."""
+    vq = model.vq
+    dummy = np.zeros((len(graphs), 1))
+    gaps = []
+    model.eval()
+    with torch.no_grad():
+        for g, _, n in _batch_graph_list(graphs, dummy, ids, bs):
+            g = to_device(g)
+            pooled = pool_graph(task_encode(model, g), g, "mean", bs)[:n]
+            xp = vq.project_in(pooled) if vq.cfg.requires_projection \
+                else pooled
+            xh = vq._to_heads(xp).float()
+            if vq.cfg.use_cosine_sim:
+                sim = cb.cosine_distances(cb.l2norm(xh), vq.embed)
+            else:
+                sim = cb.euclidean_distances(xh, vq.embed)
+            top = sim.topk(2, dim=-1).values
+            gaps.append((top[..., 0] - top[..., 1]).min(0).values)
+    return torch.cat(gaps).cpu().numpy()
+
+
+def graph_run(tmp, dev, paths):
+    """The graph tasks (module docstring, phase 13)."""
+    torch.cuda.reset_peak_memory_stats()
+    base = ["--repeat", "1", "--seed", str(SEED), "--debug"]
+    # (a) the mol_synthetic preset: the materialized bundle, the host AUC
+    argv = ["--use_params", "--finetune_dataset", "mol_synthetic",
+            "--epochs", "2", *base]
+    print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+          flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = finetune_main(argv)
+    paths["graph_mol_synthetic"] = read_counts()
+    print(f"  mol_synthetic: finetune wall {time.perf_counter() - t0:.2f} s "
+          f"with its set-up", flush=True)
+    expect_counts("mol_synthetic (k-means init, 2 x (epoch + evaluation))",
+                  paths["graph_mol_synthetic"], {})
+    check_losses(res, 2)
+    if not res["eval_route"].startswith("host AUC, cached"):
+        raise AssertionError(f"mol_synthetic evaluated by {res['eval_route']}")
+    graph_history("mol_synthetic", res)
+    del res
+
+    # (b) an indexed bundle of generated molecules with chemhiv's preset
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    csv_path = os.path.join(out_dir, "chip_smoke_molecules.csv")
+    t0 = time.perf_counter()
+    write_smiles_csv(csv_path, MOLECULES, num_tasks=MOL_TASKS, seed=SEED)
+    gen_s = time.perf_counter() - t0
+    name = f"smiles:{csv_path}"
+    t0 = time.perf_counter()
+    graphs, labels, split = load_dataset(name, feat_dim=FEAT_DIM, seed=SEED)
+    feat_s = time.perf_counter() - t0
+    n_atoms = sum(len(g["x"]) for g in graphs)
+    print(f"  {MOLECULES} molecules generated in {gen_s:.2f} s and parsed "
+          f"and featurized in {feat_s:.2f} s on the host: "
+          f"{n_atoms / MOLECULES:.2f} heavy atoms a molecule, "
+          f"node table {graphs.node_table.shape}, edge table "
+          f"{graphs.edge_table.shape}, {labels.shape[1]} tasks, "
+          f"{np.isnan(labels).mean():.3f} NaN; split "
+          f"{[int(split[k].sum()) for k in ('train', 'valid', 'test')]}",
+          flush=True)
+    model_path = os.path.join(tmp, "molecules_task.npz")
+    argv = ["--finetune_dataset", name, "--batch_size", "1024", "--lr",
+            "3e-4", "--normalize", "batch", "--early_stop", "20",
+            "--epochs", "2", *base, "--save_model", model_path]
+    print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+          flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = finetune_main(argv)
+    paths["graph_molecules"] = read_counts()
+    print(f"  {MOLECULES} molecules: finetune wall "
+          f"{time.perf_counter() - t0:.2f} s with its set-up", flush=True)
+    expect_counts("molecules (k-means init, 2 x (epoch + evaluation))",
+                  paths["graph_molecules"], {})
+    check_losses(res, 2)
+    if not res["eval_route"].startswith("device AUC"):
+        raise AssertionError(f"the indexed bundle evaluated by "
+                             f"{res['eval_route']}")
+    graph_history(f"{MOLECULES} molecules", res)
+
+    # the device AUC against the host AUC over the run's own predictions
+    best, best_pred = res["logger"].get_single_best(0), res["best_pred"]
+    for k, key in (("train", "train"), ("valid", "val"), ("test", "test")):
+        rows = np.where(split[k])[0]
+        y = labels[rows]
+        pred = torch.from_numpy(best_pred[k]).to(dev)
+        dev_auc = float(device_multitask_auc(
+            pred, torch.from_numpy(np.nan_to_num(y).astype(np.float32)).to(
+                dev), torch.from_numpy(~np.isnan(y)).to(dev)))
+        host_auc = eval_auc(best_pred[k], y)
+        print(f"  {k}: AUC on the card {dev_auc:.9f}, on the host "
+              f"{host_auc:.9f} (difference {abs(dev_auc - host_auc):.2e}, "
+              f"tolerance 1e-6); logged {best[key]:.6f}", flush=True)
+        if not abs(dev_auc - host_auc) <= 1e-6 or \
+                not abs(dev_auc * 100 - best[key]) <= 1e-4:
+            raise AssertionError(f"{k}: device AUC {dev_auc}, host AUC "
+                                 f"{host_auc}, logged {best[key]}")
+
+    # a training step's gradients against the plain route
+    loss_fn, to_device = res["steps"][0], res["to_device"]
+    g, lab, n = next(_batch_graph_list(graphs, labels,
+                                       np.where(split["train"])[0], 1024))
+    g = to_device(g)
+    y = torch.from_numpy(np.nan_to_num(lab * 2.0 - 1.0).astype(
+        np.float32)).to(dev)
+    valid = torch.from_numpy(~np.isnan(lab)).to(dev)
+    gmask = torch.arange(1024, device=dev) < n
+
+    def grads(plain):
+        m = copy.deepcopy(res["model"])
+        gen = torch.Generator(device=dev).manual_seed(7)
+        loss, _ = loss_fn(m, g, y, valid, gmask, gen, plain)
+        loss.backward()
+        return {k: p.grad for k, p in m.named_parameters()
+                if p.requires_grad and p.grad is not None}
+    reset_counts()
+    g_default = grads(False)
+    expect_counts("one graph training step", read_counts(), {})
+    check_grads("the plain versions (graph step)", g_default, grads(True))
+    del g_default, res
+
+    # --mode predict on the saved model: the best evaluation's logits
+    out = os.path.join(tmp, "molecules_pred.npz")
+    argv = ["--mode", "predict", "--finetune_dataset", name, "--model",
+            model_path, "--out", out]
+    print(f"  python -m stemgnn_tpu_torch.infer {' '.join(argv)}",
+          flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    pres = infer_main(argv)
+    paths["graph_predict"] = read_counts()
+    print(f"  predict wall {time.perf_counter() - t0:.2f} s", flush=True)
+    expect_counts("infer --mode predict", paths["graph_predict"], {})
+    probs = np.load(out)["probs"]
+    if probs.shape != (MOLECULES, MOL_TASKS) or not np.isfinite(
+            probs).all():
+        raise AssertionError(f"probs {probs.shape}")
+    flipped, worst = [], 0.0
+    for k, logits in best_pred.items():
+        rows = np.where(split[k])[0]
+        err = np.abs(probs[rows] - 1.0 / (1.0 + np.exp(-logits))).max(1)
+        flipped.extend(rows[err > 1e-6])
+        worst = max(worst, float(err[err <= 1e-6].max(initial=0.0)))
+    print(f"  predictions of {MOLECULES} molecules against the best "
+          f"evaluation's sigmoid: max_abs_err {worst:.3e} (tolerance 1e-6) "
+          f"on all but {len(flipped)} molecules", flush=True)
+    if flipped:
+        gaps = code_gaps(pres["model"], graphs, np.asarray(flipped),
+                         _graph_feeder(graphs, dev)[1], 1024)
+        print(f"  the {len(flipped)} others sit at a near-tie of two VQ "
+              f"codes (the largest gap {gaps.max():.2e}), where the "
+              f"batching's float noise picks the other code", flush=True)
+        if gaps.max() > 1e-5 or len(flipped) > MOLECULES // 1000:
+            raise AssertionError("--mode predict disagrees with the best "
+                                 "evaluation")
+    del pres
+
+    # --mode encode from phase slice's pretrain checkpoint
+    out = os.path.join(tmp, "molecules_enc.npz")
+    argv = ["--finetune_dataset", name, "--pretrain_path", tmp,
+            "--pretrain_model_epoch", "50", "--out", out]
+    print(f"  python -m stemgnn_tpu_torch.infer {' '.join(argv)}",
+          flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    infer_main(argv)
+    paths["graph_encode"] = read_counts()
+    print(f"  encode wall {time.perf_counter() - t0:.2f} s", flush=True)
+    expect_counts("infer --mode encode", paths["graph_encode"], {})
+    got = np.load(out)
+    want = {"embeddings": (MOLECULES, FEAT_DIM),
+            "quantized": (MOLECULES, FEAT_DIM), "codes": (MOLECULES, 4)}
+    shapes = {k: got[k].shape for k in got.files}
+    if shapes != want or not all(np.isfinite(got[k]).all()
+                                 for k in ("embeddings", "quantized")):
+        raise AssertionError(f"encode outputs {shapes}")
+    codes = got["codes"]
+    if codes.min() < 0 or codes.max() >= 128:
+        raise AssertionError(f"codes {codes.min()}..{codes.max()}")
+    print(f"  encode outputs {shapes}, {len(np.unique(codes, axis=0))} "
+          f"distinct code rows; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB in the phase",
+          flush=True)
+
+
 def save_checkpoint(tmp, gen):
     """A JAX-format pretrain checkpoint with random weights and non-trivial
     BatchNorm statistics, and its config.json; returns the encoder and VQ
@@ -1883,6 +2133,9 @@ def main():
 
     with phase("kg"):
         k2_kg = kg_run(tmp, dev, paths)
+
+    with phase("graph"):
+        graph_run(tmp, dev, paths)
     tmp_dir.cleanup()
     shared.close()
 

@@ -39,6 +39,10 @@ class Graph:
     # scatter-kernel aggregation instead of materializing [E_pad, D] features.
     layout: Optional[object] = None
     edge_table: Optional[torch.Tensor] = None
+    # Disjoint-batch segment ids (graph id per node) for graph-level
+    # pooling; padded nodes point at the dead slot ``n_graph``.
+    node_graph_id: Optional[torch.Tensor] = None    # [N_pad] int64
+    n_graph: Optional[int] = None
 
     @property
     def num_nodes_padded(self) -> int:
@@ -53,9 +57,12 @@ def make_graph(node_feat, senders, receivers, edge_feat=None,
                node_pad_to: Optional[int] = None,
                edge_pad_to: Optional[int] = None,
                node_multiple: int = 8, edge_multiple: int = 128,
-               device="cpu") -> Graph:
+               device="cpu", node_graph_id=None,
+               n_graph: Optional[int] = None) -> Graph:
     """Build a padded :class:`Graph` on ``device`` from host (numpy) arrays,
-    with the JAX package's padding defaults (nodes to 8, edges to 128)."""
+    with the JAX package's padding defaults (nodes to 8, edges to 128).
+    ``node_graph_id`` [n] makes a disjoint batch of ``n_graph`` graphs
+    (default: the largest id + 1); padded nodes get the id ``n_graph``."""
     node_feat = np.asarray(node_feat)
     senders = np.asarray(senders)
     receivers = np.asarray(receivers)
@@ -74,13 +81,22 @@ def make_graph(node_feat, senders, receivers, edge_feat=None,
         return torch.from_numpy(out).to(device)
 
     ef = None if edge_feat is None else pad(np.asarray(edge_feat), e_pad)
+    gid = None
+    if node_graph_id is not None:
+        node_graph_id = np.asarray(node_graph_id, np.int64)
+        if n_graph is None:
+            n_graph = int(node_graph_id.max()) + 1 if n else 0
+        gid = np.full(n_pad, n_graph, np.int64)
+        gid[:n] = node_graph_id
+        gid = torch.from_numpy(gid).to(device)
     return Graph(
         node_feat=pad(node_feat, n_pad),
         senders=pad(senders.astype(np.int64), e_pad),
         receivers=pad(receivers.astype(np.int64), e_pad),
         node_mask=pad(np.ones(n, bool), n_pad),
         edge_mask=pad(np.ones(e, bool), e_pad),
-        n_node=n, n_edge=e, edge_feat=ef)
+        n_node=n, n_edge=e, edge_feat=ef, node_graph_id=gid,
+        n_graph=None if gid is None else int(n_graph))
 
 
 @dataclass
@@ -100,6 +116,10 @@ class IndexedGraph:
     n_node: int
     n_edge: int
     xe_ids: object = None               # [E_pad] int32 into the edge table
+    # graph id per node of a disjoint batch (graph-task pooling); padded
+    # nodes carry the out-of-range id ``n_graph``
+    node_graph_id: object = None        # [N_pad] int32
+    n_graph: Optional[int] = None
 
     @property
     def num_nodes_padded(self) -> int:
@@ -114,9 +134,11 @@ def make_indexed_graph(node_ids, senders, receivers, xe_ids=None,
                        node_pad_to: Optional[int] = None,
                        edge_pad_to: Optional[int] = None,
                        node_multiple: int = 8,
-                       edge_multiple: int = 128) -> IndexedGraph:
+                       edge_multiple: int = 128, node_graph_id=None,
+                       n_graph: Optional[int] = None) -> IndexedGraph:
     """Host prep of an :class:`IndexedGraph` (numpy in, numpy out): padded
-    slots hold id 0 and mask False."""
+    slots hold id 0 and mask False; with ``node_graph_id`` padded nodes
+    take the graph id ``n_graph`` (1 when it is None or 0)."""
     node_ids = np.asarray(node_ids, np.int32)
     senders = np.asarray(senders, np.int32)
     receivers = np.asarray(receivers, np.int32)
@@ -133,11 +155,17 @@ def make_indexed_graph(node_ids, senders, receivers, xe_ids=None,
         out[:len(a)] = a
         return out
 
+    nm = np.arange(n_pad) < n
+    gid = None
+    if node_graph_id is not None:
+        gid = pad1(np.asarray(node_graph_id, np.int32), n_pad) + np.where(
+            nm, 0, np.int32(n_graph if n_graph else 1))
     return IndexedGraph(
         node_ids=pad1(node_ids, n_pad), senders=pad1(senders, e_pad),
-        receivers=pad1(receivers, e_pad), node_mask=np.arange(n_pad) < n,
+        receivers=pad1(receivers, e_pad), node_mask=nm,
         edge_mask=np.arange(e_pad) < e, n_node=n, n_edge=e,
-        xe_ids=None if xe_ids is None else pad1(xe_ids, e_pad))
+        xe_ids=None if xe_ids is None else pad1(xe_ids, e_pad),
+        node_graph_id=gid, n_graph=n_graph)
 
 
 def host_to_device(a, device):
@@ -160,7 +188,21 @@ def indexed_to_device(ig: IndexedGraph, device) -> IndexedGraph:
                         receivers=move(ig.receivers),
                         node_mask=move(ig.node_mask),
                         edge_mask=move(ig.edge_mask), n_node=ig.n_node,
-                        n_edge=ig.n_edge, xe_ids=move(ig.xe_ids))
+                        n_edge=ig.n_edge, xe_ids=move(ig.xe_ids),
+                        node_graph_id=move(ig.node_graph_id),
+                        n_graph=ig.n_graph)
+
+
+def graph_to_device(g: Graph, device) -> Graph:
+    """A host :class:`Graph` (CPU tensors) with its tensors on ``device``
+    (:func:`host_to_device`); layouts are not carried."""
+    def move(a):
+        return None if a is None else host_to_device(a, device)
+    return Graph(node_feat=move(g.node_feat), senders=move(g.senders),
+                 receivers=move(g.receivers), node_mask=move(g.node_mask),
+                 edge_mask=move(g.edge_mask), n_node=g.n_node,
+                 n_edge=g.n_edge, edge_feat=move(g.edge_feat),
+                 node_graph_id=move(g.node_graph_id), n_graph=g.n_graph)
 
 
 def materialize_graph(ig: IndexedGraph, node_table,
@@ -179,7 +221,102 @@ def materialize_graph(ig: IndexedGraph, node_table,
     ef = None
     if edge_table is not None and ig.xe_ids is not None:
         ef = gather(edge_table, ig.xe_ids, ig.edge_mask)
+    gid = None if ig.node_graph_id is None else ig.node_graph_id.long()
     return Graph(node_feat=gather(node_table, ig.node_ids, ig.node_mask),
                  senders=ig.senders.long(), receivers=ig.receivers.long(),
                  node_mask=ig.node_mask, edge_mask=ig.edge_mask,
-                 n_node=ig.n_node, n_edge=ig.n_edge, edge_feat=ef)
+                 n_node=ig.n_node, n_edge=ig.n_edge, edge_feat=ef,
+                 node_graph_id=gid, n_graph=ig.n_graph)
+
+
+def pad_graph(g: Graph, node_pad_to: int, edge_pad_to: int) -> Graph:
+    """Re-pad an already-padded graph to larger bucket sizes (zeros and
+    False in the new slots, as JAX ``pad_graph``)."""
+    n_pad, e_pad = g.num_nodes_padded, g.num_edges_padded
+    if node_pad_to < n_pad or edge_pad_to < e_pad:
+        raise ValueError("cannot shrink padding")
+
+    def padn(x, width):
+        if x is None:
+            return None
+        return torch.cat([x, x.new_zeros((width,) + tuple(x.shape[1:]))])
+    dn, de = node_pad_to - n_pad, edge_pad_to - e_pad
+    return Graph(node_feat=padn(g.node_feat, dn),
+                 senders=padn(g.senders, de), receivers=padn(g.receivers, de),
+                 node_mask=padn(g.node_mask, dn),
+                 edge_mask=padn(g.edge_mask, de), n_node=g.n_node,
+                 n_edge=g.n_edge, edge_feat=padn(g.edge_feat, de),
+                 layout=g.layout, edge_table=g.edge_table,
+                 node_graph_id=padn(g.node_graph_id, dn), n_graph=g.n_graph)
+
+
+class IndexedGraphList:
+    """List-like bundle of id-based graph dicts (keys ``x`` / ``senders`` /
+    ``receivers`` / ``xe``) and the shared feature tables (JAX
+    ``IndexedGraphList``): the graph-task dataset format for large molecule
+    corpora, O(atoms) ints on the host instead of O(atoms x D) floats, whose
+    batches stay ids until the device-side gather."""
+
+    def __init__(self, items, node_table, edge_table=None):
+        self.items = items
+        self.node_table = node_table
+        self.edge_table = edge_table
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def __iter__(self):
+        return iter(self.items)
+
+
+def _disjoint(graphs, count):
+    """Offset senders/receivers and per-node graph ids of a disjoint union
+    of graph dicts with ``count(g)`` nodes each."""
+    sizes = [count(g) for g in graphs]
+    offsets = np.cumsum([0] + sizes)
+    senders = np.concatenate([np.asarray(g["senders"], np.int32) + offsets[i]
+                              for i, g in enumerate(graphs)])
+    receivers = np.concatenate(
+        [np.asarray(g["receivers"], np.int32) + offsets[i]
+         for i, g in enumerate(graphs)])
+    gid = np.concatenate([np.full(s, i, np.int32)
+                          for i, s in enumerate(sizes)])
+    return senders, receivers, gid
+
+
+def batch_indexed_graphs(graphs, node_pad_to: Optional[int] = None,
+                         edge_pad_to: Optional[int] = None) -> IndexedGraph:
+    """Disjoint union of id-based host graphs (dicts with keys x / senders /
+    receivers / [xe]) into one padded host :class:`IndexedGraph` with
+    per-node graph ids (JAX ``batch_indexed_graphs``)."""
+    senders, receivers, gid = _disjoint(
+        graphs, lambda g: np.asarray(g["x"]).shape[0])
+    node_ids = np.concatenate([np.asarray(g["x"], np.int32) for g in graphs])
+    xe = None
+    if graphs and graphs[0].get("xe") is not None:
+        xe = np.concatenate([np.asarray(g["xe"], np.int32) for g in graphs])
+    return make_indexed_graph(node_ids, senders, receivers, xe_ids=xe,
+                              node_pad_to=node_pad_to,
+                              edge_pad_to=edge_pad_to,
+                              node_graph_id=gid, n_graph=len(graphs))
+
+
+def batch_graphs(graphs, node_pad_to: Optional[int] = None,
+                 edge_pad_to: Optional[int] = None, device="cpu") -> Graph:
+    """Disjoint union of host graphs (dicts with keys node_feat / senders /
+    receivers / [edge_feat]) into one padded :class:`Graph` on ``device``
+    with per-node graph ids (JAX ``batch_graphs``; the reference's
+    ``Batch.from_data_list``)."""
+    senders, receivers, gid = _disjoint(
+        graphs, lambda g: np.asarray(g["node_feat"]).shape[0])
+    node_feat = np.concatenate([np.asarray(g["node_feat"]) for g in graphs])
+    edge_feat = None
+    if graphs and graphs[0].get("edge_feat") is not None:
+        edge_feat = np.concatenate([np.asarray(g["edge_feat"])
+                                    for g in graphs])
+    return make_graph(node_feat, senders, receivers, edge_feat=edge_feat,
+                      node_pad_to=node_pad_to, edge_pad_to=edge_pad_to,
+                      device=device, node_graph_id=gid, n_graph=len(graphs))

@@ -3,8 +3,12 @@
 
 Ported: ``synthetic_node_dataset``, an SBM-style citation graph with
 class-prototype features and reference-style splits (Cora: 140 train /
-500 val / rest test, 10 splits), and ``synthetic_link_dataset``, a typed
-knowledge graph whose relation (one of T edge types) is the edge's label.
+500 val / rest test, 10 splits), ``synthetic_link_dataset``, a typed
+knowledge graph whose relation (one of T edge types) is the edge's label,
+``synthetic_graph_dataset``, small random graphs with multitask binary
+labels, 20% of them NaN (``mol_synthetic``), and ``write_smiles_csv``, a
+``smiles:<csv>`` file of random valence-safe molecules (``random_smiles``)
+with 128 tasks, 60% NaN, as ``scripts/bench_graph_scale.py`` generates them.
 The numpy draws are the JAX package's, in the same order, so the same seed
 gives the same arrays in both packages.
 """
@@ -144,3 +148,103 @@ def synthetic_link_dataset(name: str = "kg_synthetic", num_entities: int = 2000,
         name=name, node_text_feat=feats, edge_text_feat=edge_text_feat,
         x=np.arange(num_entities), xe=rel, edge_index=edge_index,
         labels=rel, splits=[split], num_classes=num_relations, num_tasks=1)
+
+
+def synthetic_graph_dataset(name: str = "mol_synthetic", num_graphs: int = 600,
+                            num_tasks: int = 4, feat_dim: int = 768,
+                            min_nodes: int = 8, max_nodes: int = 24,
+                            nan_frac: float = 0.2, seed: int = 0):
+    """Returns (list of graph dicts, labels [G, T] with NaNs, split dict).
+
+    Each graph dict: node_feat/senders/receivers/edge_feat arrays.  Labels
+    correlate with mean node feature projections so AUC is learnable.
+    """
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((feat_dim, num_tasks)).astype(np.float32)
+    graphs, labels = [], []
+    for _ in range(num_graphs):
+        n = int(rng.integers(min_nodes, max_nodes + 1))
+        feats = rng.standard_normal((n, feat_dim)).astype(np.float32)
+        e = max(2 * n, 4)
+        src = rng.integers(0, n, e // 2)
+        dst = rng.integers(0, n, e // 2)
+        ei = _undirected(src, dst)
+        ef = rng.standard_normal((ei.shape[1], feat_dim)).astype(np.float32)
+        graphs.append({"node_feat": feats, "senders": ei[0],
+                       "receivers": ei[1], "edge_feat": ef})
+        score = feats.mean(0) @ w
+        lab = (score > 0).astype(np.float64)
+        lab[rng.random(num_tasks) < nan_frac] = np.nan
+        labels.append(lab)
+    labels = np.stack(labels)
+    perm = rng.permutation(num_graphs)
+    n_tr, n_va = int(num_graphs * 0.8), int(num_graphs * 0.1)
+    split = make_index_splits(num_graphs, perm[:n_tr],
+                              perm[n_tr:n_tr + n_va], perm[n_tr + n_va:])
+    return graphs, labels, split
+
+
+_ATOMS = ["C", "C", "C", "C", "N", "O", "C", "S", "F"]
+
+
+def random_smiles(rng) -> str:
+    """Valence-safe random molecule: a carbon-ish chain of 6-21 heavy atoms
+    with branches, single/double bonds and an optional ring closure (the
+    generator of ``scripts/bench_graph_scale.py``)."""
+    n = int(rng.integers(6, 22))
+    out = []
+    open_ring = -1
+    depth = 0
+    for i in range(n):
+        a = _ATOMS[rng.integers(0, len(_ATOMS))]
+        if i > 0 and a == "C" and rng.random() < 0.12:
+            out.append("=")
+        out.append(a)
+        if a == "C" and open_ring < 0 and 1 < i < n - 4 \
+                and rng.random() < 0.15:
+            out.append("1")
+            open_ring = i
+        if a in ("C", "N") and i < n - 2 and depth < 2 \
+                and rng.random() < 0.22:
+            out.append("(")
+            depth += 1
+        elif depth > 0 and rng.random() < 0.4:
+            out.append(")")
+            depth -= 1
+    while depth > 0:
+        out.append(")")
+        depth -= 1
+    if open_ring >= 0:
+        out.append("C1")
+    return "".join(out)
+
+
+def write_smiles_csv(path: str, num_graphs: int, num_tasks: int = 128,
+                     nan_frac: float = 0.6, seed: int = 0):
+    """Write a ``smiles:<csv>`` file of ``num_graphs`` :func:`random_smiles`
+    molecules with the label scheme of ``scripts/bench_graph_scale.py``:
+    ``num_tasks`` binary tasks learnable from the counts of C and of N + O
+    + S (each task's median splits it), ``nan_frac`` of the cells empty,
+    and an 80/10/10 random split.  The bench parses each string as it draws
+    it to reject the bad ones; the generator is valence-safe (every one of
+    the 2,000 strings of ``tests/test_torch_port_chem.py`` parses), so here
+    the strings are parsed once, when the file is loaded."""
+    rng = np.random.default_rng(seed)
+    smiles = [random_smiles(rng) for _ in range(num_graphs)]
+    n_c = np.asarray([s.count("C") for s in smiles], np.float64)
+    n_het = np.asarray([s.count("N") + s.count("O") + s.count("S")
+                        for s in smiles], np.float64)
+    w = rng.standard_normal((2, num_tasks))
+    score = np.stack([n_c, n_het], 1) @ w
+    labels = (score > np.median(score, axis=0)).astype(np.float64)
+    labels[rng.random(labels.shape) < nan_frac] = np.nan
+    split_names = rng.choice(["train", "valid", "test"], len(smiles),
+                             p=[0.8, 0.1, 0.1])
+    cells = np.where(np.isnan(labels), "",
+                     np.nan_to_num(labels).astype(np.int64).astype(str))
+    lines = [",".join(["smiles", "split"]
+                      + [f"task{t}" for t in range(num_tasks)])]
+    lines += [",".join([s, sp, *row]) for s, sp, row in
+              zip(smiles, split_names, cells.tolist())]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

@@ -1,5 +1,4 @@
-"""Finetune CLI of the port (counterpart of the repo's ``finetune.py``, its
-node and link branches).
+"""Finetune CLI of the port (counterpart of the repo's ``finetune.py``).
 
 Loads a pretrain checkpoint (``<path>/encoder_<epoch>.npz`` and
 ``vq_<epoch>.npz`` in the JAX package's format, with the architecture from
@@ -9,25 +8,31 @@ stemgnn_tpu_torch.pretrain`` writes them under
 dataset (node classification) or a knowledge graph's edges (link task:
 relation classification; ``kg_synthetic`` with typed edges, or the cached
 ``WN18RR`` and ``FB15K237``), full batch or on neighbour-sampled
-minibatches (``--batch_size``), and prints each epoch's loss and
-train/val/test accuracy and the final mean and std over the splits.
+minibatches (``--batch_size``), or a graph task on molecules
+(``mol_synthetic``, or ``smiles:<csv>`` featurized without RDKit:
+multitask binary labels, mean pooling, the per-task AUC; ``--eval_every``,
+``--eval_batch_size``, ``--eval_train_auc``), and prints each epoch's loss
+and train/val/test metric and the final mean and std over the splits.
 ``--use_params`` applies the dataset's preset of ``configs/finetune.yaml``
 under the explicit flags, as the JAX CLI does: WN18RR trains full batch,
-FB15K237 on batches of 1,024 edges.  ``--save_model`` writes the best
-task model for ``python -m stemgnn_tpu_torch.infer --mode predict``;
-``--eval_chunked 1`` evaluates layer by layer over edge blocks.
+FB15K237 on batches of 1,024 edges, ``mol_synthetic`` on batches of 64
+molecules.  ``--save_model`` writes the best task model for ``python -m
+stemgnn_tpu_torch.infer --mode predict``; ``--eval_chunked 1`` evaluates
+layer by layer over edge blocks.
 
 Runs on CUDA (hub-dense matmuls + the aggregation kernels, forward and
 backward) unless ``--device cpu`` is given; without CUDA and without
 ``--device cpu`` it exits with an error.  Every flag of the JAX CLI is
-accepted; values outside the port (graph tasks, MoE, bf16, multi-GPU,
-buffer donation, node relabelling, neural text encoders) are refused with
-an error naming their ROADMAP item.  Without a checkpoint the codebook is
+accepted; values outside the port (MoE, bf16, multi-GPU, buffer
+donation, node relabelling, neural text encoders) are refused with an
+error naming their ROADMAP item.  Without a checkpoint the codebook is
 k-means-initialized before training.
 
   python -m stemgnn_tpu_torch.finetune --finetune_dataset WN18RR --use_params
   python -m stemgnn_tpu_torch.finetune --finetune_dataset FB15K237 \\
       --use_params --save_model fb.npz
+  python -m stemgnn_tpu_torch.finetune --finetune_dataset mol_synthetic \\
+      --use_params --epochs 5 --repeat 1
   python -m stemgnn_tpu_torch.finetune --finetune_dataset arxiv_synthetic_pl \\
       --pretrain_path ckpts/pretrain_model/default --epochs 3 --repeat 1
 """
@@ -169,11 +174,7 @@ def parse(argv=None):
 def refusals(args) -> list:
     """What the port does not cover among the given flag values, each with
     its ROADMAP item."""
-    name = args.finetune_dataset
-    task = dataset2task.get(name)
     checks = (
-        (task == "graph", f"{name!r} is a graph task; graph tasks are not "
-                          f"ported (ROADMAP Queue 1 item 7)"),
         (args.moe, "--moe: MoE-SAGE layers are not ported (ROADMAP Queue 1 "
                    "item 5)"),
         (args.backbone != "sage", f"--backbone {args.backbone}: only sage "
@@ -281,7 +282,8 @@ def main(argv=None):
     except RuntimeError as ex:
         raise SystemExit(f"stemgnn_tpu_torch.finetune: {ex}") from ex
     name = args.finetune_dataset
-    if name not in dataset2task:
+    task = dataset2task.get(name)
+    if task is None:
         raise KeyError(f"Unknown dataset {name}")
 
     seed_everything(args.seed)
@@ -291,7 +293,9 @@ def main(argv=None):
     bad = refusals(args)          # config.json may name another backbone
     if bad:
         raise SystemExit("stemgnn_tpu_torch.finetune: " + "; ".join(bad))
-    cfg = make_config(args, ds.num_classes)
+    # a graph dataset is (graphs, labels [G, T], split): T tasks
+    cfg = make_config(args, ds[1].shape[1] if task == "graph"
+                      else ds.num_classes)
     pretrained = None
     if enc is not None:
         encoder, quantizer = from_jax_pytree(

@@ -6,14 +6,16 @@
 architecture from ``config.json`` beside them when present, as ``python -m
 stemgnn_tpu_torch.pretrain`` writes them), encodes a node dataset's full
 graph and writes per-node ``embeddings`` [N, D], ``quantized`` embeddings
-[N, D] and VQ ``codes`` [N, H] into one npz.
+[N, D] and VQ ``codes`` [N, H] into one npz; for a graph dataset the
+per-molecule mean-pooled analogs [G, D] / [G, H].
 
 ``--mode predict`` loads a task model that ``finetune --save_model`` wrote
 (either package's: the same trees and meta) and writes the class
 probabilities ``probs`` [items, C] and their argmax ``pred`` for every node
 of a node dataset or every edge of a link dataset (the midpoints of its
-endpoints' embeddings).  Graph tasks are not ported (ROADMAP Queue 1 item
-7).
+endpoints' embeddings); for a graph dataset the per-molecule multitask
+probabilities ``probs`` [G, T] (the sigmoid of the head-mean ``logits``,
+also written) and ``pred = probs > 0.5``.
 
 Runs on CUDA (hub-dense matmuls + the aggregation kernels) unless
 ``--device cpu`` is given; without CUDA and without ``--device cpu`` it
@@ -23,6 +25,8 @@ exits with an error.
       --pretrain_path ckpts/pretrain_model/default --out codes.npz
   python -m stemgnn_tpu_torch.infer --mode predict --finetune_dataset \\
       FB15K237 --model fb.npz --out preds.npz
+  python -m stemgnn_tpu_torch.infer --mode predict --finetune_dataset \\
+      smiles:mols.csv --model mols.npz --out mol_probs.npz
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from stemgnn_tpu_torch.core.config import (EncoderConfig, FinetuneConfig,
                                            VQConfig, from_dict)
 from stemgnn_tpu_torch.core.device import resolve_device
 from stemgnn_tpu_torch.data.registry import dataset2task, load_dataset
+from stemgnn_tpu_torch.train.finetune_loop import (graph_task_encode,
+                                                   graph_task_predict)
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
 from stemgnn_tpu_torch.utils import checkpoint as ckpt
@@ -108,15 +114,11 @@ def main(argv=None):
     task = dataset2task.get(name)
     if task is None:
         raise KeyError(f"Unknown dataset {name}")
-    if task == "graph":
-        raise SystemExit(f"stemgnn_tpu_torch.infer: {name!r} is a graph "
-                         f"task; graph tasks are not ported (ROADMAP Queue "
-                         f"1 item 7)")
     if args.mode == "predict":
         return predict(args, task, device)
-    if task != "node":
-        raise NotImplementedError(f"{name!r} is a {task} task; the port "
-                                  f"encodes node datasets so far")
+    if task == "link":
+        raise NotImplementedError(f"{name!r} is a link task; the port "
+                                  f"encodes node and graph datasets")
     ds = load_dataset(name, feat_dim=args.feat_dim, seed=args.seed,
                       text_encoder=args.text_encoder)
 
@@ -130,6 +132,16 @@ def main(argv=None):
         {"encoder": enc["params"], "vq": vq["params"]},
         {"encoder": enc["state"], "vq": vq["state"]}, cfg)
     encoder, quantizer = encoder.to(device), quantizer.to(device)
+    if task == "graph":
+        # per-molecule pooled embeddings and VQ codes
+        pooled, quant, codes = graph_task_encode(ds[0], cfg, encoder,
+                                                 quantizer)
+        np.savez_compressed(args.out, embeddings=pooled, quantized=quant,
+                            codes=codes)
+        print(f"wrote {args.out}: embeddings {pooled.shape}, codes "
+              f"{codes.shape} (per-molecule)", flush=True)
+        return {"embeddings": pooled, "quantized": quant, "codes": codes,
+                "encoder": encoder, "quantizer": quantizer}
 
     graph = fused_full_graph(ds, cfg, device=device)
     if graph.layout is not None:
@@ -152,7 +164,8 @@ def main(argv=None):
 
 def predict(args, task: str, device):
     """``--mode predict`` (JAX infer.py:69-110): the saved task model's
-    head-mean softmax probabilities over the fused full graph."""
+    head-mean softmax probabilities over the fused full graph, or a graph
+    task's per-molecule sigmoid probabilities."""
     if not args.model:
         raise SystemExit("--mode predict needs --model (a task-model npz "
                          "from finetune --save_model)")
@@ -163,6 +176,17 @@ def predict(args, task: str, device):
                                 cfg).to(device).eval()
     ds = load_dataset(args.finetune_dataset, feat_dim=args.feat_dim,
                       seed=args.seed, text_encoder=args.text_encoder)
+    if task == "graph":
+        # per-molecule multitask probabilities (JAX infer.py:85-99)
+        graphs, labels, _ = ds
+        logits = graph_task_predict(graphs, labels.shape[1], cfg, model)
+        probs = 1.0 / (1.0 + np.exp(-logits))
+        np.savez_compressed(args.out, probs=probs, logits=logits,
+                            pred=(probs > 0.5).astype(np.int8))
+        print(f"wrote {args.out}: probs {probs.shape} (per-molecule "
+              f"multitask)", flush=True)
+        return {"probs": probs, "logits": logits, "model": model,
+                "cfg": cfg}
     graph = fused_full_graph(ds, cfg, device=device)
     if graph.layout is not None:
         print(describe_layout(graph.layout), flush=True)

@@ -8,10 +8,14 @@ the (pretrained) encoder + VQ backbone with a small linear decoder
     (ft_model.py:96);
   * ``use_vq=0`` bypass decodes ``vq.project_in(z)`` (ft_model.py:98-103);
   * decoder Jacobian penalty = coeff * ||W||_F^2 (ft_model.py:45-50);
-  * the activation loss: head-mean logits -> masked cross entropy.
+  * the activation loss: head-mean logits -> masked cross entropy, or the
+    multitask masked BCE of the graph tasks with y in {-1, +1} and the
+    NaN labels masked (ft_model.py:7-20);
+  * graph-level pooling mean/sum/max over a disjoint batch
+    (ft_model.py:61-69).
 
-Parameter names follow the JAX pytree ``{"encoder", "vq", "decoder"}``.
-Graph pooling and the multitask BCE come with the graph-task slice.
+Parameter names follow the JAX pytree ``{"encoder", "vq", "decoder"}``; a
+graph task's decoder has ``num_classes = num_tasks`` outputs a head.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 from stemgnn_tpu_torch.core.config import FinetuneConfig
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.layers import Linear
+from stemgnn_tpu_torch.ops import segment
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize, vq_kmeans_init
 
 
@@ -77,6 +82,24 @@ def maybe_kmeans_init_vq(model: TaskModel, cfg: FinetuneConfig, g, *,
                           means=means)
 
 
+def pool_graph(z, g, pool: str = "mean", num_segments: int = None):
+    """Graph-level readout over the disjoint batch ``g`` (JAX
+    ``pool_graph``, ft_model.py:61-69): [num_segments, D].  Padded nodes
+    (and any graph id past ``num_segments``) contribute nothing, as JAX's
+    masked segment ops with their out-of-range ids give."""
+    if g.node_graph_id is None:
+        raise ValueError("graph pooling needs node_graph_id")
+    if num_segments is None:
+        num_segments = int(g.node_graph_id.shape[0])
+    ids = g.node_graph_id.long()
+    keep = g.node_mask & (ids < num_segments)
+    ids = torch.where(keep, ids, torch.zeros((), dtype=ids.dtype,
+                                             device=ids.device))
+    fn = {"mean": segment.segment_mean, "sum": segment.segment_sum,
+          "max": segment.segment_max}[pool]
+    return fn(z, ids, num_segments, mask=keep)
+
+
 def task_logits(model: TaskModel, cfg: FinetuneConfig, z, mask=None):
     """get_lin_logits (ft_model.py:90-103) -> ([N, H or 1, C],
     commitment loss).  ``mask`` [N] marks the rows the VQ loss covers."""
@@ -108,15 +131,35 @@ def decoder_jacobian_penalty(model: TaskModel, cfg: FinetuneConfig):
     return cfg.decoder_jac_coeff * (model.decoder.w ** 2).sum()
 
 
-def activation_loss(logits, y, task: str = "single", mask=None):
-    """compute_activation_loss (ft_model.py:82-88) for single-label tasks:
-    head-mean logits -> cross entropy, averaged over the ``mask`` rows."""
-    if task != "single":
-        raise NotImplementedError("the multitask BCE comes with the graph "
-                                  "task")
-    logp = torch.log_softmax(logits.mean(1), dim=-1)
-    nll = -logp.gather(1, y[:, None].long())[:, 0]
-    if mask is None:
-        return nll.mean()
-    mask = mask.to(nll.dtype)
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+def multitask_bce(pred, y, valid):
+    """Masked multitask BCE (ft_model.py:7-20, JAX ``multitask_bce``):
+    ``y`` in {-1, +1} on the ``valid`` entries; the sum of the elementwise
+    BCE with logits over them, divided by their count."""
+    target = (y + 1.0) / 2.0
+    per = (torch.clamp(pred, min=0) - pred * target
+           + torch.log1p(torch.exp(-pred.abs())))
+    per = torch.where(valid, per, torch.zeros((), dtype=per.dtype,
+                                              device=per.device))
+    return per.sum() / torch.clamp(valid.sum().to(per.dtype), min=1.0)
+
+
+def activation_loss(logits, y, task: str = "single", mask=None, valid=None):
+    """compute_activation_loss (ft_model.py:82-88): head-mean logits ->
+    cross entropy averaged over the ``mask`` rows ("single"), or the
+    multitask BCE over the ``valid`` labels of the ``mask`` rows
+    ("multi")."""
+    mean_logits = logits.mean(1)
+    if task == "single":
+        logp = torch.log_softmax(mean_logits, dim=-1)
+        nll = -logp.gather(1, y[:, None].long())[:, 0]
+        if mask is None:
+            return nll.mean()
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if task == "multi":
+        if valid is None:
+            valid = torch.ones_like(mean_logits, dtype=torch.bool)
+        if mask is not None:
+            valid = valid & mask[:, None]
+        return multitask_bce(mean_logits, y, valid)
+    raise ValueError('task must be "single" or "multi"')

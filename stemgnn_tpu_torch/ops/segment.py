@@ -1,12 +1,14 @@
 """Masked segment reductions (counterpart of ``stemgnn_tpu/ops/segment.py``).
 
-Padding entries are masked to the additive identity before the reduction,
-so results match the unpadded math exactly.
+Padding entries are masked to the additive (or max) identity before the
+reduction, so results match the unpadded math exactly.
 """
 
 from __future__ import annotations
 
 import torch
+
+_NEG_INF = -1e30
 
 
 def _mask_like(data, mask, identity):
@@ -31,3 +33,16 @@ def segment_mean(data, segment_ids, num_segments: int, mask=None):
     count = segment_sum(ones, segment_ids, num_segments, mask=mask)
     count = count.reshape(count.shape + (1,) * (total.dim() - count.dim()))
     return total / torch.clamp(count, min=1)
+
+
+def segment_max(data, segment_ids, num_segments: int, mask=None):
+    """Max over segments; empty segments yield zeros."""
+    data = _mask_like(data, mask, _NEG_INF)
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), -torch.inf,
+                     dtype=data.dtype, device=data.device)
+    idx = segment_ids.reshape(segment_ids.shape
+                              + (1,) * (data.dim() - 1)).expand_as(data)
+    out = out.scatter_reduce(0, idx, data, reduce="amax", include_self=True)
+    return torch.where(out <= _NEG_INF / 2, torch.zeros((), dtype=out.dtype,
+                                                        device=out.device),
+                       out)

@@ -1,8 +1,8 @@
-"""Node and link finetune, full batch and minibatch (counterpart of the
-node/link branch of ``stemgnn_tpu/train/finetune_loop.py``:
-``_split_params`` :39, ``_make_model_saver`` :58, ``_make_node_steps``
-:100, ``_make_minibatch_train_step`` :314, ``_minibatch_epoch`` :381,
-``_run_node_like`` :486).
+"""Node and link finetune, full batch and minibatch, and the graph task
+(counterpart of ``stemgnn_tpu/train/finetune_loop.py``: ``_split_params``
+:39, ``_make_model_saver`` :58, ``_make_node_steps`` :100,
+``_make_minibatch_train_step`` :314, ``_minibatch_epoch`` :381,
+``_run_node_like`` :486, and the graph half :783-1283).
 
 A link task (task/link.py of the reference) classifies edges: its rows
 are the midpoint edge embeddings ``(z[u] + z[v]) / 2``, with per-edge
@@ -41,6 +41,16 @@ JAX's ``epoch_chunk`` scans (K epochs a dispatch, with up to K-1 updates
 past an early stop) have no counterpart: PyTorch dispatches eagerly.
 ``save_model_to`` writes the best-validation model of all splits (JAX's
 tree layout and meta, so both packages' ``infer --mode predict`` read it).
+
+The graph task (the reference's task/graph.py) classifies molecules with
+multitask binary labels: padded disjoint batches of molecules (materialized,
+or ids into the shared feature tables of an indexed bundle), the encoder's
+node embeddings mean-pooled per molecule, the masked multitask BCE, and the
+mean per-task AUC of each split.  JAX's scanned stacks of same-shape batches
+(``_stream_scanned``, ``predict_many``) are a dispatch mechanism with no
+counterpart here: each batch is one eager forward.  A molecule batch
+carries no layout, so its aggregation is the gather + ``index_add_`` and no
+kernel runs, as in JAX.
 """
 
 from __future__ import annotations
@@ -53,12 +63,16 @@ import numpy as np
 import torch
 
 from stemgnn_tpu_torch.core.config import FinetuneConfig
-from stemgnn_tpu_torch.core.graph import host_to_device, round_up
+from stemgnn_tpu_torch.core.device import resolve_device
+from stemgnn_tpu_torch.core.graph import (batch_graphs, batch_indexed_graphs,
+                                          graph_to_device, host_to_device,
+                                          indexed_to_device,
+                                          materialize_graph, round_up)
 from stemgnn_tpu_torch.data.sampler import CSCGraph, NeighborBatchIterator
 from stemgnn_tpu_torch.models.task import (activation_loss,
                                            decoder_jacobian_penalty, encode,
-                                           maybe_kmeans_init_vq, task_logits,
-                                           task_model_init)
+                                           maybe_kmeans_init_vq, pool_graph,
+                                           task_logits, task_model_init)
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph,
                                                  maybe_reorder_dataset)
@@ -69,7 +83,8 @@ from stemgnn_tpu_torch.utils import checkpoint as ckpt
 from stemgnn_tpu_torch.utils.convert import task_model_to_jax
 from stemgnn_tpu_torch.utils.early_stop import EarlyStopping
 from stemgnn_tpu_torch.utils.logger import Logger
-from stemgnn_tpu_torch.utils.metrics import evaluate, task2metric
+from stemgnn_tpu_torch.utils.metrics import (device_multitask_auc, evaluate,
+                                             task2metric)
 from stemgnn_tpu_torch.vq.quantize import vq_kmeans_init
 
 _LOSS_KEYS = ("loss", "act_loss", "jac_loss", "env_loss")
@@ -94,12 +109,15 @@ def make_optimizer(trainable: dict, cfg: FinetuneConfig):
                              weight_decay=0.01, eps=1e-8)
 
 
-def _loss_parts(model, cfg: FinetuneConfig, rows, y, row_mask, train_mask):
+def _loss_parts(model, cfg: FinetuneConfig, rows, y, row_mask, train_mask,
+                valid=None):
     """The head-mean cross entropy over ``train_mask`` of the decoder's
-    logits on ``rows`` (the VQ's loss covering ``row_mask``), plus the
-    Jacobian penalty: (loss, {name: loss part})."""
+    logits on ``rows`` (the VQ's loss covering ``row_mask``), or with
+    ``valid`` labels the multitask BCE, plus the Jacobian penalty: (loss,
+    {name: loss part})."""
     logits, _ = task_logits(model, cfg, rows, mask=row_mask)
-    act = activation_loss(logits, y, mask=train_mask)
+    act = activation_loss(logits, y, "single" if valid is None else "multi",
+                          mask=train_mask, valid=valid)
     jac = decoder_jacobian_penalty(model, cfg)
     # the MoE environment regularizer is 0 without MoE layers
     env = torch.zeros((), device=act.device)
@@ -378,10 +396,359 @@ def _kmeans_init(model, cfg: FinetuneConfig, ds, graph, device, idx: int,
               f"head {used} of {bins.shape[1]}", flush=True)
 
 
+# ------------------------------------------------------------ graph tasks
+
+def _batch_graph_list(graphs, labels, idxs, batch_size: int,
+                      node_bucket: int = 512, edge_bucket: int = 2048):
+    """Host batching of molecule graphs into padded disjoint batches (JAX
+    ``_batch_graph_list``), a generator of ``(batch, labels, n_real)``:
+    nodes padded to a multiple of ``node_bucket`` past their count (one
+    dead slot at least), edges to a multiple of ``edge_bucket``; labels
+    padded with NaN rows to ``batch_size`` rows, of which the first
+    ``n_real`` are real.  An :class:`IndexedGraphList` gives host
+    :class:`IndexedGraph` batches of ids; graph dicts give host
+    :class:`Graph` batches of CPU tensors."""
+    indexed = getattr(graphs, "node_table", None) is not None
+    num_tasks = labels.shape[1]
+    for i in range(0, len(idxs), batch_size):
+        chunk = idxs[i:i + batch_size]
+        gs = [graphs[j] for j in chunk]
+        if indexed:
+            tot_n = sum(len(g["x"]) for g in gs)
+            build = batch_indexed_graphs
+        else:
+            tot_n = sum(g["node_feat"].shape[0] for g in gs)
+            build = batch_graphs
+        tot_e = sum(len(g["senders"]) for g in gs)
+        g = build(gs, node_pad_to=round_up(tot_n + 1, node_bucket),
+                  edge_pad_to=round_up(max(tot_e, 1), edge_bucket))
+        lab = np.full((batch_size, num_tasks), np.nan)
+        lab[:len(chunk)] = labels[chunk]
+        yield g, lab, len(chunk)
+
+
+def _graph_feeder(graphs, device):
+    """``(tables, to_device)`` for a graph bundle: ``to_device`` turns a
+    host batch of :func:`_batch_graph_list` into a padded :class:`Graph` on
+    ``device``.  An indexed bundle's feature tables (``tables``) move to the
+    device once and each batch moves its ids and gathers its features there
+    (``materialize_graph``); a materialized batch moves whole (``tables``
+    None)."""
+    if getattr(graphs, "node_table", None) is None:
+        return None, lambda g: graph_to_device(g, device)
+    tables = _tables({"node_text_feat": graphs.node_table,
+                      "edge_text_feat": graphs.edge_table}, device)
+    return tables, lambda g: materialize_graph(indexed_to_device(g, device),
+                                               *tables)
+
+
+def _make_graph_steps(cfg: FinetuneConfig, batch_size: int, eval_bs: int):
+    """``(loss_fn, train_step, predict)`` of the graph task: the encoder,
+    the mean pool over each batch's ``batch_size`` graph slots, the decoder
+    and the multitask BCE over the ``valid`` labels of the ``gmask`` rows
+    (JAX ``_run_graph_task``'s ``_train_impl``); ``predict`` gives the
+    head-mean logits [eval_bs, T] of an evaluation batch in eval mode.
+    ``plain`` runs the aggregation kernels' plain versions (a molecule batch
+    carries no layout, so both routes are the gather + ``index_add_``)."""
+
+    def loss_fn(model, g, y, valid, gmask, generator=None, plain=False):
+        model.train()
+        z = encode(model, g, generator=generator, plain=plain)
+        pooled = pool_graph(z, g, "mean", num_segments=batch_size)
+        return _loss_parts(model, cfg, pooled, y, gmask, gmask, valid=valid)
+
+    def train_step(model, opt, g, y, valid, gmask, generator=None,
+                   plain=False):
+        _, parts = loss_fn(model, g, y, valid, gmask, generator, plain)
+        _apply(opt, parts["loss"])
+        return {k: v.detach() for k, v in parts.items()}
+
+    def predict(model, g, plain=False):
+        model.eval()
+        with torch.no_grad():
+            z = encode(model, g, plain=plain)
+            pooled = pool_graph(z, g, "mean", num_segments=eval_bs)
+            logits, _ = task_logits(model, cfg, pooled)
+            return logits.mean(1).float()
+
+    return loss_fn, train_step, predict
+
+
+def _device_eval_split(batches, y_split, device, budget: float = 2e9):
+    """A split's evaluation resident on the device (JAX
+    ``build_device_eval``): its id batches and its labels and validity, so
+    an evaluation copies nothing and reads back one AUC.  None when the
+    batches' host bytes pass ``budget``; the caller then streams."""
+    host, total = [], 0
+    for g, _, n in batches:
+        total += sum(a.nbytes for a in (g.node_ids, g.senders, g.receivers,
+                                        g.node_mask, g.edge_mask, g.xe_ids,
+                                        g.node_graph_id) if a is not None)
+        if total > budget:
+            return None
+        host.append((g, n))
+    return ([(indexed_to_device(g, device), n) for g, n in host],
+            torch.from_numpy(np.nan_to_num(y_split).astype(np.float32)).to(
+                device),
+            torch.from_numpy(~np.isnan(y_split)).to(device))
+
+
+def graph_task_predict(graphs, num_tasks: int, cfg: FinetuneConfig, model,
+                       batch_size: int = 0):
+    """Per-molecule head-mean logits [G, num_tasks] of a trained task model,
+    in dataset order, on the model's device (JAX ``graph_task_predict``;
+    ``infer --mode predict`` serves their sigmoid)."""
+    bs = batch_size or cfg.batch_size or 64
+    _, to_device = _graph_feeder(graphs, next(model.parameters()).device)
+    predict = _make_graph_steps(cfg, bs, bs)[2]
+    dummy = np.zeros((len(graphs), num_tasks))
+    outs = [predict(model, to_device(g))[:n] for g, _, n in
+            _batch_graph_list(graphs, dummy, np.arange(len(graphs)), bs)]
+    return torch.cat(outs).cpu().numpy()
+
+
+def graph_task_encode(graphs, cfg: FinetuneConfig, encoder, quantizer,
+                      batch_size: int = 0):
+    """Per-molecule artifacts of a pretrained encoder and VQ in eval mode
+    (JAX ``graph_task_encode``; ``infer --mode encode``): the mean-pooled
+    embeddings [G, D], their quantized form [G, D] and VQ codes [G, H]."""
+    bs = batch_size or cfg.batch_size or 64
+    _, to_device = _graph_feeder(graphs, next(encoder.parameters()).device)
+    dummy = np.zeros((len(graphs), 1))
+    outs = {"pooled": [], "quant": [], "codes": []}
+    encoder.eval()
+    quantizer.eval()
+    with torch.no_grad():
+        for g, _, n in _batch_graph_list(graphs, dummy,
+                                         np.arange(len(graphs)), bs):
+            g = to_device(g)
+            z = encoder(g.node_feat, g.senders, g.receivers,
+                        edge_feat=g.edge_feat, edge_mask=g.edge_mask,
+                        node_mask=g.node_mask)
+            pooled = pool_graph(z, g, "mean", num_segments=bs)
+            res = quantizer(pooled)
+            outs["pooled"].append(pooled[:n])
+            outs["quant"].append(res["quantize"][:n])
+            outs["codes"].append(res["indices"][:n])
+    return tuple(torch.cat(outs[k]).cpu().numpy()
+                 for k in ("pooled", "quant", "codes"))
+
+
+def _run_graph_task(graphs, labels, split, cfg: FinetuneConfig,
+                    pretrained=None, device="cuda", verbose: bool = False,
+                    seed_base: int = 0, save_model_to: str = ""):
+    """The graph task (JAX ``_run_graph_task``; the reference's
+    task/graph.py): per repeat a fresh task model, its codebook
+    k-means-initialized from the first train-sized batch's node encodings,
+    AdamW over batches of ``batch_size`` molecules shuffled by
+    ``default_rng(seed_base + idx)``, and every ``eval_every`` epochs (and
+    the last) the mean per-task AUC of the train (``eval_train_auc``),
+    valid and test splits over batches of ``eval_batch_size``; early stop
+    and the saved snapshot on the validation AUC.  An indexed bundle keeps
+    its evaluation batches and labels on the device and computes the AUC
+    there (``device_multitask_auc``) unless their ids pass 2e9 bytes;
+    otherwise the batches are cached on the host (50,000 graphs or fewer)
+    or rebuilt each evaluation, and the AUC is computed on the host.  The
+    logged loss of an epoch is its last batch's, as in JAX."""
+    if cfg.eval_bf16:
+        raise NotImplementedError("eval_bf16: the bf16 evaluation forward "
+                                  "is not ported (ROADMAP Queue 1 item 4)")
+    device = resolve_device(device)
+    labels = np.asarray(labels, np.float64)
+    batch_size = cfg.batch_size or 64
+    eval_bs = cfg.eval_batch_size or batch_size
+    tables, to_device = _graph_feeder(graphs, device)
+    steps = _make_graph_steps(cfg, batch_size, eval_bs)
+    _, train_step, predict = steps
+    masks = {k: np.asarray(split[k]).astype(bool)
+             for k in ("train", "valid", "test")}
+
+    def make_batches(k, bs, shuffle_rng=None):
+        idxs = np.where(masks[k])[0]
+        if shuffle_rng is not None:
+            shuffle_rng.shuffle(idxs)
+        return _batch_graph_list(graphs, labels, idxs, bs)
+
+    ev_splits = (("train", "valid", "test") if cfg.eval_train_auc
+                 else ("valid", "test"))
+    dev_eval = None
+    if tables is not None:
+        dev_eval = {k: _device_eval_split(
+            make_batches(k, eval_bs), labels[masks[k]], device)
+            for k in ev_splits}
+        if any(v is None for v in dev_eval.values()):
+            dev_eval = None
+    cached = None
+    if dev_eval is not None:
+        route = "device AUC, resident id batches"
+    elif len(graphs) <= 50_000:
+        route = "host AUC, cached batches"
+        cached = {k: list(make_batches(k, eval_bs)) for k in ev_splits}
+    else:
+        route = "host AUC, streamed batches"
+    if verbose:
+        print(f"graph task: {len(graphs)} graphs, {labels.shape[1]} tasks, "
+              f"batches of {batch_size}, evaluation batches of {eval_bs}; "
+              f"evaluation: {route}", flush=True)
+
+    def evaluate_split(model, k):
+        """(AUC x 100, the split's head-mean logits on the device)."""
+        if dev_eval is not None:
+            batches, y_dev, valid_dev = dev_eval[k]
+            preds = torch.cat([predict(model, materialize_graph(g, *tables))
+                               [:n] for g, n in batches])
+            return float(device_multitask_auc(preds, y_dev, valid_dev)) \
+                * 100, preds
+        source = cached[k] if cached is not None else make_batches(k,
+                                                                   eval_bs)
+        preds, ys = [], []
+        for g, lab, n in source:
+            preds.append(predict(model, to_device(g))[:n])
+            ys.append(lab[:n])
+        preds = torch.cat(preds)
+        return evaluate(preds.cpu().numpy(), np.concatenate(ys), None,
+                        "graph"), preds
+
+    logger = Logger()
+    saver = _ModelSaver(save_model_to, cfg, verbose)
+    events = _Events(device)
+    timed = device.type == "cuda"
+    out = {}
+    for idx in range(cfg.repeat):
+        model = task_model_init(
+            cfg, None if pretrained is None
+            else copy.deepcopy(pretrained["encoder"]),
+            None if pretrained is None else copy.deepcopy(pretrained["vq"]),
+            generator=torch.Generator().manual_seed(seed_base + idx))
+        model.to(device)
+        # k-means from the first TRAIN-sized batch, so the trajectory does
+        # not depend on the evaluation batches
+        first = next(iter(make_batches("train", batch_size)), None)
+        if first is not None:
+            bins = maybe_kmeans_init_vq(
+                model, cfg, to_device(first[0]),
+                generator=torch.Generator(device=device).manual_seed(
+                    seed_base + idx))
+            if verbose and bins is not None:
+                print(f"[split {idx}] k-means init of the codebook over the "
+                      f"first train batch: codes used per head "
+                      f"{(bins > 0).sum(1).tolist()} of {bins.shape[1]}",
+                      flush=True)
+        trainable, _ = _split_params(model, cfg)
+        init_params = {k: p.detach().cpu().clone()
+                       for k, p in model.named_parameters()}
+        opt = make_optimizer(trainable, cfg)
+        stopper = EarlyStopping(patience=cfg.early_stop)
+        rng_np = np.random.default_rng(seed_base + idx)
+        gen = torch.Generator(device=device).manual_seed(seed_base + idx)
+        gmask_all = torch.arange(batch_size, device=device)
+        epoch_losses, history = [], []
+        for epoch in range(cfg.epochs):
+            t0 = time.perf_counter()
+            host = {"sample": 0.0, "transfer": 0.0}
+            spans, parts, n_b = [], None, 0
+            batches = make_batches("train", batch_size, rng_np)
+            while True:
+                ts = time.perf_counter()
+                item = next(batches, None)
+                host["sample"] += time.perf_counter() - ts
+                if item is None:
+                    break
+                g, lab, n_real = item
+                ts = time.perf_counter()
+                g = to_device(g)
+                y = host_to_device(np.nan_to_num(lab * 2.0 - 1.0).astype(
+                    np.float32), device)
+                valid = host_to_device(~np.isnan(lab), device)
+                host["transfer"] += time.perf_counter() - ts
+                if timed:
+                    span = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                    span[0].record()
+                parts = train_step(model, opt, g, y, valid,
+                                   gmask_all < n_real, gen)
+                if timed:
+                    span[1].record()
+                    spans.append(span)
+                n_b += 1
+            loss = {k: 0.0 for k in _LOSS_KEYS}
+            if parts is not None:
+                vals = torch.stack([parts[k] for k in _LOSS_KEYS]).tolist()
+                loss = dict(zip(_LOSS_KEYS, vals))
+            hist = {"batches": n_b, "epoch_s": time.perf_counter() - t0}
+            hist.update({f"host/{k}_ms": 1e3 * v / max(n_b, 1)
+                         for k, v in host.items()})
+            if spans:
+                busy_ms = sum(a.elapsed_time(b) for a, b in spans)
+                hist["device_ms"] = busy_ms / len(spans)
+                hist["idle"] = 1.0 - busy_ms / (1e3 * hist["epoch_s"])
+            epoch_losses.append(loss)
+            history.append(hist)
+            k_ev = max(1, cfg.eval_every)
+            if (epoch + 1) % k_ev and epoch != cfg.epochs - 1:
+                if verbose:
+                    print(f"[split {idx}] epoch {epoch}: loss "
+                          f"{loss['loss']:.4f} | {hist['epoch_s']:.3f} s "
+                          f"(evaluation every {k_ev})", flush=True)
+                continue
+            t_ev = time.perf_counter()
+            result, preds = {"metric": "auc"}, {}
+            for k, key in (("train", "train"), ("valid", "val"),
+                           ("test", "test")):
+                if k not in ev_splits:
+                    result[key] = float("nan")
+                    continue
+                events.start(f"eval_ms/{k}")
+                result[key], preds[k] = evaluate_split(model, k)
+                events.stop(f"eval_ms/{k}")
+            events.into(hist)
+            hist.update({k: v[0] for k, v in hist.items()
+                         if isinstance(v, list)})
+            if timed:
+                hist["eval_ms"] = sum(hist[f"eval_ms/{k}"]
+                                      for k in ev_splits)
+            hist.update(eval_s=time.perf_counter() - t_ev, eval_route=route)
+            logger.log(idx, epoch, loss, result)
+            saver.maybe_snap(model, float(result["val"]), preds)
+            if verbose:
+                extra = ""
+                if "device_ms" in hist:
+                    extra = (f", step {hist['device_ms']:.3f} ms device, "
+                             f"idle {hist['idle']:.3f}")
+                print(f"[split {idx}] epoch {epoch}: loss {loss['loss']:.4f}"
+                      f" | train {result['train']:.2f} val "
+                      f"{result['val']:.2f} test {result['test']:.2f} | "
+                      f"{n_b} batches in {hist['epoch_s']:.3f} s, build "
+                      f"{hist['host/sample_ms']:.2f} + copy "
+                      f"{hist['host/transfer_ms']:.2f} ms a batch{extra}; "
+                      f"evaluation {hist['eval_s']:.3f} s", flush=True)
+            if stopper(result):
+                if verbose:
+                    print(f"[split {idx}] early stop at epoch {epoch}")
+                break
+        if verbose:
+            b = logger.get_single_best(idx)
+            print(f"[split {idx}] best val={b['val']:.2f} "
+                  f"test={b['test']:.2f}", flush=True)
+        out = dict(model=model, steps=steps, to_device=to_device,
+                   epoch_losses=epoch_losses, history=history,
+                   init_params=init_params, cfg=cfg, eval_route=route)
+    saver.save()
+    if save_model_to:
+        out["best_pred"] = (None if saver.pred is None else
+                            {k: v.cpu().numpy() for k, v in
+                             saver.pred.items()})
+    return dict(logger=logger, **out)
+
+
 def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
                  verbose: bool = False, save_model_to: str = ""):
     """Finetune ``cfg.repeat`` splits of the node or link dataset ``ds``
-    (``cfg.task``), full batch or minibatch (module docstring).
+    (``cfg.task``), full batch or minibatch (module docstring), or the
+    graph task on ``ds = (graphs, labels, split)`` (``_run_graph_task``,
+    whose history also holds each evaluation's device ms a split,
+    ``eval_ms/<split>``, and its ``eval_route``; ``best_pred`` is a dict of
+    each evaluated split's head-mean logits).
     ``pretrained`` is None or ``{"encoder": Encoder, "vq": VectorQuantize}``
     (copied per split); ``save_model_to`` names the npz of the best model.
 
@@ -396,13 +763,15 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
     ``_minibatch_epoch``); with ``save_model_to``, the predictions of the
     saved snapshot's evaluation (``best_pred``)."""
     task = cfg.task
-    if task not in ("node", "link"):
-        raise NotImplementedError(
-            f"the {task} task is not ported; the port finetunes node and "
-            f"link tasks (graph tasks: ROADMAP Queue 1 item 7)")
     if any(cfg.encoder.moe_layer_flags()):
         raise NotImplementedError("MoE-SAGE layers are not ported (ROADMAP "
                                   "Queue 1 item 5)")
+    if task == "graph":
+        graphs, labels, split = ds
+        return _run_graph_task(graphs, labels, split, cfg, pretrained,
+                               device, verbose, save_model_to=save_model_to)
+    if task not in ("node", "link"):
+        raise ValueError(f"Invalid task {task}")
     device = torch.device(device)
     minibatch = cfg.batch_size != 0
     if not minibatch:

@@ -84,8 +84,12 @@ def task_model_from_jax(params_np: dict, state_np: dict, cfg) -> TaskModel:
 
 
 def _module_trees(module: torch.nn.Module):
+    """(params, state) of ``module`` as nested numpy trees, copies: on the
+    CPU ``.numpy()`` would share the live tensors' memory, and a snapshot
+    would follow the training that continues after it."""
     param_names = {n for n, _ in module.named_parameters()}
-    sd = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+    sd = {k: v.detach().cpu().numpy().copy()
+          for k, v in module.state_dict().items()}
     return (_nest({k: v for k, v in sd.items() if k in param_names}),
             _nest({k: v for k, v in sd.items() if k not in param_names}))
 

@@ -1,10 +1,11 @@
 """Evaluation metrics (counterpart of ``stemgnn_tpu/utils/metrics.py``,
-STEM-GNN/utils/eval.py): node/link accuracy x100.  The graph tasks' AUC
-comes with the graph-task slice."""
+STEM-GNN/utils/eval.py): node/link accuracy x100, graph mean per-task AUC
+x100 (nan-task tolerant) on the host, and its twin on the device."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 task2metric = {"node": "acc", "link": "acc", "graph": "auc"}
 
@@ -21,8 +22,81 @@ def eval_acc(pred, y, mask=None):
     return float((pred.argmax(-1) == y).mean())
 
 
+def _binary_auc(y_true, y_score):
+    """Rank-based ROC-AUC (Mann-Whitney U); ties take average ranks."""
+    y_true = np.asarray(y_true).astype(bool)
+    y_score = np.asarray(y_score, dtype=np.float64)
+    n_pos = int(y_true.sum())
+    n_neg = len(y_true) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    order = np.argsort(y_score, kind="mergesort")
+    ranks = np.empty(len(y_score), dtype=np.float64)
+    sorted_scores = y_score[order]
+    i = 0
+    while i < len(sorted_scores):
+        j = i
+        while j + 1 < len(sorted_scores) and \
+                sorted_scores[j + 1] == sorted_scores[i]:
+            j += 1
+        ranks[order[i:j + 1]] = (i + j) / 2.0 + 1.0
+        i = j + 1
+    return float((ranks[y_true].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
+def eval_auc(pred, y):
+    """Mean per-task ROC-AUC over tasks with both classes present
+    (STEM-GNN/utils/eval.py:33-48); NaN labels excluded per task."""
+    pred = np.asarray(pred)
+    y = np.asarray(y)
+    if y.ndim == 1:
+        y = y[:, None]
+        pred = pred[:, None] if pred.ndim == 1 else pred
+    rocs = []
+    for i in range(y.shape[1]):
+        yi = y[:, i]
+        valid = ~np.isnan(yi)
+        yi = yi[valid]
+        if (yi == 1).sum() > 0 and (yi == 0).sum() > 0:
+            rocs.append(_binary_auc(yi, pred[valid, i]))
+    if not rocs:
+        return float("nan")
+    return float(np.mean(rocs))
+
+
 def evaluate(pred, y, mask=None, task: str = "node"):
     metric = task2metric[task]
     if metric == "acc":
         return eval_acc(pred, y, mask) * 100
-    raise NotImplementedError(f"metric {metric} is not ported yet")
+    if metric == "auc":
+        return eval_auc(pred, y) * 100
+    raise ValueError(f"Metric {metric} is not supported.")
+
+
+def device_multitask_auc(pred, y, valid):
+    """Mean per-task ROC-AUC on the device, the twin of :func:`eval_auc`
+    (JAX ``device_multitask_auc``): the Mann-Whitney rank statistic with
+    average ranks for ties, f32 products (an int32 ``n_pos * (n_pos + 1)``
+    would wrap past ~46K positives), tasks missing a class dropped by a
+    NaN-mean.  ``pred`` [G, T] scores, ``y`` [G, T] 0/1 labels (any value
+    where not ``valid``), ``valid`` [G, T] bool.  Returns a 0-d tensor in
+    [0, 1], NaN when no task has both classes; the caller reads one scalar
+    back instead of [G, T] predictions."""
+    big = torch.tensor(3.4e38, dtype=torch.float32, device=pred.device)
+    p = torch.where(valid, pred.float(), big).T.contiguous()      # [T, G]
+    sp = torch.sort(p, dim=1).values
+    lo = torch.searchsorted(sp, p, side="left").float()
+    hi = torch.searchsorted(sp, p, side="right").float()
+    avg_rank = ((lo + hi + 1.0) / 2.0).T                           # 1-based
+    pos = valid & (y == 1)
+    neg = valid & (y == 0)
+    n_pos = pos.sum(0).float()
+    n_neg = neg.sum(0).float()
+    sum_pos = torch.where(pos, avg_rank, torch.zeros((), device=p.device))
+    sum_pos = sum_pos.sum(0)
+    auc = (sum_pos - n_pos * (n_pos + 1.0) / 2.0) / torch.clamp(
+        n_pos * n_neg, min=1.0)
+    auc = torch.where((n_pos > 0) & (n_neg > 0), auc,
+                      torch.full_like(auc, float("nan")))
+    return torch.nanmean(auc)

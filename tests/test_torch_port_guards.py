@@ -285,3 +285,64 @@ def test_port_never_reads_the_jax_native_directory():
     assert src == os.path.join(ROOT, "stemgnn_tpu_torch", "csrc",
                                "sampler.cpp")
     assert lib.startswith(os.path.join(ROOT, "stemgnn_tpu_torch", "_build"))
+
+
+def test_graph_task_modules_import_without_jax_or_the_jax_package():
+    """The graph-task slice (the featurizer, the hash text encoder, the
+    molecule datasets, pooling and the AUCs, the graph half of the finetune
+    loop) imports neither JAX nor the JAX package."""
+    proc = _run("""
+        import importlib
+        for mod in ("data.chem", "data.text_encoder", "data.synthetic",
+                    "data.registry", "ops.segment", "models.task",
+                    "utils.metrics", "train.finetune_loop", "finetune",
+                    "infer"):
+            importlib.import_module("stemgnn_tpu_torch." + mod)
+        from stemgnn_tpu_torch.train.finetune_loop import (
+            _run_graph_task, graph_task_encode, graph_task_predict)
+        bad = [m for m in sys.modules
+               if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
+               or (m.startswith("jax") and sys.modules[m] is not None)]
+        assert not bad, bad
+        print("imported")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+def test_graph_task_does_not_slide_to_the_cpu():
+    """``run_finetune`` of a graph task asked for CUDA on a machine without
+    it raises before any step, on both bundle forms; the CLI exits
+    non-zero with the same message."""
+    proc = _run("""
+        import tempfile
+        import torch
+        assert not torch.cuda.is_available()
+        from stemgnn_tpu_torch.core.config import (EncoderConfig,
+                                                   FinetuneConfig, VQConfig)
+        from stemgnn_tpu_torch.data.registry import load_dataset
+        from stemgnn_tpu_torch.data.synthetic import write_smiles_csv
+        from stemgnn_tpu_torch.train.finetune_loop import run_finetune
+        path = tempfile.mktemp(suffix=".csv")
+        write_smiles_csv(path, 20, num_tasks=2)
+        cfg = FinetuneConfig(
+            encoder=EncoderConfig(input_dim=8, hidden_dim=8),
+            vq=VQConfig(dim=8, codebook_dim=8, codebook_size=4, heads=2),
+            task="graph", num_classes=2, epochs=1, repeat=1)
+        for name in ("mol_synthetic", "smiles:" + path):
+            ds = load_dataset(name, feat_dim=8)
+            cfg2 = cfg.__class__(**{**cfg.__dict__,
+                                    "num_classes": ds[1].shape[1]})
+            try:
+                run_finetune(ds, cfg2, device="cuda")
+            except RuntimeError as ex:
+                assert "CUDA is not available" in str(ex), ex
+                print("raised:", name)
+            else:
+                raise SystemExit("the graph task ran without CUDA")
+        from stemgnn_tpu_torch.finetune import main
+        main(["--finetune_dataset", "mol_synthetic", "--feat_dim", "8"])
+    """)
+    assert proc.returncode != 0
+    assert proc.stdout.count("raised:") == 2, proc.stdout + proc.stderr
+    assert "CUDA is not available" in proc.stderr

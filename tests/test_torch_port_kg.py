@@ -190,7 +190,7 @@ def test_every_jax_option_is_accepted():
     (["--halo_order", "rcm"], "item 10"),
     (["--reorder", "degree"], "item 3"),
     (["--text_encoder", "e5"], "item 11"),
-    (["--finetune_dataset", "chemhiv"], "item 7"),
+    (["--finetune_dataset", "mol_synthetic", "--eval_bf16", "1"], "item 4"),
 ])
 def test_finetune_cli_refuses_naming_the_roadmap_item(flags, needle):
     with pytest.raises(SystemExit) as info:

@@ -340,7 +340,8 @@ def test_finetune_train_step_matches_jax(route):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--finetune_dataset", "mol_synthetic"], "graph task"),
+    (["--finetune_dataset", "mol_synthetic", "--text_encoder", "e5"],
+     "--text_encoder e5"),
     (["--bf16"], "--bf16"),
     (["--moe"], "--moe"),
     (["--eval_bf16", "1"], "--eval_bf16 1"),
