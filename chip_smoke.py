@@ -141,7 +141,28 @@ announced before it starts and timed when it ends:
                molecule at a near-tie of two VQ codes may take the other
                code in another batching, and is shown to); one step's
                gradients against the plain route; peak memory;
- 14. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
+ 14. mp      — mixed precision: (a) the full-graph pretrain step under
+               ``pretrain.py --mixed_precision`` on phase pretrain's graph
+               and layout, 3 steps: kernel 1 three times a step (the
+               dropout tails, bf16 init and out), kernel 2 twice (the bf16
+               teacher's tails, bf16 out); the first bf16-output launch of
+               each checked against its plain version (one bf16 ulp) and
+               timed beside its bound; the losses against the f32 forward
+               on the same parameters and draws within the JAX package's
+               2% gate, with cuBLAS's bf16 split-K reductions allowed and
+               not; one step's gradients (f32) against the plain versions;
+               step ms, the stage split, peak memory; (b) the pretrain CLI
+               with ``--mixed_precision`` (``fused_minibatch`` auto: no
+               kernel) and its config on ``"on"`` through ``run_pretrain``
+               (kernel 1 x 3 and kernel 2 x 2 a step), 4 steps each; (c)
+               ``finetune --bf16`` on the node task (kernel 2 with bf16
+               out) and the typed link task on ``kg_synthetic`` (kernel 2's
+               xe mode and kernel 3 with bf16 out), 3 epochs each, those
+               launches checked and timed, ``z`` against the plain route;
+               (d) the graph task on ``mol_synthetic`` with ``--bf16`` and
+               with ``--eval_bf16 1`` (the evaluation's ``z`` bf16, the
+               device AUC against the host AUC, 1e-6);
+ 15. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
                at the main paths' shapes (kernel 1 also on the pretrain
                step's dropout tails), by CUDA events.
 
@@ -198,13 +219,14 @@ from stemgnn_tpu_torch.ops.fused_sage import (DropView, hub_partials,
 from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep, pair_hash_uniform
 from stemgnn_tpu_torch.models.task import encode as task_encode
 from stemgnn_tpu_torch.models.task import pool_graph
-from stemgnn_tpu_torch.profile_pretrain import (dropout_tail_cases,
-                                                pretrain_config)
+from stemgnn_tpu_torch.profile_pretrain import (STAGES, dropout_tail_cases,
+                                                pretrain_config, stage_ms)
 from stemgnn_tpu_torch.scripts import _common as scripts_common
 from stemgnn_tpu_torch.scripts import (degree_shift_ood, homophily_shift_ood,
                                        missing_feature, random_edge_drop,
                                        tri_objective)
 from stemgnn_tpu_torch.data.synthetic import write_smiles_csv
+from stemgnn_tpu_torch.train import finetune_loop
 from stemgnn_tpu_torch.train.finetune_loop import (_batch_graph_list,
                                                    _graph_feeder,
                                                    _make_node_steps,
@@ -230,6 +252,11 @@ NUM_CLASSES = 40
 SEED = 42
 EPOCHS = 3
 PRETRAIN_STEPS = 3
+# phase mp: the full-graph steps and the minibatch steps of each route
+# under --mixed_precision, and the losses held to the JAX package's gate
+MP_STEPS, MP_MB_STEPS = 3, 4
+MP_LOSSES = ("feat_recon_loss", "topo_recon_loss", "topo_sem_recon_loss",
+             "sem_recon_loss", "commit_loss")
 # the minibatch pretrain: the reference's batches (pretrain.yaml) and the
 # steps of each run_pretrain route
 MB_BATCH, MB_FANOUT, MB_STEPS = 1024, 10, 12
@@ -237,6 +264,16 @@ HBM_BPS = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 K1, K2 = "scatter_rows_sorted", "gathered_scatter_rows_sorted"
 K3 = "masked_scatter_rows_sorted"
+# each kernel's wrapper and plain version, and the names of its arrays
+KERNEL_FNS = {K1: (sc.scatter_rows_sorted, sc.scatter_rows_sorted_ref),
+              K2: (sc.gathered_scatter_rows_sorted,
+                   sc.gathered_scatter_rows_sorted_ref),
+              K3: (sc.masked_scatter_rows_sorted,
+                   sc.masked_scatter_rows_sorted_ref)}
+POSITIONAL = {K1: ("m", "local_row", "block_ptr"),
+              K2: ("keys", "local_row", "block_ptr", "x", "table", "xe"),
+              K3: ("m", "local_row", "senders", "block_ptr", "x", "table",
+                   "xe")}
 KG = "kg_synthetic"
 KG_TYPES = 11
 # WN18RR's entity and triple counts (the generator keeps its 11 relations)
@@ -646,9 +683,9 @@ def kernel3_arxiv(ds, dev):
     """Kernel 3 on the whole sender-order layout of the arxiv graph with 11
     random edge types (its full-graph typed backward), and kernel 2's xe
     mode on the same layout's receiver order (the typed forward without
-    hubs): each checked against its plain version and timed beside its
-    bound and an ``index_add_`` yardstick.  Returns
-    ({kernel: max_abs_err}, {kernel: times})."""
+    hubs): each checked against its plain version and timed
+    (:func:`time_case`).  Returns ({kernel: max_abs_err}, {kernel:
+    times})."""
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     s, r = (np.asarray(a, np.int32) for a in ds.edge_index)
@@ -675,91 +712,24 @@ def kernel3_arxiv(ds, dev):
               f"{int(per_block.max())} edges (mean "
               f"{float(per_block.float().mean()):.0f}); rows up to "
               f"{int(deg.max())} edges", flush=True)
-    x = torch.randn(n_pad, FEAT_DIM, device=dev, generator=gen).to(
-        torch.bfloat16)
-    table = torch.randn(KG_TYPES, FEAT_DIM, device=dev, generator=gen).to(
-        torch.bfloat16)
-    dm = torch.randn(lay.num_edges_padded, FEAT_DIM, device=dev,
-                     generator=gen, dtype=torch.bfloat16)
-    dm.masked_fill_(~lay.mask_s[:, None], 0)
-    args = (dm, lay.lrow_s, lay.senders_s[None, :], lay.block_ptr_s, x,
-            table, lay.xe_s[None, :])
-    kw = dict(num_nodes_padded=n_pad)
-    tag = f"E_pad={lay.num_edges_padded} D={FEAT_DIM} T={KG_TYPES}"
-    want = sc.masked_scatter_rows_sorted_ref(*args, **kw)
-    def k3():
-        return sc.masked_scatter_rows_sorted(*args, plan=lay.plan_s, **kw)
-    errs = {K3: check_kernel(f"kernel 3 arxiv sender order {tag}", k3(),
-                             want, torch.float32)}
-    times = {K3: dict(ms=cuda_ms(k3, 20))}
-    del want
-    times[K3]["plain_ms"] = cuda_ms(
-        lambda: sc.masked_scatter_rows_sorted_ref(*args, **kw), 3)
-    # each input read once, the output written once: dm, lrow + sender +
-    # type per edge, x, the f32 out; compare + add per edge and column
-    nbytes = (e_used * (2 * FEAT_DIM + 12) + n_pad * FEAT_DIM * (2 + 4)
-              + KG_TYPES * FEAT_DIM * 2 + lay.block_ptr_s.numel() * 4)
-    times[K3]["bound_ms"], times[K3]["bound_by"] = bound_ms(
-        nbytes, 3 * e_used * FEAT_DIM)
-    # yardstick: index_add_ of the pre-masked f32 gradients
-    rows, ok = sc._edge_rows(lay.lrow_s, lay.block_ptr_s)
-    snd = lay.senders_s.long()[ok]
-    pre = (x.index_select(0, snd).float()
-           + table.index_select(0, lay.xe_s.long()[ok]).float())
-    masked = torch.where(pre > 0, dm[ok].float(), 0.0)
-    del pre
-    rows = rows[ok]
-    times[K3]["library_ms"] = cuda_ms(lambda: torch.zeros(
-        n_pad, FEAT_DIM, device=dev).index_add_(0, rows, masked), 20)
-    del masked, rows, snd, dm, args
-    k = times[K3]
-    print(f"  {K3} at E={e_used} D={FEAT_DIM} N_pad={n_pad} T={KG_TYPES}: "
-          f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, bound "
-          f"{k['bound_ms']:.3f} ms "
-          f"({k['bound_by']}, {nbytes / 1e9:.3f} GB at 3.35 TB/s), library "
-          f"{k['library_ms']:.3f} ms (index_add_ of the pre-masked f32 dm)",
-          flush=True)
-
-    # kernel 2's xe mode over the whole receiver order: relu, f32 sums, no
-    # epilogue (the typed forward without hubs)
-    args2 = (lay.senders_r[None, :], lay.lrow_r, lay.block_ptr_r, x, table,
-             lay.xe_r[None, :])
-    kw2 = dict(num_nodes_padded=n_pad, relu=True)
-    want = sc.gathered_scatter_rows_sorted_ref(*args2, **kw2)
-    def k2():
-        return sc.gathered_scatter_rows_sorted(*args2, plan=lay.plan_r,
-                                               **kw2)
-    errs[K2] = check_kernel(f"kernel 2 xe mode arxiv receiver order {tag}",
-                            k2(), want, torch.float32)
-    times[K2] = dict(ms=cuda_ms(k2, 20))
-    del want
-    times[K2]["plain_ms"] = cuda_ms(
-        lambda: sc.gathered_scatter_rows_sorted_ref(*args2, **kw2), 3)
-    # x read once (every row has an out-edge or not: count the distinct
-    # senders), keys + lrow + type per edge, the f32 out
-    rows2 = int(torch.unique(lay.senders_r[:e_used]).numel())
-    nbytes2 = (e_used * 12 + rows2 * FEAT_DIM * 2 + n_pad * FEAT_DIM * 4
-               + KG_TYPES * FEAT_DIM * 2)
-    times[K2]["bound_ms"], times[K2]["bound_by"] = bound_ms(
-        nbytes2, 2 * e_used * FEAT_DIM)
-    # yardstick: index_add_ of the pre-built f32 messages (bf16-rounded)
-    rows, ok = sc._edge_rows(lay.lrow_r, lay.block_ptr_r)
-    msg = torch.relu(
-        x.index_select(0, lay.senders_r.long()[ok]).float()
-        + table.index_select(0, lay.xe_r.long()[ok]).float()
-    ).to(torch.bfloat16).float()
-    rows = rows[ok]
-    times[K2]["library_ms"] = cuda_ms(lambda: torch.zeros(
-        n_pad, FEAT_DIM, device=dev).index_add_(0, rows, msg), 20)
-    del msg, rows
-    k = times[K2]
-    print(f"  {K2} xe mode at E={e_used} D={FEAT_DIM} N_pad={n_pad} "
-          f"T={KG_TYPES}: kernel {k['ms']:.3f} ms, plain "
-          f"{k['plain_ms']:.3f} ms, bound "
-          f"{k['bound_ms']:.3f} ms ({k['bound_by']}), library "
-          f"{k['library_ms']:.3f} ms (index_add_ of the pre-built f32 "
-          f"messages)", flush=True)
-    del lay, x, table, args2
+    x, table, dm = seeded_typed_inputs(lay, dev, gen)
+    tag = f"T={KG_TYPES}"
+    errs, times = {}, {}
+    # kernel 3 over the whole sender order (dm, f32 out), and kernel 2's xe
+    # mode over the whole receiver order (relu, f32 sums, no epilogue: the
+    # typed forward without hubs)
+    for name, direction, call in (
+            (K3, "arxiv", ((dm, lay.lrow_s, lay.senders_s[None, :],
+                            lay.block_ptr_s, x, table, lay.xe_s[None, :]),
+                           dict(num_nodes_padded=n_pad, plan=lay.plan_s))),
+            (K2, "xe", ((lay.senders_r[None, :], lay.lrow_r,
+                         lay.block_ptr_r, x, table, lay.xe_r[None, :]),
+                        dict(num_nodes_padded=n_pad, relu=True,
+                             plan=lay.plan_r)))):
+        errs[name], times[name] = launch_case(
+            f"{name} arxiv {'sender' if name == K3 else 'receiver'} order "
+            f"{tag}", name, direction, call)
+    del lay, x, table, dm
     torch.cuda.empty_cache()
     return errs, times
 
@@ -828,48 +798,31 @@ def typed_run(tmp, dev, paths):
     return path
 
 
-def kernel3_path_case(lay, dev):
-    """Kernel 3 at the link finetune's own backward shape (the WN18RR-scale
-    sender-order layout, D = 768, bf16 dm, f32 out) on seeded random
-    values: checked and timed beside its plain version, bound and
-    ``index_add_`` yardstick."""
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    n_pad, e_used = lay.num_nodes_padded, int(lay.block_ptr_s[-1])
-    x = torch.randn(n_pad, FEAT_DIM, device=dev, generator=gen).to(
-        torch.bfloat16)
+def seeded_typed_inputs(lay, dev, gen):
+    """Seeded bf16 x, type table and dm (zero off the sender order's real
+    edges) for kernel 3 and kernel 2's xe mode on the typed layout
+    ``lay``."""
+    x = torch.randn(lay.num_nodes_padded, FEAT_DIM, device=dev,
+                    generator=gen).to(torch.bfloat16)
     table = torch.randn(KG_TYPES, FEAT_DIM, device=dev, generator=gen).to(
         torch.bfloat16)
     dm = torch.randn(lay.num_edges_padded, FEAT_DIM, device=dev,
                      generator=gen, dtype=torch.bfloat16)
     dm.masked_fill_(~lay.mask_s[:, None], 0)
-    args = (dm, lay.lrow_s, lay.senders_s[None, :], lay.block_ptr_s, x,
-            table, lay.xe_s[None, :])
-    kw = dict(num_nodes_padded=n_pad)
-    want = sc.masked_scatter_rows_sorted_ref(*args, **kw)
-    def k3():
-        return sc.masked_scatter_rows_sorted(*args, plan=lay.plan_s, **kw)
-    out = dict(path_max_abs_err=check_kernel(
-        f"kernel 3 at the link path's shape E_pad={lay.num_edges_padded}",
-        k3(), want, torch.float32), path_ms=cuda_ms(k3, 50))
-    out["path_plain_ms"] = cuda_ms(
-        lambda: sc.masked_scatter_rows_sorted_ref(*args, **kw), 10)
-    out["path_bound_ms"] = bound_ms(
-        e_used * (2 * FEAT_DIM + 12) + n_pad * FEAT_DIM * (2 + 4),
-        3 * e_used * FEAT_DIM)[0]
-    # yardstick: index_add_ of the pre-masked f32 gradients
-    rows, ok = sc._edge_rows(lay.lrow_s, lay.block_ptr_s)
-    pre = (x.index_select(0, lay.senders_s.long()[ok]).float()
-           + table.index_select(0, lay.xe_s.long()[ok]).float())
-    masked = torch.where(pre > 0, dm[ok].float(), 0.0)
-    rows = rows[ok]
-    out["path_library_ms"] = cuda_ms(lambda: torch.zeros(
-        n_pad, FEAT_DIM, device=dev).index_add_(0, rows, masked), 50)
-    print(f"  {K3} at the link path's shape E={e_used} N_pad={n_pad}: "
-          f"kernel {out['path_ms']:.3f} ms, plain "
-          f"{out['path_plain_ms']:.3f} ms, bound {out['path_bound_ms']:.3f} "
-          f"ms, library {out['path_library_ms']:.3f} ms (index_add_ of the "
-          f"pre-masked f32 dm)", flush=True)
-    return out
+    return x, table, dm
+
+
+def kernel3_path_case(lay, dev):
+    """Kernel 3 at the link finetune's own backward shape (the WN18RR-scale
+    sender-order layout, D = 768, bf16 dm, f32 out) on seeded random
+    values: checked and timed (:func:`launch_case`)."""
+    x, table, dm = seeded_typed_inputs(
+        lay, dev, torch.Generator(device=dev).manual_seed(SEED))
+    return launch_case(
+        "kernel 3 at the link path's shape", K3, "path",
+        ((dm, lay.lrow_s, lay.senders_s[None, :], lay.block_ptr_s, x, table,
+          lay.xe_s[None, :]),
+         dict(num_nodes_padded=lay.num_nodes_padded, plan=lay.plan_s)))
 
 
 def check_link_step(res):
@@ -1382,19 +1335,10 @@ def ood_route_checks(res, what, dev, time_k2=False):
                 step_grads(model, loss_fn, mask, graph, y, plain=True))
     out = {}
     cases = (("ood_fwd", calls[0]), ("ood_bwd", calls[-1])) if time_k2 else ()
-    for direction, (a, kw) in cases:
-        args = dict(zip(("keys", "local_row", "block_ptr", "x", "table"), a))
-        kw = dict(kw)
-        extra = {"plan": kw.pop("plan")}
-        err = check_kernel(
-            f"kernel 2 {direction} launch of the step on the {what} graph "
-            f"E_pad={args['keys'].shape[1]} D={FEAT_DIM}",
-            real(**args, **kw, **extra),
-            sc.gathered_scatter_rows_sorted_ref(**args, **kw),
-            kw["out_dtype"])
-        out[direction] = (err, time_case(
-            K2, direction, args, kw, extra, real,
-            sc.gathered_scatter_rows_sorted_ref))
+    for direction, call in cases:
+        out[direction] = launch_case(
+            f"kernel 2 {direction} launch of the step on the {what} graph",
+            K2, direction, call)
     del graph, model, g_kernel, calls
     return out
 
@@ -1502,17 +1446,9 @@ def kg_run(tmp, dev, paths):
           f"CUDA events; per-epoch wall "
           f"{['%.3f' % v for v in res['epoch_s']]} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-    a, kw = calls[0]
-    args = dict(zip(("keys", "local_row", "block_ptr", "x", "table"), a))
-    kw = dict(kw)
-    extra = {"plan": kw.pop("plan")}
-    err = check_kernel(
-        f"kernel 2 at the WN18RR evaluation's first launch E_pad="
-        f"{args['keys'].shape[1]} D={FEAT_DIM}", real(**args, **kw, **extra),
-        sc.gathered_scatter_rows_sorted_ref(**args, **kw), kw["out_dtype"])
-    k2_kg = (err, time_case(K2, "kg_eval", args, kw, extra, real,
-                            sc.gathered_scatter_rows_sorted_ref))
-    del res, model, g, opt, calls, args, kw, extra
+    k2_kg = launch_case("kernel 2 at the WN18RR evaluation's first launch",
+                        K2, "kg_eval", calls[0])
+    del res, model, g, opt, calls
     torch.cuda.empty_cache()
 
     # FB15K237: the minibatch preset, the export and its predictions
@@ -1674,6 +1610,28 @@ def code_gaps(model, graphs, ids, to_device, bs):
     return torch.cat(gaps).cpu().numpy()
 
 
+def check_device_auc(res, labels, split, dev):
+    """The AUC of each split of the saved best evaluation's predictions on
+    the card (``device_multitask_auc``) against the host's (1e-6) and the
+    logged one."""
+    best, best_pred = res["logger"].get_single_best(0), res["best_pred"]
+    for k, key in (("train", "train"), ("valid", "val"), ("test", "test")):
+        rows = np.where(split[k])[0]
+        y = labels[rows]
+        pred = torch.from_numpy(best_pred[k]).to(dev)
+        dev_auc = float(device_multitask_auc(
+            pred, torch.from_numpy(np.nan_to_num(y).astype(np.float32)).to(
+                dev), torch.from_numpy(~np.isnan(y)).to(dev)))
+        host_auc = eval_auc(best_pred[k], y)
+        print(f"  {k}: AUC on the card {dev_auc:.9f}, on the host "
+              f"{host_auc:.9f} (difference {abs(dev_auc - host_auc):.2e}, "
+              f"tolerance 1e-6); logged {best[key]:.6f}", flush=True)
+        if not abs(dev_auc - host_auc) <= 1e-6 or \
+                not abs(dev_auc * 100 - best[key]) <= 1e-4:
+            raise AssertionError(f"{k}: device AUC {dev_auc}, host AUC "
+                                 f"{host_auc}, logged {best[key]}")
+
+
 def graph_run(tmp, dev, paths):
     """The graph tasks (module docstring, phase 13)."""
     torch.cuda.reset_peak_memory_stats()
@@ -1739,22 +1697,8 @@ def graph_run(tmp, dev, paths):
     graph_history(f"{MOLECULES} molecules", res)
 
     # the device AUC against the host AUC over the run's own predictions
-    best, best_pred = res["logger"].get_single_best(0), res["best_pred"]
-    for k, key in (("train", "train"), ("valid", "val"), ("test", "test")):
-        rows = np.where(split[k])[0]
-        y = labels[rows]
-        pred = torch.from_numpy(best_pred[k]).to(dev)
-        dev_auc = float(device_multitask_auc(
-            pred, torch.from_numpy(np.nan_to_num(y).astype(np.float32)).to(
-                dev), torch.from_numpy(~np.isnan(y)).to(dev)))
-        host_auc = eval_auc(best_pred[k], y)
-        print(f"  {k}: AUC on the card {dev_auc:.9f}, on the host "
-              f"{host_auc:.9f} (difference {abs(dev_auc - host_auc):.2e}, "
-              f"tolerance 1e-6); logged {best[key]:.6f}", flush=True)
-        if not abs(dev_auc - host_auc) <= 1e-6 or \
-                not abs(dev_auc * 100 - best[key]) <= 1e-4:
-            raise AssertionError(f"{k}: device AUC {dev_auc}, host AUC "
-                                 f"{host_auc}, logged {best[key]}")
+    check_device_auc(res, labels, split, dev)
+    best_pred = res["best_pred"]
 
     # a training step's gradients against the plain route
     loss_fn, to_device = res["steps"][0], res["to_device"]
@@ -1841,6 +1785,311 @@ def graph_run(tmp, dev, paths):
           f"distinct code rows; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB in the phase",
           flush=True)
+
+
+class Bf16Launches:
+    """Inside the ``with``: the kernel names ``ops.fused_sage`` calls are
+    wrapped to keep the arguments of the first launch of each kernel (and
+    of kernel 2's ``xe`` mode) whose output is bf16, for checking that
+    launch against its plain version afterwards; every call goes on to the
+    kernel unchanged, so the launch counts are the kernels' own."""
+
+    NAMES = (K1, K2, K3)
+
+    def __init__(self):
+        self.first = {}
+
+    def __enter__(self):
+        self.saved = {n: getattr(fused_sage, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(fused_sage, n, self._wrap(n, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def wrapped(*a, **kw):
+            if kw.get("out_dtype") == torch.bfloat16:
+                xe = name == K2 and len(a) > 5 and a[5] is not None
+                self.first.setdefault(name + (":xe" if xe else ""), (a, kw))
+            return fn(*a, **kw)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(fused_sage, n, fn)
+        return False
+
+    def need(self, *keys):
+        missing = [k for k in keys if k not in self.first]
+        if missing:
+            raise AssertionError(f"no bf16-output launch of {missing}; "
+                                 f"seen {sorted(self.first)}")
+
+
+def check_mp_losses(tag, got, want):
+    """The JAX package's mixed-precision gate
+    (tests/test_end_to_end.py:188-190): each loss within 2% of the f32
+    one, or of 0.1 for a small one."""
+    worst = 0.0
+    for k in MP_LOSSES:
+        a, b = float(got[k]), float(want[k])
+        worst = max(worst, abs(a - b) / max(abs(b), 0.1))
+        print(f"  {tag} {k}: {a:.6f} against f32 {b:.6f}", flush=True)
+    print(f"  {tag}: worst deviation {worst:.4%} of the f32 losses "
+          f"(gate 2%)", flush=True)
+    if worst > 0.02:
+        raise AssertionError(f"{tag}: the losses leave the 2% gate")
+    return worst
+
+
+def mp_step_run(graph, dev, paths, cases):
+    """(a) The full-graph pretrain step under ``pretrain.py
+    --mixed_precision`` on phase pretrain's graph and layout
+    (``MP_STEPS`` steps at full width)."""
+    cfg = pretrain_config(FEAT_DIM, mixed_precision=True)
+    model = PretrainModel(
+        cfg, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    teacher = make_teacher(model)
+    opt = make_pretrain_optimizer(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bs = graph.num_nodes_padded
+    step = make_pretrain_step(cfg, bs, generator=gen)
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    with Bf16Launches() as cap:
+        reset_counts()
+        losses = [{k: float(v) for k, v in step(model, teacher, opt, graph)
+                   .items()} for _ in range(MP_STEPS)]
+        paths["mp_pretrain"] = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_counts(f"mixed-precision pretrain ({MP_STEPS} steps)",
+                  paths["mp_pretrain"], {K1: 3 * MP_STEPS,
+                                         K2: 2 * MP_STEPS})
+    for i, ls in enumerate(losses):
+        print(f"  step {i}: " + ", ".join(f"{k} {v:.6f}"
+                                          for k, v in ls.items()),
+              flush=True)
+    totals = [ls["loss"] for ls in losses]
+    if not all(np.isfinite(v) for ls in losses for v in ls.values()) \
+            or len(set(totals)) == 1:
+        raise AssertionError(f"mixed-precision losses {losses}")
+    if any(torch.equal(a, b) for a, b in zip(before, model.parameters())) \
+            or any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError("a parameter did not move or is not f32")
+    print(f"  every parameter moved and stays f32; peak device memory "
+          f"{peak_gb:.2f} GB, {peak_gb - held_gb:.2f} GB above the "
+          f"{held_gb:.2f} GB held before", flush=True)
+    cap.need(K1, K2)
+    for name, case in ((K1, "mp_drop_fwd"), (K2, "mp_teacher")):
+        cases[(name, case)] = launch_case(
+            f"mixed-precision step: the first bf16-output launch of {name}",
+            name, case, cap.first[name])
+    del cap
+
+    # the losses against the f32 forward on the same parameters and draws,
+    # with cuBLAS's bf16 split-K reductions allowed (the default) and not
+    draws = draw_step(cfg, graph, torch.Generator(device=dev).manual_seed(7))
+    aug = augmented(cfg, graph, draws)
+
+    def forward(c, plain=False):
+        m, t = copy.deepcopy(model), copy.deepcopy(teacher)
+        loss, ls, _ = pretrain_forward(
+            m, t, c, aug, graph, bs=bs, draws=draws,
+            drop_seed=draws["drop_seed"], plain=plain,
+            generator=torch.Generator(device=dev).manual_seed(7))
+        return m, loss, ls
+    with torch.no_grad():
+        want = forward(pretrain_config(FEAT_DIM))[2]
+        matmul = torch.backends.cuda.matmul
+        reduced = matmul.allow_bf16_reduced_precision_reduction
+        devs = {}
+        try:
+            for flag in (True, False):
+                matmul.allow_bf16_reduced_precision_reduction = flag
+                devs[flag] = check_mp_losses(
+                    f"mp (bf16 reduced-precision reductions "
+                    f"{'allowed' if flag else 'off'})", forward(cfg)[2],
+                    want)
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+
+    def grads(plain):
+        m, loss, _ = forward(cfg, plain)
+        loss.backward()
+        return {k: p.grad for k, p in m.named_parameters()}
+    reset_counts()
+    g_kernel = grads(False)
+    expect_counts("one mixed-precision forward + backward", read_counts(),
+                  {K1: 3, K2: 2})
+    if any(g.dtype != torch.float32 for g in g_kernel.values()):
+        raise AssertionError("a master gradient is not f32")
+    check_grads("the plain versions (mixed precision)", g_kernel,
+                grads(True))
+    del g_kernel, draws, aug
+
+    step_ms = cuda_ms(lambda: step(model, teacher, opt, graph), 3)
+    stages = stage_ms(cfg, model, teacher, opt, graph, gen, bs, 3)
+    print(f"  mixed-precision pretrain step {step_ms:.3f} ms by CUDA events "
+          f"(mean of 3); stages (mean of 3): " + ", ".join(
+              f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stages)),
+          flush=True)
+    del model, teacher, opt
+    torch.cuda.empty_cache()
+
+
+def mp_minibatch_run(ds, dev, paths):
+    """(b) ``python -m stemgnn_tpu_torch.pretrain --mixed_precision`` for
+    ``MP_MB_STEPS`` minibatch steps (``fused_minibatch="auto"``: no kernel),
+    then the CLI's config on ``"on"`` through ``run_pretrain`` (kernel 1 x
+    3 and kernel 2 x 2 a step, bf16 outputs)."""
+    run_id = f"chip_smoke_mp_{os.getpid()}"
+    argv = ["--pretrain_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
+            "--seed", str(SEED), "--pretrain_run_id", run_id, "--epochs",
+            "1", "--max_steps", str(MP_MB_STEPS), "--mixed_precision"]
+    print(f"  python -m stemgnn_tpu_torch.pretrain {' '.join(argv)}",
+          flush=True)
+    save_root = None
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        _, _, hist, save_root = pretrain_cli.main(argv)
+        paths["mp_pretrain_cli_auto"] = read_counts()
+        print(f"  wall {time.perf_counter() - t0:.2f} s (dataset, sampler "
+              f"set-up, {MP_MB_STEPS} steps, checkpoint)", flush=True)
+    finally:
+        if save_root is not None:
+            remove_run_dir(save_root)
+    expect_counts("mixed-precision pretrain CLI (fused_minibatch auto)",
+                  paths["mp_pretrain_cli_auto"], {})
+    mb_check_losses("mixed-precision pretrain CLI (auto)", hist, MP_MB_STEPS)
+    auto = hist[0]
+    cfg = dataclasses.replace(
+        pretrain_cli.make_config(pretrain_cli.parse(argv)),
+        fused_minibatch="on")
+    reset_counts()
+    _, _, hist = run_pretrain(merge_datasets([ds]), cfg, weights=[1.0],
+                              max_steps=MP_MB_STEPS, device=dev,
+                              verbose=False)
+    paths["mp_pretrain_mb_on"] = read_counts()
+    expect_counts(f"mixed-precision run_pretrain on ({MP_MB_STEPS} steps)",
+                  paths["mp_pretrain_mb_on"],
+                  {K1: 3 * MP_MB_STEPS, K2: 2 * MP_MB_STEPS})
+    mb_check_losses("mixed-precision run_pretrain (on)", hist, MP_MB_STEPS)
+    for tag, h in (("auto", auto), ("on", hist[0])):
+        print(f"  {tag}: device {h['device_ms']:.3f} ms a step by CUDA "
+              f"events in the loop, wall "
+              f"{1e3 * h['epoch_s'] / MP_MB_STEPS:.3f} ms a step, idle share "
+              f"{h['idle']:.4f}; host ms a batch: sampler "
+              f"{h['host/sample_ms']:.3f}, layout build "
+              f"{h.get('host/layout_ms', 0.0):.3f} (the first step's "
+              f"warm-up included)", flush=True)
+
+
+def mp_finetune_run(tmp, dev, paths, cases):
+    """(c) ``finetune --bf16``: the node full batch for ``EPOCHS`` epochs
+    from phase slice's checkpoint (kernel 2 with bf16 out, 3 a step and 2
+    an evaluation) and the typed link finetune on ``kg_synthetic`` (kernel
+    3 once a step, kernel 2's ``xe`` mode twice a step and an evaluation,
+    bf16 outputs); ``z`` and one training step's gradients through the
+    kernels against the plain route."""
+    base = ["--feat_dim", str(FEAT_DIM), "--pretrain_path", tmp,
+            "--pretrain_model_epoch", "50", "--seed", str(SEED), "--epochs",
+            str(EPOCHS), "--repeat", "1", "--bf16"]
+    for tag, name, want, per_step, keys in (
+            ("node", DATASET, {K2: EPOCHS * (3 + 2)}, {K2: 3}, (K2,)),
+            ("link", KG, {K2: EPOCHS * (2 + 2), K3: EPOCHS}, {K2: 2, K3: 1},
+             (f"{K2}:xe", K3))):
+        argv = ["--finetune_dataset", name, *base]
+        print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        with Bf16Launches() as cap:
+            reset_counts()
+            t0 = time.perf_counter()
+            res = finetune_main(argv)
+            paths[f"mp_finetune_{tag}"] = read_counts()
+        print(f"  {tag}: wall {time.perf_counter() - t0:.2f} s; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+        expect_counts(f"finetune --bf16 {tag} ({EPOCHS} x (train step + "
+                      f"eval))", paths[f"mp_finetune_{tag}"], want)
+        check_losses(res)
+        cap.need(*keys)
+        for key in keys:
+            case = {K2: "bf16_node", f"{K2}:xe": "bf16_xe",
+                    K3: "bf16_link"}[key]
+            cases[(key.split(":")[0], case)] = launch_case(
+                f"finetune --bf16 {tag}: the first bf16-output launch of "
+                f"{key}", key.split(":")[0], case, cap.first[key])
+        del cap
+        model, g = res["model"], res["graph"]
+        model.eval()
+        with torch.no_grad():
+            z = task_encode(model, g)
+            if z.dtype != torch.bfloat16:
+                raise AssertionError(f"--bf16 gave a {z.dtype} z")
+            n = g.n_node if isinstance(g.n_node, int) else int(g.n_node)
+            check_z(f"the plain route (--bf16 {tag})", z,
+                    task_encode(model, g, plain=True), n)
+        loss_fn, train_step, _ = res["steps"]
+        reset_counts()
+        g_kernel = step_grads(model, loss_fn, res["train_mask"], g, res["y"])
+        expect_counts(f"one --bf16 {tag} training step", read_counts(),
+                      per_step)
+        check_grads(f"the plain versions (--bf16 {tag})", g_kernel,
+                    step_grads(model, loss_fn, res["train_mask"], g,
+                               res["y"], plain=True))
+        del g_kernel
+        opt = torch.optim.AdamW([p for p in model.parameters()
+                                 if p.requires_grad], lr=1e-3)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step_ms = cuda_ms(lambda: train_step(model, opt, res["train_mask"],
+                                             g, res["y"], gen), 5)
+        print(f"  {tag}: --bf16 training step {step_ms:.3f} ms by CUDA "
+              f"events (mean of 5)", flush=True)
+        del res, model, g, opt
+        torch.cuda.empty_cache()
+
+
+def mp_graph_run(tmp, dev, paths):
+    """(d) The graph task on ``mol_synthetic`` (its preset, 2 epochs) with
+    ``--bf16`` and with ``--eval_bf16 1``: no kernel (a molecule batch has
+    no layout), finite losses, the evaluation's ``z`` bf16, the device AUC
+    of the saved best predictions against the host AUC (1e-6)."""
+    graphs, labels, split = load_dataset("mol_synthetic", feat_dim=FEAT_DIM,
+                                         seed=SEED)
+    for tag, flags in (("bf16", ["--bf16"]),
+                       ("eval_bf16", ["--eval_bf16", "1"])):
+        model_path = os.path.join(tmp, f"mp_graph_{tag}.npz")
+        argv = ["--use_params", "--finetune_dataset", "mol_synthetic",
+                "--epochs", "2", "--repeat", "1", "--seed", str(SEED),
+                "--debug", "--save_model", model_path, *flags]
+        print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+              flush=True)
+        seen = set()
+        real = finetune_loop.encode
+
+        def encode_rec(model, g, **kw):
+            z = real(model, g, **kw)
+            if not model.training:
+                seen.add(z.dtype)
+            return z
+        finetune_loop.encode = encode_rec
+        try:
+            reset_counts()
+            res = finetune_main(argv)
+            paths[f"mp_graph_{tag}"] = read_counts()
+        finally:
+            finetune_loop.encode = real
+            if os.path.exists(model_path):
+                os.remove(model_path)
+        expect_counts(f"mol_synthetic {tag}", paths[f"mp_graph_{tag}"], {})
+        check_losses(res, 2)
+        if seen != {torch.bfloat16}:
+            raise AssertionError(f"{tag}: the evaluation ran in {seen}")
+        graph_history(f"mol_synthetic {tag}", res)
+        check_device_auc(res, labels, split, dev)
+        del res
 
 
 def save_checkpoint(tmp, gen):
@@ -2136,20 +2385,23 @@ def main():
 
     with phase("graph"):
         graph_run(tmp, dev, paths)
+
+    with phase("mp"):
+        mp_cases = {}
+        mp_step_run(graph, dev, paths, mp_cases)
+        mp_minibatch_run(ds, dev, paths)
+        mp_finetune_run(tmp, dev, paths, mp_cases)
+        mp_graph_run(tmp, dev, paths)
     tmp_dir.cleanup()
     shared.close()
 
     with phase("times"):
         kernels = []
-        for name, cases, fn, ref in (
-                (K1, {**k1_cases, **k1_drop_cases}, sc.scatter_rows_sorted,
-                 sc.scatter_rows_sorted_ref),
-                (K2, k2_cases, sc.gathered_scatter_rows_sorted,
-                 sc.gathered_scatter_rows_sorted_ref)):
+        for name, cases in ((K1, {**k1_cases, **k1_drop_cases}),
+                            (K2, k2_cases)):
             row = {}
             for direction, (args, kw, extra) in cases.items():
-                row[direction] = time_case(name, direction, args, kw, extra,
-                                           fn, ref)
+                row[direction] = time_case(name, direction, args, kw, extra)
             kernels.append(dict(row, name=name))
     line = []
     for k in kernels:
@@ -2175,18 +2427,17 @@ def main():
                 entry.update({f"{direction}_{key}": v
                               for key, v in k[direction].items()})
         if name == K2:
-            for direction, (err, t) in (*k2_ood.items(), ("kg_eval", k2_kg)):
-                entry[f"{direction}_max_abs_err"] = err
-                entry.update({f"{direction}_{key}": v for key, v in t.items()})
-            xe = typed_times[K2]
             entry.update(replaced_ms=fwd["replaced_ms"],
                          bwd_replaced_ms=bwd["replaced_ms"],
                          row_walk_bound_ms=fwd["row_walk_bound_ms"],
-                         xe_max_abs_err=typed_errs[K2], xe_ms=xe["ms"],
-                         xe_plain_ms=xe["plain_ms"],
-                         xe_bound_ms=xe["bound_ms"],
-                         xe_library_ms=xe["library_ms"])
+                         bwd_row_walk_bound_ms=bwd["row_walk_bound_ms"])
+            cases = {**k2_ood, "kg_eval": k2_kg,
+                     "xe": (typed_errs[K2], typed_times[K2])}
+            entry.update(case_fields(cases))
         line.append(entry)
+    for entry in line:
+        entry.update(case_fields({case: t for (name, case), t in
+                                  mp_cases.items() if name == entry["name"]}))
     k3 = typed_times[K3]
     line.append({
         "name": K3, "route": "cuda",
@@ -2197,7 +2448,9 @@ def main():
         "max_abs_err": typed_errs[K3], "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
-        **k3_path})
+        **case_fields({"path": k3_path, **{
+            case: t for (name, case), t in mp_cases.items()
+            if name == K3}})})
     print(json.dumps({"kernels": line}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(card, flush=True)
@@ -2207,80 +2460,144 @@ def main():
     return 0
 
 
-def time_case(name, direction, args, kw, extra, fn, ref):
-    """Times of one real launch: the kernel, its plain version, its bound,
-    a library yardstick and, for kernel 2, the route it replaces (gather +
+def case_fields(cases):
+    """The ``kernels`` line's fields of further launches of one kernel:
+    {case: (max_abs_err, times)} as ``{case}_max_abs_err`` and
+    ``{case}_{time}``."""
+    out = {}
+    for case, (err, t) in cases.items():
+        out[f"{case}_max_abs_err"] = err
+        out.update({f"{case}_{k}": v for k, v in t.items()})
+    return out
+
+
+def launch_case(tag, name, direction, call):
+    """A recorded launch ``call`` (positional, keywords) of kernel ``name``
+    run again: checked against its plain version at the tolerance of its
+    out dtype, and timed (:func:`time_case`).  Returns (max_abs_err,
+    times)."""
+    a, kw = call
+    kw = dict(kw)
+    args = dict(zip(POSITIONAL[name], a))
+    args.update({k: kw.pop(k) for k in POSITIONAL[name] if k in kw})
+    extra = {"plan": kw.pop("plan")}
+    fn, ref = KERNEL_FNS[name]
+    x = args["m"] if name == K1 else args["x"]
+    err = check_kernel(f"{tag} E_pad={args['local_row'].numel()} "
+                       f"D={x.shape[1]}", fn(**args, **kw, **extra),
+                       ref(**args, **kw), kw.get("out_dtype", torch.float32))
+    return err, time_case(name, direction, args, kw, extra)
+
+
+def time_case(name, direction, args, kw, extra):
+    """Times of one real launch of kernel ``name`` (its arrays ``args`` by
+    name, ``kw`` the keywords of the kernel and its plain version,
+    ``extra`` the kernel's alone): the kernel, its plain version, its
+    bound, a library yardstick and, for kernel 2, the bound with x read
+    once per edge (the row walk) and the route it replaces (a gather +
     kernel 1 on the same tail)."""
-    n_pad, d = kw["num_nodes_padded"], FEAT_DIM
+    fn, ref = KERNEL_FNS[name]
+    n_pad = kw["num_nodes_padded"]
     bp, lrow = args["block_ptr"], args["local_row"]
+    x, table, xe = args.get("x"), args.get("table"), args.get("xe")
+    relu = kw.get("relu", False)
+    out_dtype = kw.get("out_dtype", torch.float32)
     dev = bp.device
     e_used = int(bp[-1])
-    live = lrow.reshape(-1)[:e_used] < 128
+    rows_out, live = sc._edge_rows(lrow.reshape(1, -1), bp)
+    live = live[:e_used]
+    rows_out = rows_out[:e_used][live]
     ms = cuda_ms(lambda: fn(**args, **kw, **extra), 20)
     plain = cuda_ms(lambda: ref(**args, **kw), 5)
-    # each input read once, each output written once: the epilogue's init
-    # (f32, where there is one), scale or gate, out (f32), block_ptr, and
-    # the edge stream
-    epi = n_pad * d * 4 + bp.numel() * 4
-    epi += n_pad * d * 4 if kw.get("init") is not None else 0
-    epi += n_pad * 4 if kw.get("scale") is not None else 0
-    epi += n_pad * d * 2 if kw.get("gate") is not None else 0
-    flops = e_used * d * (2 if kw["relu"] else 1) + 2 * n_pad * d
+    # each input read once, each output written once, each at its own
+    # dtype's size: out, block_ptr, the epilogue's init, scale and gate,
+    # then the edge stream (lrow, and m, keys, senders or types) and the x
+    # rows the launch reads
+    d = (args["m"] if name == K1 else x).shape[1]
+    nbytes = (n_pad * d * torch.finfo(out_dtype).bits // 8
+              + bp.numel() * bp.element_size())
+    nbytes += sum(t.numel() * t.element_size() for t in (
+        kw.get("init"), kw.get("scale"), kw.get("gate")) if t is not None)
+    flops = 2 * n_pad * d                               # the epilogue
+    per_edge = lrow.element_size()
     if name == K1:
-        nbytes = epi + e_used * (2 * d + 4)
+        per_edge += d * args["m"].element_size()
+        flops += e_used * d * (2 if relu else 1)
     else:
-        keys = args["keys"].reshape(-1)[:e_used][live]
-        rows = int(torch.unique(keys).numel())     # x rows the tail reads
-        nbytes = epi + e_used * 8 + rows * d * 2
-        flops += e_used * d * (args.get("table") is not None)
+        idx = (args["keys"] if name == K2 else args["senders"]).reshape(
+            -1)[:e_used][live].long()
+        x_rows = int(torch.unique(idx).numel())
+        x_bytes = x_rows * d * x.element_size()
+        nbytes += x_bytes + (0 if table is None
+                             else table.numel() * table.element_size())
+        per_edge += 4 + (0 if xe is None else 4)
+        if name == K2:
+            flops += e_used * d * ((2 if relu else 1) + (table is not None))
+        else:
+            per_edge += d * args["m"].element_size()
+            flops += 3 * e_used * d
+    nbytes += e_used * per_edge
     b_ms, b_by = bound_ms(nbytes, flops)
     out = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-    # yardstick: one PyTorch call summing the same message rows
-    rows_out = ((torch.searchsorted(bp, torch.arange(
-        e_used, device=dev, dtype=torch.int32), right=True).long() - 1)
-        * 128 + lrow.reshape(-1)[:e_used].long())[live]
-    if name == K1:
-        msg = args["m"][:e_used][live].float()
-        msg = torch.relu(msg) if kw["relu"] else msg
-        out["library_ms"] = cuda_ms(lambda: torch.zeros(
-            n_pad, d, device=dev).index_add_(0, rows_out, msg), 20)
-        lib = "index_add_"
-    else:
-        # the sums are A @ f(x) for the tail's count matrix A (f = relu(x +
-        # t0) rounded to bf16, or x itself): one sparse product
-        f = args["x"].float()
-        if args.get("table") is not None:
-            f = f + args["table"].float()
-        if kw["relu"]:
-            f = torch.relu(f)
-        f = f.to(torch.bfloat16).float()
+    # yardstick: one PyTorch call computing the same sums
+    if name == K2 and xe is None:
+        # A @ f(x) for the tail's count matrix A (f = relu(x + t0) rounded
+        # to bf16, or x itself): one sparse product in the out dtype
+        f = x.float() + (0.0 if table is None else table.float())
+        f = (torch.relu(f) if relu else f).to(torch.bfloat16).to(out_dtype)
         a = torch.sparse_coo_tensor(
-            torch.stack([rows_out, keys.long()]),
-            torch.ones(rows_out.numel(), device=dev),
+            torch.stack([rows_out, idx]),
+            torch.ones(rows_out.numel(), device=dev, dtype=out_dtype),
             (n_pad, n_pad), check_invariants=False).coalesce().to_sparse_csr()
         out["library_ms"] = cuda_ms(lambda: torch.sparse.mm(a, f), 20)
-        lib = "torch.sparse.mm (CSR f32)"
-        src, keys2d, plan = args["x"], args["keys"], extra["plan"]
+        lib = f"torch.sparse.mm (CSR {str(out_dtype)[6:]})"
+        del a, f
+    else:
+        if name == K1:
+            msg = args["m"][:e_used][live].float()
+            msg = torch.relu(msg) if relu else msg
+            lib = "index_add_ of the f32 messages"
+        else:
+            pre = x.index_select(0, idx).float()
+            if table is not None:
+                pre = pre + (table.float() if xe is None else
+                             table.index_select(0, xe.reshape(-1)[:e_used][
+                                 live].long()).float())
+            if name == K2:
+                msg = (torch.relu(pre) if relu else pre).to(
+                    torch.bfloat16).float()
+                lib = "index_add_ of the pre-built f32 messages"
+            else:
+                msg = torch.where(pre > 0, args["m"][:e_used][live].float(),
+                                  0.0)
+                lib = "index_add_ of the pre-masked f32 gradients"
+            del pre
+        out["library_ms"] = cuda_ms(lambda: torch.zeros(
+            n_pad, d, device=dev).index_add_(0, rows_out, msg), 20)
+        del msg
+    if name == K2:
+        plan, keys = extra["plan"], args["keys"].reshape(-1)
+        valid = (lrow.reshape(-1) < sc.NODE_BLOCK)[:, None]
 
         def replaced():
-            m = src.index_select(0, keys2d.reshape(-1).clamp(
-                max=n_pad - 1).long())
-            if args.get("table") is not None:
-                m = m + args["table"]
-            m = torch.where((lrow.reshape(-1) < 128)[:, None], m,
-                            torch.zeros((), dtype=m.dtype, device=dev))
+            m = x.index_select(0, keys.clamp(max=n_pad - 1).long())
+            if table is not None:
+                m = m + (table if xe is None
+                         else table.index_select(0, xe.reshape(-1).long()))
+            m = torch.where(valid, m, torch.zeros((), dtype=m.dtype,
+                                                  device=dev))
             return sc.scatter_rows_sorted(m, lrow, bp, plan=plan, **kw)
         out["replaced_ms"] = cuda_ms(replaced, 20)
-        # the same bound with x read once per edge (the row walk)
         out["row_walk_bound_ms"] = bound_ms(
-            epi + e_used * (8 + 2 * d), flops)[0]
-    extra = "".join(f", {k} {v:.3f} ms" for k, v in out.items()
+            nbytes - x_bytes + e_used * d * x.element_size(), flops)[0]
+    shown = "".join(f", {k} {v:.3f} ms" for k, v in out.items()
                     if k.endswith("_ms") and k not in ("plain_ms",
                                                        "bound_ms"))
-    print(f"  {name} {direction} tail at E={e_used} D={d} N_pad={n_pad}: "
-          f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms "
-          f"({b_by}, {nbytes / 1e9:.3f} GB at 3.35 TB/s){extra} "
-          f"(library = {lib})", flush=True)
+    print(f"  {name} {direction} at E={e_used} D={d} N_pad={n_pad}, "
+          f"{str(out_dtype)[6:]} out: kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
+          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s){shown} (library = {lib})",
+          flush=True)
     return out
 
 

@@ -27,6 +27,8 @@ class EncoderConfig:
     num_experts: int = 3
     tau: float = 1.0
     moe_layers: str = "none"          # none | all | last
+    # "bfloat16" runs the activations, messages and matmuls in bf16 (the
+    # parameters, BatchNorm statistics and losses stay f32); sage only
     compute_dtype: str = "float32"    # float32 | bfloat16
     # Message precision of the fused aggregation path (layout-attached
     # graphs): bf16 messages halve gather/scatter traffic and enable the
@@ -67,6 +69,9 @@ class VQConfig:
     orthogonal_reg_max_codes: Optional[int] = 32
     orthogonal_reg_active_codes_only: bool = False
     use_cosine_sim: bool = True
+    # "bfloat16" runs the cosine per-head pipeline (l2norm, the code
+    # gather, the straight-through) in bf16; distance scores are summed in
+    # f32 and the commitment reduction stays f32
     compute_dtype: str = "float32"
     kmeans_init: bool = False
     kmeans_iters: int = 10
@@ -102,9 +107,10 @@ class VQConfig:
 @dataclass(frozen=True)
 class PretrainConfig:
     """config/pretrain.yaml equivalents (JAX ``PretrainConfig``, the same
-    fields and defaults).  The port computes in f32: ``teacher_bf16``,
-    ``loss_bf16`` and a bfloat16 ``compute_dtype`` of the encoder or the VQ
-    raise."""
+    fields and defaults).  Mixed precision: ``teacher_bf16`` runs the EMA
+    teacher's pass with a bf16 ``compute_dtype``; ``loss_bf16`` feeds the
+    four decoders a bf16 copy of the quantized codes (targets and
+    reductions stay f32)."""
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     vq: VQConfig = field(default_factory=VQConfig)
     pretrain_dataset: str = "all"
@@ -129,13 +135,6 @@ class PretrainConfig:
     teacher_bf16: bool = False
     loss_bf16: bool = False
     save_every: int = 1
-
-    def __post_init__(self):
-        if self.teacher_bf16 or self.loss_bf16:
-            raise NotImplementedError("teacher_bf16 / loss_bf16 are not "
-                                      "ported: the port computes in f32")
-        if "bfloat16" in (self.encoder.compute_dtype, self.vq.compute_dtype):
-            raise NotImplementedError("bf16 compute_dtype is not ported")
 
 
 @dataclass(frozen=True)
@@ -170,6 +169,8 @@ class FinetuneConfig:
     # Scatter-side hub blocks (HubDense.sc_*); 0 disables.
     sc_hub_size: int = 2048
     eval_every: int = 1
+    # the graph task's evaluation forward with a bf16 encoder (training
+    # stays in the encoder's compute_dtype)
     eval_bf16: bool = False
     eval_batch_size: int = 0
     eval_train_auc: bool = True

@@ -13,7 +13,11 @@ minibatches (``--batch_size``), or a graph task on molecules
 multitask binary labels, mean pooling, the per-task AUC; ``--eval_every``,
 ``--eval_batch_size``, ``--eval_train_auc``), and prints each epoch's loss
 and train/val/test metric and the final mean and std over the splits.
-``--use_params`` applies the dataset's preset of ``configs/finetune.yaml``
+``--bf16`` trains with a bf16 encoder (the VQ keeps its f32 config and
+takes the bf16 ``z``, so its projections run in bf16; JAX finetune.py:231);
+``--eval_bf16 1`` runs the graph task's evaluation forward with a bf16
+encoder.  ``--use_params`` applies the dataset's preset of
+``configs/finetune.yaml``
 under the explicit flags, as the JAX CLI does: WN18RR trains full batch,
 FB15K237 on batches of 1,024 edges, ``mol_synthetic`` on batches of 64
 molecules.  ``--save_model`` writes the best task model for ``python -m
@@ -23,8 +27,8 @@ layer by layer over edge blocks.
 Runs on CUDA (hub-dense matmuls + the aggregation kernels, forward and
 backward) unless ``--device cpu`` is given; without CUDA and without
 ``--device cpu`` it exits with an error.  Every flag of the JAX CLI is
-accepted; values outside the port (MoE, bf16, multi-GPU, buffer
-donation, node relabelling, neural text encoders) are refused with an
+accepted; values outside the port (MoE, multi-GPU, buffer donation,
+node relabelling, neural text encoders) are refused with an
 error naming their ROADMAP item.  Without a checkpoint the codebook is
 k-means-initialized before training.
 
@@ -179,10 +183,6 @@ def refusals(args) -> list:
                    "item 5)"),
         (args.backbone != "sage", f"--backbone {args.backbone}: only sage "
                                   f"is ported (ROADMAP Queue 1 item 5)"),
-        (args.bf16, "--bf16: bf16 compute is not ported (ROADMAP Queue 1 "
-                    "item 4)"),
-        (args.eval_bf16, "--eval_bf16 1: the bf16 evaluation forward is not "
-                         "ported (ROADMAP Queue 1 item 4)"),
         (args.donate, "--donate: buffer donation is a JAX mechanism with no "
                       "PyTorch counterpart (ROADMAP, differences kept on "
                       "purpose)"),
@@ -245,7 +245,8 @@ def make_config(args, num_classes: int) -> FinetuneConfig:
             normalize=args.normalize, dropout=args.dropout,
             activation=args.activation, moe=args.moe,
             num_experts=args.moe_experts, tau=args.moe_tau,
-            moe_layers=args.moe_layers),
+            moe_layers=args.moe_layers,
+            compute_dtype="bfloat16" if args.bf16 else "float32"),
         vq=VQConfig(
             dim=args.hidden_dim, codebook_size=args.codebook_size,
             codebook_dim=args.code_dim, heads=args.codebook_head,

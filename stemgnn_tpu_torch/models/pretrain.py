@@ -21,6 +21,12 @@ pt_model.py:104-106); it runs in training mode, so its BatchNorm normalizes
 with batch statistics and its running statistics update, as the
 reference's teacher does.
 
+Mixed precision (JAX models/pretrain.py:146-208): a bf16 encoder hands its
+bf16 ``z`` to the VQ; ``loss_bf16`` gives the four decoders a bf16 copy of
+the quantized codes, while targets, sigmoids' logs and reductions stay
+f32; ``teacher_bf16`` runs the teacher's pass at a bf16 compute dtype on
+its f32 parameters.
+
 The topo-sem target: JAX reads ``orig_g.edge_feat`` and scores 0 on a
 layout graph, which carries no materialized edge features.  The port reads
 the same values from the graph's edge-type table by each edge's type
@@ -40,6 +46,7 @@ from stemgnn_tpu_torch.core.config import PretrainConfig
 from stemgnn_tpu_torch.nn.decoders import InnerProductDecoder
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.layers import Linear
+from stemgnn_tpu_torch.ops.spmm import gather_rows
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
 
 EPS = 1e-15
@@ -156,9 +163,11 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
                       ortho_ids=draws.get("ortho_ids"), generator=generator)
     query = vq_res["quantize"]
     seed_mask = orig_g.node_mask[:bs].float()
+    # loss_bf16: the decoders read a bf16 copy of the query
+    query_l = query.to(torch.bfloat16) if cfg.loss_bf16 else query
 
     # feat recon (pt_model.py:42-43): MSE over the first bs seed nodes
-    recon = model.feat_dec(query[:bs]).float()
+    recon = model.feat_dec(query_l[:bs]).float()
     se = (recon - orig_g.node_feat[:bs].float()) ** 2
     denom = torch.clamp(seed_mask.sum() * se.shape[-1], min=1.0)
     feat = (se * seed_mask[:, None]).sum() / denom
@@ -170,16 +179,17 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
         w = orig_g.edge_mask[slots].float()
         w_sum = torch.clamp(w.sum(), min=1.0)
         pos_s, pos_r = orig_g.senders[slots], orig_g.receivers[slots]
-        pos_p = model.topo_dec(query, pos_s, pos_r).float()
+        pos_p = model.topo_dec(query_l, pos_s, pos_r).float()
         neg_s, neg_r = draws["neg"]
-        neg_p = model.topo_dec(query, neg_s, neg_r).float()
+        neg_p = model.topo_dec(query_l, neg_s, neg_r).float()
         pos_loss = -(w * torch.log(pos_p + EPS)).sum() / w_sum
         neg_loss = -torch.log(1.0 - neg_p + EPS).mean()
         topo = pos_loss + neg_loss
         # topo-sem recon (pt_model.py:68-83): edge-feature MSE
         target = _edge_targets(orig_g, slots)
         if target is not None:
-            zz = torch.cat([query[pos_s], query[pos_r]], dim=-1)
+            zz = torch.cat([gather_rows(query_l, pos_s),
+                            gather_rows(query_l, pos_r)], dim=-1)
             pred = model.topo_sem_dec(zz).float()
             se_e = ((pred - target) ** 2).mean(-1)
             topo_sem = (w * se_e).sum() / w_sum
@@ -191,8 +201,10 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
                      edge_feat=orig_g.edge_feat, edge_mask=orig_g.edge_mask,
                      node_mask=orig_g.node_mask, layout=orig_g.layout,
                      edge_table=orig_g.edge_table, plain=plain,
-                     generator=generator).float()
-    hproj = model.sem_projector(query).float()
+                     generator=generator,
+                     compute_dtype=("bfloat16" if cfg.teacher_bf16
+                                    else None)).float()
+    hproj = model.sem_projector(query_l).float()
     cos = 1.0 - (_l2n(tz[:bs]) * _l2n(hproj[:bs])).sum(-1)
     sem = (cos * seed_mask).sum() / torch.clamp(seed_mask.sum(), min=1.0)
 

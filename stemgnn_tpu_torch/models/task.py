@@ -53,14 +53,16 @@ def task_model_init(cfg: FinetuneConfig, encoder: Encoder = None,
     return TaskModel(encoder, vq, dec)
 
 
-def encode(model: TaskModel, g, *, generator=None, plain: bool = False):
+def encode(model: TaskModel, g, *, generator=None, plain: bool = False,
+           compute_dtype=None):
     """Encoder forward on a padded graph (train or eval by the module's
-    mode); the graph's layout and edge table are used when present."""
+    mode); the graph's layout and edge table are used when present.
+    ``compute_dtype`` overrides the encoder config's for this pass."""
     return model.encoder(g.node_feat, g.senders, g.receivers,
                          edge_feat=g.edge_feat, edge_mask=g.edge_mask,
                          node_mask=g.node_mask, layout=g.layout,
                          edge_table=g.edge_table, plain=plain,
-                         generator=generator)
+                         generator=generator, compute_dtype=compute_dtype)
 
 
 def maybe_kmeans_init_vq(model: TaskModel, cfg: FinetuneConfig, g, *,

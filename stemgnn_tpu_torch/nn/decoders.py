@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from stemgnn_tpu_torch.nn.layers import Linear
+from stemgnn_tpu_torch.ops.spmm import gather_rows
 
 
 class InnerProductDecoder(nn.Module):
@@ -27,6 +28,8 @@ class InnerProductDecoder(nn.Module):
 
 def edge_inner_product(z, senders, receivers):
     """Per-pair ``sigmoid(z[u] . z[v])`` (JAX ``ops/sddmm.
-    edge_inner_product`` with its defaults)."""
-    return torch.sigmoid((z.index_select(0, senders)
-                          * z.index_select(0, receivers)).sum(-1))
+    edge_inner_product`` with its defaults), in ``z``'s dtype (a bf16
+    ``z`` under ``loss_bf16``: the products rounded to bf16, summed in
+    f32)."""
+    return torch.sigmoid((gather_rows(z, senders)
+                          * gather_rows(z, receivers)).sum(-1))

@@ -32,12 +32,40 @@ from stemgnn_tpu_torch.ops.fused_sage import fused_sage_aggregate
 from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep
 
 
+class _GatherRows(torch.autograd.Function):
+    """``x[idx]`` for bf16 ``x``, whose backward sums each row's gradients
+    in f32 and rounds once (``index_select``'s own backward adds in bf16:
+    on CUDA through atomics in no fixed order)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        dx = torch.zeros((ctx.rows,) + tuple(g.shape[1:]),
+                         dtype=torch.float32, device=g.device)
+        return dx.index_add_(0, idx, g.float()).to(g.dtype), None
+
+
+def gather_rows(x, idx):
+    """``x.index_select(0, idx)``; differentiable, and for bf16 ``x`` with
+    the f32-summed backward of :class:`_GatherRows`."""
+    if x.dtype == torch.bfloat16:
+        return _GatherRows.apply(x, idx)
+    return x.index_select(0, idx)
+
+
 def gather_scatter_aggregate(x, senders, receivers, edge_feat=None,
                              edge_mask=None, num_nodes: Optional[int] = None,
                              reduce: str = "mean", relu: bool = True):
-    """Gather + segment-reduce over a padded COO edge list."""
+    """Gather + segment-reduce over a padded COO edge list; bf16 ``x``
+    gives bf16 messages, summed in f32 and rounded once."""
     num_nodes = num_nodes or x.shape[0]
-    m = x.index_select(0, senders)
+    m = gather_rows(x, senders)
     if edge_feat is not None:
         m = m + edge_feat
     if relu:

@@ -15,9 +15,13 @@ Runs on CUDA unless ``--device cpu`` is given; without CUDA and without
 ``--device cpu`` it exits with an error.  The config's
 ``fused_minibatch="auto"`` resolves to the gather + ``index_add_``
 aggregation, as in JAX (``run_pretrain`` takes ``"on"`` for per-batch
-layouts through the CUDA kernels).  Flag values outside the port (bf16,
-MoE, other backbones, data parallelism, halo sharding, buffer donation,
-neural text encoders) are refused with an error naming the ROADMAP item.
+layouts through the CUDA kernels).  ``--bf16`` computes the encoder in
+bf16; ``--mixed_precision`` (``--mp``) also the VQ's per-head pipeline, the
+EMA teacher's pass and the loss decoders (JAX pretrain.py:154-173), and the
+resident feature tables are bf16 under either.  Flag values outside the
+port (MoE, other backbones, data parallelism, halo sharding, buffer
+donation, neural text encoders) are refused with an error naming the
+ROADMAP item.
 
   python -m stemgnn_tpu_torch.pretrain --pretrain_dataset arxiv_synthetic_pl
   python -m stemgnn_tpu_torch.pretrain --pretrain_dataset arxiv_synthetic_pl \\
@@ -119,9 +123,6 @@ def refusals(args) -> list:
     """What the port does not cover among the given flag values, each with
     its ROADMAP item."""
     checks = (
-        (args.bf16 or args.mixed_precision,
-         "--bf16 / --mixed_precision: bf16 compute is not ported (ROADMAP "
-         "Queue 1 item 4)"),
         (args.moe, "--moe: MoE-SAGE layers are not ported (ROADMAP Queue 1 "
                    "item 5)"),
         (args.backbone != "sage", f"--backbone {args.backbone}: only sage "
@@ -167,13 +168,17 @@ def make_config(args) -> cfglib.PretrainConfig:
             normalize=args.normalize, dropout=args.dropout,
             activation=args.activation, moe=args.moe,
             num_experts=args.moe_experts, tau=args.moe_tau,
-            moe_layers=args.moe_layers),
+            moe_layers=args.moe_layers,
+            compute_dtype="bfloat16" if (args.bf16 or args.mixed_precision)
+            else "float32"),
         vq=cfglib.VQConfig(
             dim=args.hidden_dim, codebook_size=args.codebook_size,
             codebook_dim=args.code_dim, heads=args.codebook_head,
             decay=args.codebook_decay, commitment_weight=args.commit_weight,
             orthogonal_reg_weight=args.ortho_reg_weight,
-            orthogonal_reg_max_codes=args.ortho_reg_max_codes),
+            orthogonal_reg_max_codes=args.ortho_reg_max_codes,
+            compute_dtype="bfloat16" if args.mixed_precision
+            else "float32"),
         epochs=args.pretrain_epochs, lr=args.pretrain_lr,
         weight_decay=args.pretrain_weight_decay,
         batch_size=args.pretrain_batch_size, fanout=args.fanout,
@@ -183,6 +188,7 @@ def make_config(args) -> cfglib.PretrainConfig:
         topo_sem_lambda=args.topo_sem_lambda, sem_lambda=args.sem_lambda,
         sem_encoder_decay=args.sem_encoder_decay,
         lamda_env=args.lamda_env, use_scheduler=bool(args.use_schedular),
+        teacher_bf16=args.mixed_precision, loss_bf16=args.mixed_precision,
         save_every=args.save_every, seed=args.seed)
 
 

@@ -25,6 +25,12 @@ decoders) and its EMA teacher, and runs ``train.pretrain_loop``'s step at
     the JAX package uses (the whole (node, hub) grid hashed);
   * peak device memory of a step and the card's name and power limit.
 
+    python -m stemgnn_tpu_torch.profile_pretrain --mixed_precision
+
+does the same for the step under ``pretrain.py --mixed_precision`` (bf16
+encoder and VQ pipeline, bf16 teacher pass and loss decoders: kernels 1
+and 2 with bf16 outputs).
+
     python -m stemgnn_tpu_torch.profile_pretrain --minibatch
 
 runs ``run_pretrain`` itself instead (batches of 1,024 seeds, fanout 10,
@@ -75,7 +81,7 @@ from stemgnn_tpu_torch.train.pretrain_loop import (augmented, batch_graph,
                                                    make_pretrain_optimizer,
                                                    make_pretrain_step,
                                                    pretrain_graph,
-                                                   run_pretrain)
+                                                   run_pretrain, table_dtype)
 
 STAGES = ("forward+losses", "backward", "AdamW+clip+EMA")
 # the minibatch mode: the reference's batches (configs/pretrain.yaml)
@@ -90,13 +96,21 @@ GROUPS = (("kernel 1", ("scatter_rows_kernel",)),
           ("other (elementwise, reductions, copies)", ("",)))
 
 
-def pretrain_config(d: int) -> PretrainConfig:
-    """The step probe's configuration at width ``d``."""
+def pretrain_config(d: int, mixed_precision: bool = False) -> PretrainConfig:
+    """The step probe's configuration at width ``d``; with
+    ``mixed_precision`` what ``pretrain.py --mixed_precision`` sets (the
+    encoder and the VQ's per-head pipeline in bf16, ``teacher_bf16``,
+    ``loss_bf16``), as the probe's mp variants do
+    (scripts/pretrain_step_probe.py:183-229)."""
+    dt = "bfloat16" if mixed_precision else "float32"
     return PretrainConfig(
         encoder=EncoderConfig(input_dim=d, hidden_dim=d, num_layers=2,
-                              normalize="batch", dropout=0.15),
-        vq=VQConfig(dim=d, codebook_size=128, codebook_dim=d, heads=4),
-        batch_size=0)
+                              normalize="batch", dropout=0.15,
+                              compute_dtype=dt),
+        vq=VQConfig(dim=d, codebook_size=128, codebook_dim=d, heads=4,
+                    compute_dtype=dt),
+        batch_size=0, teacher_bf16=mixed_precision,
+        loss_bf16=mixed_precision)
 
 
 def dropout_tail_cases(graph, view, src, t0):
@@ -212,7 +226,8 @@ def minibatch_main(args, dev):
     print(f"host: dataset {time.perf_counter() - t0:.2f} s; "
           f"{ds.num_nodes} nodes, {ds.num_edges} edges", flush=True)
     for route in ("auto", "on"):
-        cfg = dataclasses.replace(pretrain_config(args.feat_dim),
+        cfg = dataclasses.replace(pretrain_config(args.feat_dim,
+                                                  args.mixed_precision),
                                   batch_size=MB_BATCH, fanout=MB_FANOUT,
                                   fused_minibatch=route, seed=args.seed)
 
@@ -251,9 +266,9 @@ def minibatch_main(args, dev):
             [cfg.fanout] * cfg.encoder.num_layers, rng, drop_last=True)
         ig = next(iter(it))[0]
         node_table = torch.from_numpy(
-            merged["node_text_feat"]).float().to(dev)
+            merged["node_text_feat"]).float().to(dev).to(table_dtype(cfg))
         edge_table = torch.from_numpy(
-            merged["edge_text_feat"]).float().to(dev)
+            merged["edge_text_feat"]).float().to(dev).to(table_dtype(cfg))
         g = batch_graph(ig, node_table, edge_table, dev, route == "on")
         opt = make_pretrain_optimizer(model, cfg)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -298,6 +313,8 @@ def main(argv=None):
     p.add_argument("--top", type=int, default=20)
     p.add_argument("--minibatch", action="store_true",
                    help="profile run_pretrain's minibatch loop instead")
+    p.add_argument("--mixed_precision", "--mp", action="store_true",
+                   help="the step under pretrain.py --mixed_precision")
     p.add_argument("--steps", type=int, default=20,
                    help="--minibatch: the steps of the timed epoch")
     args = p.parse_args(argv)
@@ -310,7 +327,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     ds = load_dataset(args.dataset, feat_dim=args.feat_dim, seed=args.seed)
     t_data = time.perf_counter() - t0
-    cfg = pretrain_config(args.feat_dim)
+    cfg = pretrain_config(args.feat_dim, args.mixed_precision)
+    print(f"step: {'mixed precision (bf16 encoder, VQ pipeline, teacher '
+                   'and loss decoders)' if args.mixed_precision else 'f32'}",
+          flush=True)
     t0 = time.perf_counter()
     g = pretrain_graph(ds, cfg, device=dev)
     torch.cuda.synchronize()

@@ -73,6 +73,7 @@ from stemgnn_tpu_torch.models.task import (activation_loss,
                                            decoder_jacobian_penalty, encode,
                                            maybe_kmeans_init_vq, pool_graph,
                                            task_logits, task_model_init)
+from stemgnn_tpu_torch.ops.spmm import gather_rows
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph,
                                                  maybe_reorder_dataset)
@@ -148,8 +149,8 @@ def _make_node_steps(cfg: FinetuneConfig, task_kind: str = "node"):
         graph's edges."""
         z = encode(model, graph, generator=generator, plain=plain)
         if task_kind == "link":
-            return (z[graph.senders] + z[graph.receivers]) / 2.0, \
-                graph.edge_mask
+            return (gather_rows(z, graph.senders)
+                    + gather_rows(z, graph.receivers)) / 2.0, graph.edge_mask
         return z, graph.node_mask
 
     def loss_fn(model, train_mask, graph, y, generator=None, plain=False):
@@ -186,7 +187,7 @@ def _make_minibatch_train_step(cfg: FinetuneConfig, task_kind: str):
         model.train()
         z = encode(model, g, generator=generator)
         rows = (z[:y_batch.shape[0]] if task_kind == "node"
-                else (z[li] + z[ri]) / 2.0)
+                else (gather_rows(z, li) + gather_rows(z, ri)) / 2.0)
         return _loss_parts(model, cfg, rows, y_batch, mask, mask)
 
     def step(model, opt, g, y_batch, mask, li=None, ri=None, generator=None):
@@ -442,14 +443,19 @@ def _graph_feeder(graphs, device):
                                                *tables)
 
 
-def _make_graph_steps(cfg: FinetuneConfig, batch_size: int, eval_bs: int):
+def _make_graph_steps(cfg: FinetuneConfig, batch_size: int, eval_bs: int,
+                      eval_bf16: bool = False):
     """``(loss_fn, train_step, predict)`` of the graph task: the encoder,
     the mean pool over each batch's ``batch_size`` graph slots, the decoder
     and the multitask BCE over the ``valid`` labels of the ``gmask`` rows
     (JAX ``_run_graph_task``'s ``_train_impl``); ``predict`` gives the
-    head-mean logits [eval_bs, T] of an evaluation batch in eval mode.
-    ``plain`` runs the aggregation kernels' plain versions (a molecule batch
-    carries no layout, so both routes are the gather + ``index_add_``)."""
+    head-mean logits [eval_bs, T] of an evaluation batch in eval mode, with
+    a bf16 encoder under ``eval_bf16`` (JAX's ``eval_cfg``,
+    finetune_loop.py:1017-1026: the same parameters at another compute
+    dtype).  ``plain`` runs the aggregation kernels' plain versions (a
+    molecule batch carries no layout, so both routes are the gather +
+    ``index_add_``)."""
+    eval_dtype = "bfloat16" if eval_bf16 else None
 
     def loss_fn(model, g, y, valid, gmask, generator=None, plain=False):
         model.train()
@@ -466,7 +472,7 @@ def _make_graph_steps(cfg: FinetuneConfig, batch_size: int, eval_bs: int):
     def predict(model, g, plain=False):
         model.eval()
         with torch.no_grad():
-            z = encode(model, g, plain=plain)
+            z = encode(model, g, plain=plain, compute_dtype=eval_dtype)
             pooled = pool_graph(z, g, "mean", num_segments=eval_bs)
             logits, _ = task_logits(model, cfg, pooled)
             return logits.mean(1).float()
@@ -550,15 +556,12 @@ def _run_graph_task(graphs, labels, split, cfg: FinetuneConfig,
     otherwise the batches are cached on the host (50,000 graphs or fewer)
     or rebuilt each evaluation, and the AUC is computed on the host.  The
     logged loss of an epoch is its last batch's, as in JAX."""
-    if cfg.eval_bf16:
-        raise NotImplementedError("eval_bf16: the bf16 evaluation forward "
-                                  "is not ported (ROADMAP Queue 1 item 4)")
     device = resolve_device(device)
     labels = np.asarray(labels, np.float64)
     batch_size = cfg.batch_size or 64
     eval_bs = cfg.eval_batch_size or batch_size
     tables, to_device = _graph_feeder(graphs, device)
-    steps = _make_graph_steps(cfg, batch_size, eval_bs)
+    steps = _make_graph_steps(cfg, batch_size, eval_bs, cfg.eval_bf16)
     _, train_step, predict = steps
     masks = {k: np.asarray(split[k]).astype(bool)
              for k in ("train", "valid", "test")}

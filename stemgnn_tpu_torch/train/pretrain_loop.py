@@ -170,15 +170,24 @@ def batch_graph(ig, node_table, edge_table, device, with_layout: bool,
     return graph
 
 
-def _tables(merged, device):
-    """The node table and the edge-type table (or None), f32 on
-    ``device``."""
-    node_table = torch.from_numpy(np.asarray(merged["node_text_feat"],
-                                             np.float32)).to(device)
+def _tables(merged, device, dtype=torch.float32):
+    """The node table and the edge-type table (or None) on ``device``, in
+    ``dtype`` (rounded from f32)."""
+    node_table = torch.from_numpy(np.asarray(
+        merged["node_text_feat"], np.float32)).to(device).to(dtype)
     etf = merged.get("edge_text_feat")
     edge_table = None if etf is None else torch.from_numpy(
-        np.asarray(etf, np.float32)).to(device)
+        np.asarray(etf, np.float32)).to(device).to(dtype)
     return node_table, edge_table
+
+
+def table_dtype(cfg: PretrainConfig):
+    """The resident feature tables' dtype: bf16 under a bf16 encoder (JAX
+    pretrain_loop.py:237-244: it halves the batches' feature gathers and
+    the encoder computes in bf16 anyway), so the feature-reconstruction
+    target and the k-means init read the bf16-rounded features."""
+    return (torch.bfloat16 if cfg.encoder.compute_dtype == "bfloat16"
+            else torch.float32)
 
 
 def _batches(merged, cfg: PretrainConfig, csc, seeds, batch_size, rng,
@@ -288,7 +297,7 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
             if verbose:
                 print(f"[pretrain] resumed from epoch {saved_epoch}",
                       flush=True)
-    node_table, edge_table = _tables(merged, device)
+    node_table, edge_table = _tables(merged, device, table_dtype(cfg))
     maybe_kmeans_seed_vq(model, cfg, merged, weights, node_table, edge_table,
                          csc=csc, generator=torch.Generator(
                              device=device).manual_seed(cfg.seed))

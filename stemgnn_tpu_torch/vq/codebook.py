@@ -18,7 +18,15 @@ def l2norm(t, eps: float = 1e-12):
 
 
 def cosine_distances(xh, embed):
-    """dist[h, n, c] = <xh[h,n], embed[h,c]> (vq.py:650), f32."""
+    """dist[h, n, c] = <xh[h,n], embed[h,c]> (vq.py:650), f32 scores summed
+    in f32 (JAX's ``preferred_element_type=float32``): for bf16 operands on
+    CUDA one bf16 product with f32 output (tensor cores; the scores feed
+    the argmax only and carry no gradient); elsewhere the operands widened
+    to f32, which is exact.  A bf16 product with bf16 output would round
+    the scores and move the argmax at near-ties."""
+    if xh.is_cuda and xh.dtype == embed.dtype == torch.bfloat16:
+        return torch.bmm(xh.detach(), embed.detach().transpose(1, 2),
+                         out_dtype=torch.float32)
     return torch.einsum("hnd,hcd->hnc", xh.float(), embed.float())
 
 

@@ -4,8 +4,17 @@ codebook (finetune) and training with a learnable codebook (pretrain).
 
 project_in -> per-head split -> l2norm (cosine) -> affine codebook map
 (when ``affine_param``, euclidean only) -> distances -> argmax -> codebook
-gather -> project_out, all in f32.  Shapes: z [N, dim]; per-head xh
-[H, N', d]; ``embed`` [num_codebooks, C, d]; indices [N, H].
+gather -> project_out.  Shapes: z [N, dim]; per-head xh [H, N', d];
+``embed`` [num_codebooks, C, d]; indices [N, H].
+
+Precision (JAX quantize.py:179-300): the projections run in z's dtype
+(bf16 under a bf16 encoder, whatever the VQ's ``compute_dtype``); the
+per-head pipeline (xh, the code gather, the straight-through) runs in the
+VQ's ``compute_dtype`` (bf16 only with the cosine codebook); the distance
+scores are f32 summed in f32, the commitment difference is taken in the
+pipeline dtype and squared and summed in f32, and ``quantize`` is f32.
+The codebook's gradient through the gathered rows is summed in f32 (JAX's
+one-hot product rounds it to bf16 once).
 
 Training: the codes pass straight through (``xh + (q - xh).detach()``) and
 ``loss`` carries the commitment term over the ``mask`` rows.  With
@@ -18,7 +27,7 @@ orthogonal_loss`, over a random subset of ``orthogonal_reg_max_codes``
 codes) through all of them.  A codebook built with ``kmeans_init`` starts
 at zero with ``initted`` False until :func:`vq_kmeans_init` seeds it.  The
 EMA update, dead-code expiry, the affine statistics' update, stochastic or
-gumbel code sampling and the bf16 pipeline are not ported and raise.
+gumbel code sampling are not ported and raise.
 """
 
 from __future__ import annotations
@@ -41,8 +50,6 @@ class VectorQuantize(nn.Module):
 
     def __init__(self, cfg: VQConfig, generator=None):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("bf16 VQ compute_dtype is not ported")
         if cfg.affine_param and cfg.use_cosine_sim:
             raise ValueError("affine_param is euclidean-only, as in the "
                              "reference (vq.py:361, EuclideanCodebook)")
@@ -104,8 +111,10 @@ class VectorQuantize(nn.Module):
             raise NotImplementedError(
                 "VQ training with the EMA update, the affine statistics or "
                 "stochastic/gumbel code sampling is not ported")
+        dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+              and cfg.use_cosine_sim else torch.float32)
         xp = self.project_in(z) if cfg.requires_projection else z
-        xh = self._to_heads(xp).float()
+        xh = self._to_heads(xp).to(dt)
         if cfg.use_cosine_sim:
             xh = cb.l2norm(xh)
         embed = self.embed
@@ -114,13 +123,13 @@ class VectorQuantize(nn.Module):
         if cfg.affine_param:
             embed = cb.affine_transform_embed(
                 {k: getattr(self, k) for k in _AFFINE}, embed)
-        dist = (cb.cosine_distances(xh, embed) if cfg.use_cosine_sim
+        dist = (cb.cosine_distances(xh, embed.to(dt)) if cfg.use_cosine_sim
                 else cb.euclidean_distances(xh, embed))
         ind = dist.argmax(dim=-1)                        # [num_codebooks, N']
-        # batched embedding gather (vq.py:224-228,659); training's one-hot
-        # product picks the same rows exactly
+        # batched embedding gather (vq.py:224-228,659), rounded to the
+        # pipeline dtype; training's one-hot product picks the same rows
         quantize_h = torch.gather(
-            embed, 1, ind[:, :, None].expand(-1, -1, embed.shape[-1])).float()
+            embed, 1, ind[:, :, None].expand(-1, -1, embed.shape[-1])).to(dt)
         loss = torch.zeros((), device=z.device)
         if self.training:
             # the commitment term trains a learnable codebook too

@@ -561,16 +561,25 @@ def test_graph_presets_namespace_equals_jax(name, monkeypatch):
     assert got["normalize"] == "batch" and got["batch_size"] in (64, 1024)
 
 
-def test_cli_chemhiv_raises_and_eval_bf16_is_refused():
+def test_cli_chemhiv_raises_and_eval_bf16_is_refused(monkeypatch):
     with pytest.raises(FileNotFoundError) as want:
         jax_registry.load_dataset("chemhiv", feat_dim=8)
     with pytest.raises(FileNotFoundError) as got:
         port_cli.main(["--use_params", "--finetune_dataset", "chemhiv",
                        "--device", "cpu", "--debug"])
     assert str(got.value) == str(want.value)
-    with pytest.raises(SystemExit, match="item 4"):
+    # --eval_bf16 1 was refused (ROADMAP Queue 1 item 4); it is accepted
+    # now and reaches run_finetune as JAX's finetune.py:249 passes it
+    seen = {}
+
+    def stop(ds, cfg, *a, **k):
+        seen["cfg"] = cfg
+        raise _Parsed
+    monkeypatch.setattr(port_cli, "run_finetune", stop)
+    with pytest.raises(_Parsed):
         port_cli.main(["--finetune_dataset", "mol_synthetic", "--eval_bf16",
                        "1", "--device", "cpu", "--debug"])
+    assert seen["cfg"].eval_bf16 and seen["cfg"].task == "graph"
 
 
 def test_finetune_cli_graph_task_on_the_cpu():

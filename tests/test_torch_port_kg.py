@@ -182,20 +182,38 @@ def test_every_jax_option_is_accepted():
 @pytest.mark.parametrize("flags,needle", [
     (["--moe"], "item 5"),
     (["--backbone", "gat"], "item 5"),
-    (["--bf16"], "item 4"),
-    (["--eval_bf16", "1"], "item 4"),
     (["--donate"], "JAX mechanism"),
     (["--halo_shards", "2"], "item 10"),
     (["--halo_balance"], "item 10"),
     (["--halo_order", "rcm"], "item 10"),
     (["--reorder", "degree"], "item 3"),
     (["--text_encoder", "e5"], "item 11"),
-    (["--finetune_dataset", "mol_synthetic", "--eval_bf16", "1"], "item 4"),
 ])
 def test_finetune_cli_refuses_naming_the_roadmap_item(flags, needle):
     with pytest.raises(SystemExit) as info:
         port_cli.main(["--device", "cpu", "--debug", *flags])
     assert needle in str(info.value)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--bf16"], ["--eval_bf16", "1"],
+    ["--finetune_dataset", "mol_synthetic", "--eval_bf16", "1"]])
+def test_finetune_cli_accepts_the_bf16_flags(flags):
+    """Once refused naming ROADMAP Queue 1 item 4, now accepted: the
+    namespace equals the repo CLI's, and the config takes JAX's values
+    (finetune.py:231, 249: ``--bf16`` the encoder's compute dtype, the VQ
+    f32; ``--eval_bf16`` passed through)."""
+    args = port_cli.parse(["--debug", *flags])
+    assert not port_cli.refusals(args)
+    got = vars(args).copy()
+    assert got.pop("device") is None
+    assert got == vars(_load_jax_cli().get_args().parse_args(
+        ["--debug", *flags]))
+    cfg = port_cli.make_config(args, 4)
+    assert cfg.encoder.compute_dtype == ("bfloat16" if "--bf16" in flags
+                                         else "float32")
+    assert cfg.vq.compute_dtype == "float32"
+    assert cfg.eval_bf16 == ("--eval_bf16" in flags)
 
 
 def test_fb15k237_preset_trains_on_the_cpu(capsys):

@@ -13,6 +13,7 @@ must be equal bit for bit.
 """
 
 import copy
+import importlib.util
 import dataclasses
 import json
 import os
@@ -825,7 +826,6 @@ def test_pretrain_cli_runs_on_the_cpu():
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--bf16"], "item 4"), (["--mixed_precision"], "item 4"),
     (["--moe"], "item 5"), (["--backbone", "gcn"], "item 5"),
     (["--data_parallel"], "item 10"), (["--halo_shards", "2"], "item 10"),
     (["--donate"], "--donate"), (["--text_encoder", "e5"], "item 11"),
@@ -834,6 +834,29 @@ def test_pretrain_cli_refuses_what_the_port_does_not_cover(flags, needle):
     with pytest.raises(SystemExit) as info:
         port_cli.main(["--device", "cpu", *flags])
     assert needle in str(info.value)
+
+
+@pytest.mark.parametrize("flags", [["--bf16"], ["--mixed_precision"]])
+def test_pretrain_cli_accepts_the_mixed_precision_flags(flags):
+    """Once refused (ROADMAP Queue 1 item 4), now accepted: the namespace
+    equals the repo CLI's and the config takes JAX's compute dtypes and
+    flags (pretrain.py:154-173: ``--bf16`` the encoder,
+    ``--mixed_precision`` the encoder, the VQ, the teacher and the loss
+    decoders)."""
+    spec = importlib.util.spec_from_file_location(
+        "repo_pretrain", os.path.join(ROOT, "pretrain.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    args = port_cli.parse(flags)
+    assert not port_cli.refusals(args)
+    got = vars(args).copy()
+    assert got.pop("device") is None
+    assert got == vars(mod.get_args().parse_args(flags))
+    cfg = port_cli.make_config(args)
+    mp = flags == ["--mixed_precision"]
+    assert cfg.encoder.compute_dtype == "bfloat16"
+    assert cfg.vq.compute_dtype == ("bfloat16" if mp else "float32")
+    assert cfg.teacher_bf16 == cfg.loss_bf16 == mp
 
 
 def test_pretrain_cli_flags_mirror_the_repo_cli():

@@ -319,11 +319,19 @@ def test_clip_and_schedule_match_optax():
 
 
 def test_pretrain_config_refuses_bf16_compute():
+    """Mixed precision is ported (tests/test_torch_port_mixed.py): the
+    configs once refused are accepted and hold JAX's fields."""
     pcfg.PretrainConfig()
-    for kw in (dict(teacher_bf16=True), dict(loss_bf16=True),
-               dict(encoder=pcfg.EncoderConfig(compute_dtype="bfloat16"))):
-        with pytest.raises(NotImplementedError):
-            pcfg.PretrainConfig(**kw)
+    for kw, jkw in (
+            (dict(teacher_bf16=True), dict(teacher_bf16=True)),
+            (dict(loss_bf16=True), dict(loss_bf16=True)),
+            (dict(encoder=pcfg.EncoderConfig(compute_dtype="bfloat16")),
+             dict(encoder=jcfg.EncoderConfig(compute_dtype="bfloat16"))),
+            (dict(vq=pcfg.VQConfig(compute_dtype="bfloat16")),
+             dict(vq=jcfg.VQConfig(compute_dtype="bfloat16")))):
+        got = dataclasses.asdict(pcfg.PretrainConfig(**kw))
+        want = dataclasses.asdict(jcfg.PretrainConfig(**jkw))
+        assert got == {k: want[k] for k in got}
 
 
 # --------------------------------------------------------------------------

@@ -342,9 +342,7 @@ def test_finetune_train_step_matches_jax(route):
 @pytest.mark.parametrize("flags,needle", [
     (["--finetune_dataset", "mol_synthetic", "--text_encoder", "e5"],
      "--text_encoder e5"),
-    (["--bf16"], "--bf16"),
     (["--moe"], "--moe"),
-    (["--eval_bf16", "1"], "--eval_bf16 1"),
     (["--donate"], "--donate"),
     (["--halo_shards", "2"], "--halo_shards"),
     (["--halo_order", "rcm"], "--halo_order"),
@@ -364,11 +362,15 @@ def test_finetune_cli_refuses_what_the_slice_does_not_cover(flags, needle):
     ["--save_model", "{tmp}/model.npz"],
     ["--use_vq", "0"],
     ["--freeze_vq", "0"],
+    ["--bf16"],
+    ["--eval_bf16", "1"],
 ])
 def test_finetune_cli_runs_what_the_slice_now_covers(flags, tmp_path):
     """The flag values the CLI used to refuse run now: minibatches, the
-    layer-wise chunked evaluation, the task-model export, the no-VQ bypass
-    and a trained codebook, one epoch of cora_synthetic at width D."""
+    layer-wise chunked evaluation, the task-model export, the no-VQ bypass,
+    a trained codebook, the bf16 encoder and ``--eval_bf16 1`` (accepted
+    on a node task, where it changes nothing, as in JAX), one epoch of
+    cora_synthetic at width D."""
     flags = [f.format(tmp=tmp_path) for f in flags]
     res = port_cli.main(["--device", "cpu", "--debug", "--finetune_dataset",
                          "cora_synthetic", "--feat_dim", str(D),
@@ -382,6 +384,9 @@ def test_finetune_cli_runs_what_the_slice_now_covers(flags, tmp_path):
         assert res["history"][0]["batches"] == -(-140 // 32)
     assert (res["graph"] is None) == ("--batch_size" in flags
                                       and "--eval_chunked" in flags)
+    assert res["cfg"].encoder.compute_dtype == (
+        "bfloat16" if "--bf16" in flags else "float32")
+    assert res["cfg"].eval_bf16 == ("--eval_bf16" in flags)
 
 
 def test_finetune_cli_trains_on_the_cpu(tmp_path):

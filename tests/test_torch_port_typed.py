@@ -413,14 +413,17 @@ def test_finetune_cli_trains_kg_synthetic_on_the_cpu(tmp_path):
 
 
 def test_finetune_cli_still_refuses_graph_tasks():
-    """The graph tasks run (``tests/test_torch_port_graph.py``); what the
-    CLI still refuses on them is the bf16 evaluation (ROADMAP Queue 1 item
-    4), and a chem dataset that needs a download raises JAX's
+    """The graph tasks run (``tests/test_torch_port_graph.py``), now with
+    the bf16 evaluation too (``--eval_bf16 1``, once refused: its config
+    reaches ``run_finetune`` as JAX's does, tests/test_torch_port_mixed.py);
+    a chem dataset that needs a download raises JAX's
     ``FileNotFoundError``."""
-    with pytest.raises(SystemExit) as info:
-        port_cli.main(["--device", "cpu", "--finetune_dataset",
-                       "mol_synthetic", "--eval_bf16", "1"])
-    assert "--eval_bf16" in str(info.value) and "item 4" in str(info.value)
+    args = port_cli.parse(["--finetune_dataset", "mol_synthetic",
+                           "--eval_bf16", "1"])
+    assert not port_cli.refusals(args)
+    cfg = port_cli.make_config(args, 4)
+    assert cfg.eval_bf16 and cfg.task == "graph"
+    assert cfg.encoder.compute_dtype == "float32"
     with pytest.raises(FileNotFoundError, match="chempcba"):
         port_cli.main(["--device", "cpu", "--finetune_dataset", "chempcba",
                        "--use_params", "--debug"])
