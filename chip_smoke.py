@@ -11,7 +11,8 @@ typed-edge link finetune on ``kg_synthetic`` (11 relation types, at its
 default size and at WN18RR's 40,943 entities and 93,003 triples), the five
 robustness evaluations and the reference's link presets on the cached
 WN18RR and FB15K237, and holds every CUDA kernel of their paths against its
-plain PyTorch version; then the graph tasks on molecules.  Phases, each
+plain PyTorch version; then the graph tasks on molecules, mixed precision,
+and the MoE-SAGE layer and the gcn / gin / gat backbones.  Phases, each
 announced before it starts and timed when it ends:
 
   1. device  — the card's name and power limit (nvidia-smi);
@@ -94,9 +95,10 @@ announced before it starts and timed when it ends:
                edge-dropped and the missing-feature graphs, the best
                snapshot's ``z`` and one step's gradients against the plain
                versions; wall, host seconds of the buckets, perturbations
-               and layout builds (a missing-feature re-evaluation swaps
-               its features into the training graph's layout), step /
-               eval ms, peak memory;
+               and layout builds (the five share one build of the training
+               graph's layout, as they share the dataset; a
+               missing-feature re-evaluation swaps its features into it),
+               step / eval ms, peak memory;
  12. kg      — the reference's knowledge-graph link presets through
                ``finetune.main --use_params`` on the repository's cached
                WN18RR (40,943 entities, 93,003 triples, 11 relations; full
@@ -164,7 +166,28 @@ announced before it starts and timed when it ends:
                device AUC against the host AUC, 1e-6);
  15. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
                at the main paths' shapes (kernel 1 also on the pretrain
-               step's dropout tails), by CUDA events.
+               step's dropout tails), by CUDA events;
+ 16. backbones — the MoE-SAGE layer and the gcn / gin / gat backbones at
+               full width on ``arxiv_synthetic_pl``: (a) ``finetune.main
+               --moe --moe_layers last --lamda_env 0.1`` from an MoE
+               checkpoint written here, 3 epochs (layer 1, sage, through
+               kernel 2 once a step and once an evaluation; the MoE layer
+               by gathers and ``index_add_``), the ``[MoE]`` usage lines,
+               the scaled env term below 0, one step's gradients against
+               the plain versions; (b) the full-graph pretrain step with
+               the same flags on phase pretrain's graph, 3 steps (kernel 1
+               once a step on layer 1's dropout tail, kernel 2 once on the
+               teacher's), ``env_reg_loss`` below 0, one step's gradients
+               against the plain versions; (c) ``--backbone gcn``, ``gin``
+               and ``gat`` from scratch, 2 epochs each (no layout, no
+               kernel, as in JAX; gat with ``--eval_chunked 1``); (d) the
+               layer-wise evaluation of gat's and (a)'s models: ``z``
+               against the full f32 encode, probabilities against the full
+               evaluation's; (e)
+               ``degree_shift_ood --moe --lamda_env 0.1`` on the shared
+               ``arxiv_synthetic_fragile`` (kernel 2 once in the k-means
+               init, twice an epoch).  For each: launches, step and
+               evaluation ms by CUDA events, peak memory.
 
 Each dataset is generated or read once and shared by the phases that load
 it (the entry points change none of its arrays).  Prints the
@@ -201,6 +224,7 @@ from stemgnn_tpu_torch.data.merge import merge_datasets
 from stemgnn_tpu_torch.data.registry import load_dataset
 from stemgnn_tpu_torch.data.sampler import (CSCGraph, NeighborBatchIterator,
                                             get_train_node_idx)
+from stemgnn_tpu_torch.eval import runner as eval_runner
 from stemgnn_tpu_torch.eval.runner import snapshot_model
 from stemgnn_tpu_torch.finetune import main as finetune_main
 from stemgnn_tpu_torch import infer as infer_cli
@@ -217,6 +241,7 @@ from stemgnn_tpu_torch.ops.fused_sage import (DropView, hub_partials,
                                               inv_deg, table_row,
                                               tail_messages)
 from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep, pair_hash_uniform
+from stemgnn_tpu_torch.models.task import TaskModel
 from stemgnn_tpu_torch.models.task import encode as task_encode
 from stemgnn_tpu_torch.models.task import pool_graph
 from stemgnn_tpu_torch.profile_pretrain import (STAGES, dropout_tail_cases,
@@ -1212,8 +1237,10 @@ def ood_run(tmp, dev, paths):
                "degree_shift_ood": 0, "homophily_shift_ood": 0,
                "missing_feature": 1}
     results = {}
-    for name, mod in mods.items():
-        results[name] = ood_script(name, mod, reevals[name], tmp, paths)
+    ds = load_dataset(OOD_DATASET, feat_dim=FEAT_DIM, seed=SEED)
+    with shared_layout(ds):
+        for name, mod in mods.items():
+            results[name] = ood_script(name, mod, reevals[name], tmp, paths)
     ood_route_checks(results["random_edge_drop"], "edge-dropped", dev)
     # the missing-feature graph keeps the training graph's structure, so
     # its step makes the training path's kernel-2 launches
@@ -1222,6 +1249,31 @@ def ood_run(tmp, dev, paths):
     del results
     torch.cuda.empty_cache()
     return k2
+
+
+@contextlib.contextmanager
+def shared_layout(ds):
+    """The five evaluation scripts train on one graph, ``ds``: its full
+    graph and layout (``eval.runner``'s build, per configuration) are
+    built once and shared, as the dataset is (the scripts read them and
+    change nothing; a perturbed graph still gets its own)."""
+    real = eval_runner.fused_full_graph
+    built = {}
+
+    def build_once(d, cfg, **kw):
+        if d is not ds:
+            return real(d, cfg, **kw)
+        key = json.dumps([cfg.encoder.backbone, cfg.use_fused_layout,
+                          cfg.hub_size, cfg.sc_hub_size, sorted(kw.items())],
+                         default=str)
+        if key not in built:
+            built[key] = real(d, cfg, **kw)
+        return built[key]
+    eval_runner.fused_full_graph = build_once
+    try:
+        yield
+    finally:
+        eval_runner.fused_full_graph = real
 
 
 def ood_script(name, mod, reevals, tmp, paths):
@@ -2092,12 +2144,269 @@ def mp_graph_run(tmp, dev, paths):
         del res
 
 
-def save_checkpoint(tmp, gen):
+MOE_FLAGS = ["--moe", "--moe_layers", "last", "--lamda_env", "0.1"]
+
+
+class MoELines:
+    """Counts the finetune loop's ``[MoE]`` usage printouts (one call
+    prints a line an MoE layer)."""
+
+    def __init__(self):
+        self.calls, self.real = 0, finetune_loop.print_moe_usage
+
+    def __enter__(self):
+        def counted(stats):
+            self.calls += 1
+            return self.real(stats)
+        finetune_loop.print_moe_usage = counted
+        return self
+
+    def __exit__(self, *exc):
+        finetune_loop.print_moe_usage = self.real
+        return False
+
+
+def bb_finetune(tag, argv, paths, want, epochs):
+    """One ``finetune.main`` run of phase backbones: its launches
+    (``want``), finite losses, the ``[MoE]`` printouts, peak memory, and
+    the last epoch's training step and evaluation ms (CUDA events recorded
+    in the loop: ``history``).  Returns the CLI's result."""
+    print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    t0 = time.perf_counter()
+    with MoELines() as lines:
+        res = finetune_main(argv)
+    paths[tag] = read_counts()
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_counts(f"{tag} ({epochs} x (train step + eval))", paths[tag],
+                  want)
+    check_losses(res, epochs)
+    moe = any(res["cfg"].encoder.moe_layer_flags())
+    env = [e["env_loss"] for e in res["epoch_losses"]]
+    if moe != all(v < 0 for v in env) or lines.calls != (epochs if moe
+                                                         else 0):
+        raise AssertionError(f"{tag}: env_loss {env}, {lines.calls} [MoE] "
+                             f"printouts")
+    last = res["history"][-1]
+    print(f"  {tag}: wall {wall_s:.2f} s; env_loss {env}; {lines.calls} "
+          f"[MoE] printouts; last epoch's training step "
+          f"{last['step_ms']:.3f} ms, evaluation {last['eval_ms']:.3f} ms "
+          f"(CUDA events in the loop); peak device memory "
+          f"{peak_gb:.2f} GB, {peak_gb - held_gb:.2f} GB above the "
+          f"{held_gb:.2f} GB held before", flush=True)
+    return res
+
+
+def chunked_vs_full(tag, res, ds, dev, want_k2):
+    """A ``--eval_chunked 1`` run's model: its layer-wise ``z`` against the
+    full eval-mode encode in f32 (on a layout, the fused path with f32
+    messages: the layer-wise pass sums f32 messages) to 1e-3, and its
+    layer-wise probabilities against the full evaluation's (``want_k2``
+    kernel-2 launches in the encode and the evaluation; bf16 messages on a
+    layout) where the node keeps its VQ codes on both routes (at least 90%
+    of them)."""
+    model, graph = res["model"].eval(), res["graph"]
+    n = ds.num_nodes
+    t0 = time.perf_counter()
+    chunked = layerwise_eval_predict(model, res["cfg"], ds, "node",
+                                     graph.num_nodes_padded, device=dev)[:n]
+    lw_s = time.perf_counter() - t0
+    z_lw, _ = layerwise_encode(
+        model.encoder, ds.node_features(), ds.edge_index[0],
+        ds.edge_index[1], xe=ds.xe, edge_table=ds.edge_text_feat,
+        num_nodes=n, device=dev)
+    reset_counts()
+    with torch.no_grad():
+        z_full = task_encode(model, graph)
+        full = res["steps"][2](model, graph)[:n].cpu().numpy()
+    expect_counts(f"{tag}: the full encode and evaluation", read_counts(),
+                  {K2: want_k2})
+    z_f32 = z_full
+    if graph.layout is not None:
+        enc = copy.copy(model.encoder)
+        enc.cfg = dataclasses.replace(enc.cfg, fused_bf16_messages=False)
+        with torch.no_grad():
+            z_f32 = task_encode(TaskModel(enc, model.vq, model.decoder),
+                                graph)
+    check_close(f"z vs the full f32 encode ({tag}, layer-wise)", z_lw[:n],
+                z_f32[:n], 1e-3, 1e-3, what="the layer-wise encode")
+    del z_f32
+    with torch.no_grad():
+        same = (model.vq(z_lw[:n])["indices"]
+                == model.vq(z_full[:n])["indices"]).all(1).cpu().numpy()
+    check_close(f"{tag}: chunked vs full probabilities (nodes that keep "
+                f"their codes)", torch.from_numpy(chunked[same]),
+                torch.from_numpy(full[same]), Z_RTOL, Z_ATOL,
+                what="the chunked evaluation")
+    print(f"  {tag}: layer-wise evaluation {lw_s:.3f} s; {same.mean():.4f} "
+          f"of the nodes keep every code; predictions equal on "
+          f"{float((chunked.argmax(-1) == full.argmax(-1)).mean()):.4f}",
+          flush=True)
+    if same.mean() < 0.9:
+        raise AssertionError(f"{tag}: only {same.mean():.4f} of the nodes "
+                             f"keep their codes")
+
+
+def bb_pretrain(graph, dev, paths):
+    """(b) the full-graph pretrain step with an MoE-SAGE last layer and
+    ``lamda_env`` 0.1 on phase pretrain's graph and layout: 3 steps, kernel
+    1 once a step (layer 1's dropout tail) and kernel 2 once (the teacher's
+    layer 1); finite losses that move, ``env_reg_loss`` below 0; one
+    step's gradients against the plain versions; step ms, peak memory."""
+    base = pretrain_config(FEAT_DIM)
+    cfg = dataclasses.replace(base, lamda_env=0.1, encoder=dataclasses.replace(
+        base.encoder, moe=True, moe_layers="last", num_experts=3))
+    model = PretrainModel(
+        cfg, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    teacher = make_teacher(model)
+    opt = make_pretrain_optimizer(model, cfg)
+    bs = graph.num_nodes_padded
+    step = make_pretrain_step(cfg, bs, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    losses, spans = [], []
+    for _ in range(PRETRAIN_STEPS):
+        spans.append([torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)])
+        spans[-1][0].record()
+        out = step(model, teacher, opt, graph)
+        spans[-1][1].record()
+        losses.append(out)
+    paths["bb_moe_pretrain"] = read_counts()
+    losses = [{k: float(v) for k, v in ls.items()} for ls in losses]
+    # the steps after the first, which pays for the first launches
+    step_ms = float(np.mean([a.elapsed_time(b) for a, b in spans[1:]]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_counts(f"MoE pretrain ({PRETRAIN_STEPS} steps)",
+                  paths["bb_moe_pretrain"],
+                  {K1: PRETRAIN_STEPS, K2: PRETRAIN_STEPS})
+    for i, ls in enumerate(losses):
+        print(f"  step {i}: " + ", ".join(f"{k} {v:.6f}"
+                                          for k, v in ls.items()),
+              flush=True)
+    totals = [ls["loss"] for ls in losses]
+    if not all(np.isfinite(v) for ls in losses for v in ls.values()) \
+            or len(set(totals)) == 1 \
+            or not all(ls["env_reg_loss"] < 0 for ls in losses):
+        raise AssertionError(f"MoE pretrain losses {losses}")
+    draws = draw_step(cfg, graph, torch.Generator(device=dev).manual_seed(7))
+    aug = augmented(cfg, graph, draws)
+
+    def grads(plain):
+        m, t = copy.deepcopy(model), copy.deepcopy(teacher)
+        loss, _, _ = pretrain_forward(
+            m, t, cfg, aug, graph, bs=bs, draws=draws,
+            drop_seed=draws["drop_seed"], plain=plain,
+            generator=torch.Generator(device=dev).manual_seed(7))
+        loss.backward()
+        return {k: p.grad for k, p in m.named_parameters()}
+    reset_counts()
+    g_kernel = grads(False)
+    expect_counts("one MoE pretrain forward + backward", read_counts(),
+                  {K1: 1, K2: 1})
+    check_grads("the plain versions (MoE pretrain)", g_kernel, grads(True))
+    del g_kernel
+    print(f"  MoE pretrain step {step_ms:.3f} ms by CUDA events (mean of "
+          f"steps 2-{PRETRAIN_STEPS}); peak device memory {peak_gb:.2f} GB, "
+          f"{peak_gb - held_gb:.2f} GB above the {held_gb:.2f} GB held "
+          f"before", flush=True)
+    del model, teacher, opt, draws, aug
+    torch.cuda.empty_cache()
+
+
+def backbones_run(tmp, graph, dev, paths):
+    """Phase backbones (module docstring, phase 16)."""
+    ds = load_dataset(DATASET, feat_dim=FEAT_DIM, seed=SEED)
+    moe_dir = os.path.join(tmp, "moe")
+    os.makedirs(moe_dir, exist_ok=True)
+    save_checkpoint(moe_dir, torch.Generator().manual_seed(SEED), moe=True)
+    base = ["--finetune_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
+            "--seed", str(SEED), "--repeat", "1"]
+    moe_ckpt = ["--pretrain_path", moe_dir, "--pretrain_model_epoch", "50"]
+    # (a) the MoE finetune: layer 1 (sage) through kernel 2 once a step
+    # and once an evaluation
+    res = bb_finetune("bb_moe_finetune", [*base, *moe_ckpt, *MOE_FLAGS,
+                                          "--epochs", str(EPOCHS)],
+                      paths, {K2: 2 * EPOCHS}, EPOCHS)
+    model, g, y, mask = (res["model"], res["graph"], res["y"],
+                         res["train_mask"])
+    loss_fn = res["steps"][0]
+    reset_counts()
+    g_kernel = step_grads(model, loss_fn, mask, g, y)
+    expect_counts("one MoE training step", read_counts(), {K2: 1})
+    check_grads("the plain versions (MoE finetune)", g_kernel,
+                step_grads(model, loss_fn, mask, g, y, plain=True))
+    del g_kernel
+    # (d) the layer-wise evaluation (what --eval_chunked 1 runs an epoch)
+    # of this model against its full one
+    chunked_vs_full("MoE", res, ds, dev, 1 + 1)
+    del res, model, g
+    # (b) the full-graph pretrain step
+    bb_pretrain(graph, dev, paths)
+    # (c) the other backbones from scratch (k-means init of the codebook
+    # over the full encode): no layout, no kernel; gat evaluates layer-wise
+    for bb in ("gcn", "gin", "gat"):
+        chunked = ["--eval_chunked", "1"] if bb == "gat" else []
+        res = bb_finetune(f"bb_{bb}", [*base, "--backbone", bb,
+                                       "--pretrain_dataset", "na",
+                                       "--epochs", "2", *chunked],
+                          paths, {}, 2)
+        if res["graph"].layout is not None or res["graph"].edge_feat \
+                is not None:
+            raise AssertionError(f"{bb}: the graph carries a layout or "
+                                 f"edge features")
+        if chunked:
+            # (d) the layer-wise evaluation against the full one
+            chunked_vs_full("gat", res, ds, dev, 0)
+        del res
+    # (e) degree_shift_ood with --moe --lamda_env on the fragile graph:
+    # kernel 2 once in the k-means init's encode, twice an epoch
+    argv = ["--finetune_dataset", OOD_DATASET, "--feat_dim", str(FEAT_DIM),
+            "--seed", str(SEED), "--epochs", str(EPOCHS), "--runs", "1",
+            "--debug", "--device", "cuda", *MOE_FLAGS]
+    print(f"  python -m stemgnn_tpu_torch.scripts.degree_shift_ood "
+          f"{' '.join(argv)}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = degree_shift_ood.main(argv)
+    paths["bb_moe_ood"] = read_counts()
+    wall_s = time.perf_counter() - t0
+    expect_counts(f"degree_shift_ood --moe (k-means init, {EPOCHS} x "
+                  f"(train step + eval))", paths["bb_moe_ood"],
+                  {K2: 1 + 2 * EPOCHS})
+    check_ood_payload("degree_shift_ood", res["payload"])
+    if res["cfg"].lamda_env != 0.1 or not any(
+            k.startswith("encoder.env_encoders.")
+            for k in res["best"]["state"]):
+        raise AssertionError("degree_shift_ood did not train the MoE layer")
+    st = res["best"]["stats"]
+    print(f"  degree_shift_ood --moe: wall {wall_s:.2f} s; device ms (CUDA "
+          f"events): steps {['%.3f' % v for v in st.get('step_ms', [])]}, "
+          f"evals {['%.3f' % v for v in st.get('eval_ms', [])]}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+
+def save_checkpoint(tmp, gen, moe: bool = False):
     """A JAX-format pretrain checkpoint with random weights and non-trivial
-    BatchNorm statistics, and its config.json; returns the encoder and VQ
-    parameters as saved."""
+    BatchNorm statistics, and its config.json; with ``moe`` an MoE-SAGE
+    last layer of 3 experts with its router (``--moe --moe_layers last``).
+    Returns the encoder and VQ parameters as saved."""
+    moe_kw = dict(moe=True, moe_layers="last", num_experts=3) if moe else {}
     ecfg = EncoderConfig(input_dim=FEAT_DIM, hidden_dim=FEAT_DIM,
-                         num_layers=2, normalize="batch", dropout=0.0)
+                         num_layers=2, normalize="batch", dropout=0.0,
+                         **moe_kw)
     vcfg = VQConfig(dim=FEAT_DIM, codebook_size=128, codebook_dim=FEAT_DIM,
                     heads=4)
     enc = Encoder(ecfg, generator=gen).eval()
@@ -2112,7 +2421,8 @@ def save_checkpoint(tmp, gen):
                 {"params": params["vq"], "state": state["vq"]})
     with open(os.path.join(tmp, "config.json"), "w") as f:
         json.dump({"encoder": {"hidden_dim": FEAT_DIM, "num_layers": 2,
-                               "backbone": "sage", "normalize": "batch"},
+                               "backbone": "sage", "normalize": "batch",
+                               **moe_kw},
                    "vq": {"codebook_size": 128, "codebook_dim": FEAT_DIM,
                           "heads": 4}}, f)
     return params
@@ -2392,17 +2702,19 @@ def main():
         mp_minibatch_run(ds, dev, paths)
         mp_finetune_run(tmp, dev, paths, mp_cases)
         mp_graph_run(tmp, dev, paths)
-    tmp_dir.cleanup()
-    shared.close()
 
     with phase("times"):
-        kernels = []
-        for name, cases in ((K1, {**k1_cases, **k1_drop_cases}),
-                            (K2, k2_cases)):
-            row = {}
-            for direction, (args, kw, extra) in cases.items():
-                row[direction] = time_case(name, direction, args, kw, extra)
-            kernels.append(dict(row, name=name))
+        kernels = [time_cases(K1, {**k1_cases, **k1_drop_cases}),
+                   time_cases(K2, k2_cases)]
+    # the timed cases' arrays (the arxiv tails' messages) go before the
+    # widest phase
+    del k1_cases, k2_cases, k1_drop_cases
+    torch.cuda.empty_cache()
+
+    with phase("backbones"):
+        backbones_run(tmp, graph, dev, paths)
+    tmp_dir.cleanup()
+    shared.close()
     line = []
     for k in kernels:
         name, fwd, bwd = k["name"], k["fwd"], k["bwd"]
@@ -2458,6 +2770,14 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def time_cases(name, cases):
+    """The times of kernel ``name`` at each of ``cases`` (``{direction:
+    (args, kw, extra)}``, :func:`time_case`), as one row of the kernels
+    line."""
+    return dict({direction: time_case(name, direction, *case)
+                 for direction, case in cases.items()}, name=name)
 
 
 def case_fields(cases):

@@ -27,10 +27,11 @@ layer by layer over edge blocks.
 Runs on CUDA (hub-dense matmuls + the aggregation kernels, forward and
 backward) unless ``--device cpu`` is given; without CUDA and without
 ``--device cpu`` it exits with an error.  Every flag of the JAX CLI is
-accepted; values outside the port (MoE, multi-GPU, buffer donation,
-node relabelling, neural text encoders) are refused with an
-error naming their ROADMAP item.  Without a checkpoint the codebook is
-k-means-initialized before training.
+accepted; ``--moe`` (with ``--lamda_env``'s environment regularizer) and
+``--backbone gcn|gin|gat`` train as in JAX; values outside the port
+(multi-GPU, buffer donation, node relabelling, neural text encoders) are
+refused with an error naming their ROADMAP item.  Without a checkpoint
+the codebook is k-means-initialized before training.
 
   python -m stemgnn_tpu_torch.finetune --finetune_dataset WN18RR --use_params
   python -m stemgnn_tpu_torch.finetune --finetune_dataset FB15K237 \\
@@ -179,10 +180,6 @@ def refusals(args) -> list:
     """What the port does not cover among the given flag values, each with
     its ROADMAP item."""
     checks = (
-        (args.moe, "--moe: MoE-SAGE layers are not ported (ROADMAP Queue 1 "
-                   "item 5)"),
-        (args.backbone != "sage", f"--backbone {args.backbone}: only sage "
-                                  f"is ported (ROADMAP Queue 1 item 5)"),
         (args.donate, "--donate: buffer donation is a JAX mechanism with no "
                       "PyTorch counterpart (ROADMAP, differences kept on "
                       "purpose)"),
@@ -291,9 +288,6 @@ def main(argv=None):
     ds = load_dataset(name, feat_dim=args.feat_dim, seed=args.seed,
                       text_encoder=args.text_encoder)
     enc, vq = _pretrained(args)
-    bad = refusals(args)          # config.json may name another backbone
-    if bad:
-        raise SystemExit("stemgnn_tpu_torch.finetune: " + "; ".join(bad))
     # a graph dataset is (graphs, labels [G, T], split): T tasks
     cfg = make_config(args, ds[1].shape[1] if task == "graph"
                       else ds.num_classes)

@@ -12,8 +12,8 @@ losses + the EMA teacher.
     (68-83);
   * sem_recon — cosine alignment of a projection of the quantized codes to
     the teacher's encoding of the clean graph, detached (86-102);
-  * plus the VQ's commitment and orthogonal terms (and the MoE env term,
-    0 without MoE layers).
+  * plus the VQ's commitment and orthogonal terms and the encoder's MoE
+    environment regularizer (``env_reg_loss``, 0 without MoE layers).
 
 The teacher is a second :class:`~stemgnn_tpu_torch.nn.encoder.Encoder`
 outside the optimizer, advanced by :func:`ema_update_teacher` (decay 0.99,
@@ -146,19 +146,26 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
     the dropout's edge mask.  With a layout and ``drop_seed``, the encoder
     takes the dropout as ``drop_hash`` (the fused form).  ``draws`` holds
     the step's random draws: ``slots`` and ``neg`` (the topo-recon edges)
-    and ``ortho_ids`` (the orthogonal term's codes, or None for all);
-    ``generator`` feeds the encoders' dropout.  ``plain`` runs the
-    aggregation kernels' plain versions."""
+    and ``ortho_ids`` (the orthogonal term's codes, or None for all), and
+    optionally the MoE layers' Gumbel noise of the student (``gumbel``) and
+    of the teacher (``teacher_gumbel``), one [N, K] tensor a layer;
+    ``generator`` feeds the encoders' dropout and any Gumbel noise not
+    handed in.  ``plain`` runs the aggregation kernels' plain versions.
+    The third value is the aux: the VQ's result (``vq``) and the student's
+    MoE router statistics (``moe_stats``)."""
     model.train()
     teacher.train()
     use_hash = (orig_g.layout is not None and cfg.edge_p > 0
                 and drop_seed is not None)
-    z = model.encoder(
+    # the sage layers take the dropout as drop_hash over the layout; an MoE
+    # layer reads the augmented view's edge mask, which carries it
+    z, enc_aux = model.encoder(
         aug_g.node_feat, aug_g.senders, aug_g.receivers,
         edge_feat=aug_g.edge_feat, edge_mask=aug_g.edge_mask,
         node_mask=aug_g.node_mask, layout=aug_g.layout,
         edge_table=aug_g.edge_table, plain=plain, generator=generator,
-        drop_hash=(drop_seed, cfg.edge_p) if use_hash else None)
+        drop_hash=(drop_seed, cfg.edge_p) if use_hash else None,
+        gumbel=draws.get("gumbel"), return_aux=True)
     vq_res = model.vq(z, mask=aug_g.node_mask,
                       ortho_ids=draws.get("ortho_ids"), generator=generator)
     query = vq_res["quantize"]
@@ -203,17 +210,19 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
                      edge_table=orig_g.edge_table, plain=plain,
                      generator=generator,
                      compute_dtype=("bfloat16" if cfg.teacher_bf16
-                                    else None)).float()
+                                    else None),
+                     gumbel=draws.get("teacher_gumbel")).float()
     hproj = model.sem_projector(query_l).float()
     cos = 1.0 - (_l2n(tz[:bs]) * _l2n(hproj[:bs])).sum(-1)
     sem = (cos * seed_mask).sum() / torch.clamp(seed_mask.sum(), min=1.0)
 
     commit = vq_res["loss"]
-    env = zero                          # no MoE layers
+    env = enc_aux["env_reg"]
     losses = {"feat_recon_loss": feat, "topo_recon_loss": topo,
               "topo_sem_recon_loss": topo_sem, "sem_recon_loss": sem,
               "commit_loss": commit, "env_reg_loss": env}
     total = (cfg.feat_lambda * feat + cfg.topo_lambda * topo
              + cfg.topo_sem_lambda * topo_sem + cfg.sem_lambda * sem
              + commit + cfg.lamda_env * env)
-    return total, losses, vq_res
+    return total, losses, {"vq": vq_res,
+                           "moe_stats": enc_aux["moe_stats"]}

@@ -54,15 +54,19 @@ def task_model_init(cfg: FinetuneConfig, encoder: Encoder = None,
 
 
 def encode(model: TaskModel, g, *, generator=None, plain: bool = False,
-           compute_dtype=None):
+           compute_dtype=None, gumbel=None, return_aux: bool = False):
     """Encoder forward on a padded graph (train or eval by the module's
     mode); the graph's layout and edge table are used when present.
-    ``compute_dtype`` overrides the encoder config's for this pass."""
+    ``compute_dtype`` overrides the encoder config's for this pass;
+    ``gumbel`` hands the MoE layers their training noise; ``return_aux``
+    returns ``(z, aux)`` with the MoE regularizer and router statistics
+    (``nn.encoder.Encoder.forward``)."""
     return model.encoder(g.node_feat, g.senders, g.receivers,
                          edge_feat=g.edge_feat, edge_mask=g.edge_mask,
                          node_mask=g.node_mask, layout=g.layout,
                          edge_table=g.edge_table, plain=plain,
-                         generator=generator, compute_dtype=compute_dtype)
+                         generator=generator, compute_dtype=compute_dtype,
+                         gumbel=gumbel, return_aux=return_aux)
 
 
 def maybe_kmeans_init_vq(model: TaskModel, cfg: FinetuneConfig, g, *,

@@ -34,3 +34,12 @@ def uniform_bias(shape, fan_in, generator=None):
 def glorot_uniform(shape, generator=None):
     """xavier/glorot uniform for [in, out] (PyG Linear 'glorot' default)."""
     return _uniform(shape, math.sqrt(6.0 / (shape[0] + shape[-1])), generator)
+
+
+def xavier_uniform(shape, generator=None):
+    """torch.nn.init.xavier_uniform_ as the JAX package applies it to a
+    weight of any rank: fans over the last two dims, the leading ones a
+    batch (MixtureSageLayer's [K, 2*in, out] expert tensor,
+    STEM-GNN/model/encoder.py:120)."""
+    return _uniform(shape, math.sqrt(6.0 / (shape[-2] + shape[-1])),
+                    generator)

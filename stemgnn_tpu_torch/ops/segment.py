@@ -43,14 +43,21 @@ def segment_mean(data, segment_ids, num_segments: int, mask=None):
     to 256): a receiver with more in-edges divides by 256 (ROADMAP, known
     behaviours)."""
     total = segment_sum(data, segment_ids, num_segments, mask=mask)
-    ones = torch.ones(data.shape[:1], dtype=torch.float32,
-                      device=data.device)
-    count = segment_sum(ones, segment_ids, num_segments, mask=mask)
-    if total.dtype == torch.bfloat16:
-        count = torch.clamp(count, max=256.0)
-    count = count.to(total.dtype)
+    count = segment_count(segment_ids, num_segments, mask, total.dtype)
     count = count.reshape(count.shape + (1,) * (total.dim() - count.dim()))
-    return total / torch.clamp(count, min=1)
+    return total / count
+
+
+def segment_count(segment_ids, num_segments: int, mask=None,
+                  dtype=torch.float32):
+    """The mean's divisor: each segment's count of valid entries, at least
+    1, in ``dtype``; in bf16 JAX's stalled count (at most 256)."""
+    ones = torch.ones(segment_ids.shape[:1], dtype=torch.float32,
+                      device=segment_ids.device)
+    count = segment_sum(ones, segment_ids, num_segments, mask=mask)
+    if dtype == torch.bfloat16:
+        count = torch.clamp(count, max=256.0)
+    return torch.clamp(count.to(dtype), min=1)
 
 
 def segment_max(data, segment_ids, num_segments: int, mask=None):
@@ -64,3 +71,24 @@ def segment_max(data, segment_ids, num_segments: int, mask=None):
     return torch.where(out <= _NEG_INF / 2, torch.zeros((), dtype=out.dtype,
                                                         device=out.device),
                        out)
+
+
+def segment_softmax(logits, segment_ids, num_segments: int, mask=None):
+    """Per-segment softmax (the GAT backbone's attention): masked logits
+    count as -inf, an empty segment's max as 0, and the denominator is
+    floored at 1e-16.  The max only shifts the logits, which the softmax
+    does not see, so no gradient flows through it."""
+    logits = _mask_like(logits, mask, _NEG_INF)
+    ids = segment_ids.long()
+    with torch.no_grad():
+        seg_max = torch.full((num_segments,), -torch.inf,
+                             dtype=logits.dtype, device=logits.device)
+        seg_max = seg_max.scatter_reduce(0, ids, logits, reduce="amax",
+                                         include_self=True)
+        seg_max = torch.where(seg_max <= _NEG_INF / 2,
+                              torch.zeros((), dtype=seg_max.dtype,
+                                          device=seg_max.device), seg_max)
+    exp = torch.exp(logits - seg_max[ids])
+    exp = _mask_like(exp, mask, 0)
+    denom = segment_sum(exp, ids, num_segments)
+    return exp / torch.clamp(denom.index_select(0, ids), min=1e-16)

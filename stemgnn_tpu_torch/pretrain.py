@@ -18,10 +18,11 @@ aggregation, as in JAX (``run_pretrain`` takes ``"on"`` for per-batch
 layouts through the CUDA kernels).  ``--bf16`` computes the encoder in
 bf16; ``--mixed_precision`` (``--mp``) also the VQ's per-head pipeline, the
 EMA teacher's pass and the loss decoders (JAX pretrain.py:154-173), and the
-resident feature tables are bf16 under either.  Flag values outside the
-port (MoE, other backbones, data parallelism, halo sharding, buffer
-donation, neural text encoders) are refused with an error naming the
-ROADMAP item.
+resident feature tables are bf16 under either.  ``--moe`` (with
+``--moe_layers``, ``--moe_experts``, ``--moe_tau`` and ``--lamda_env``)
+and ``--backbone gcn|gin|gat`` train as in JAX.  Flag values outside the
+port (data parallelism, halo sharding, buffer donation, neural text
+encoders) are refused with an error naming the ROADMAP item.
 
   python -m stemgnn_tpu_torch.pretrain --pretrain_dataset arxiv_synthetic_pl
   python -m stemgnn_tpu_torch.pretrain --pretrain_dataset arxiv_synthetic_pl \\
@@ -123,10 +124,6 @@ def refusals(args) -> list:
     """What the port does not cover among the given flag values, each with
     its ROADMAP item."""
     checks = (
-        (args.moe, "--moe: MoE-SAGE layers are not ported (ROADMAP Queue 1 "
-                   "item 5)"),
-        (args.backbone != "sage", f"--backbone {args.backbone}: only sage "
-                                  f"is ported (ROADMAP Queue 1 item 5)"),
         (args.data_parallel, "--data_parallel: data-parallel pretraining "
                              "is not ported (ROADMAP Queue 1 item 10)"),
         (args.halo_shards > 0, "--halo_shards: the halo pretrain is not "

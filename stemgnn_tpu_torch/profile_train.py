@@ -2,13 +2,19 @@
 
     python -m stemgnn_tpu_torch.profile_train [--dataset arxiv_synthetic_pl]
     python -m stemgnn_tpu_torch.profile_train --task link
+    python -m stemgnn_tpu_torch.profile_train --backbone gat
+    python -m stemgnn_tpu_torch.profile_train --moe_layers last
 
 Builds the dataset and its layout, a task model with random weights from
 ``--seed`` (the frozen VQ, a per-head decoder over the dataset's classes),
 and runs the training step of ``python -m stemgnn_tpu_torch.finetune``
 (``train.finetune_loop``).  ``--task link`` profiles the typed-edge link
 finetune instead: ``kg_synthetic`` (11 relation types) at WN18RR's size,
-40,943 entities and 93,003 triples, whose rows are the edges.  Prints the step's time and its stages (forward
+40,943 entities and 93,003 triples, whose rows are the edges.
+``--backbone gcn|gin|gat`` and ``--moe_layers last|all`` (3 experts,
+``lamda_env`` 0.1) profile the other encoders, whose aggregations are
+gathers and ``index_add_`` (no layout for gcn, gin and gat).  Prints the
+step's time and its stages (forward
 with the loss, backward, optimizer) by CUDA events, the evaluation's time,
 the kernel launches of one step, the step's device time by kernel from
 ``torch.profiler``, the device's busy share of the profiled window, and the
@@ -48,6 +54,10 @@ def main(argv=None):
                    help="the node task's dataset")
     p.add_argument("--task", choices=("node", "link"), default="node")
     p.add_argument("--feat_dim", type=int, default=768)
+    p.add_argument("--backbone", default="sage",
+                   choices=("sage", "gcn", "gin", "gat"))
+    p.add_argument("--moe_layers", default="none",
+                   choices=("none", "last", "all"))
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--top", type=int, default=20)
@@ -65,18 +75,24 @@ def main(argv=None):
                           seed=args.seed)
     t_data = time.perf_counter() - t0
     d = args.feat_dim
+    moe = args.moe_layers != "none"
     cfg = FinetuneConfig(
-        encoder=EncoderConfig(input_dim=d, hidden_dim=d),
+        encoder=EncoderConfig(input_dim=d, hidden_dim=d,
+                              backbone=args.backbone, moe=moe,
+                              moe_layers=args.moe_layers),
         vq=VQConfig(dim=d, codebook_dim=d, commitment_weight=0.25),
         dataset=ds.name, task=args.task, num_classes=ds.num_classes,
-        lr=1e-3)
+        lr=1e-3, lamda_env=0.1 if moe else 0.0)
     t0 = time.perf_counter()
     g = fused_full_graph(ds, cfg, device=dev)
     torch.cuda.synchronize()
     t_graph = time.perf_counter() - t0
     t_rows = 1 if g.edge_table is None else int(g.edge_table.shape[0])
+    lay = ("no layout" if g.layout is None
+           else describe_layout(g.layout, t_rows))
     print(f"host: dataset {t_data:.2f} s, graph + layout {t_graph:.2f} s; "
-          f"{describe_layout(g.layout, t_rows)}", flush=True)
+          f"{lay}; encoder {args.backbone}, MoE layers {args.moe_layers}",
+          flush=True)
 
     model = task_model_init(
         cfg, generator=torch.Generator().manual_seed(args.seed)).to(dev)
@@ -139,8 +155,10 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernel_table(prof, args.reps, wall_ms, args.top, "step", ranges=())
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-          f" GB")
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    print(f"peak device memory of a step "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(card_line(), flush=True)
 
 

@@ -2,11 +2,11 @@
 (counterpart of the repo's ``scripts/_common.py``): the same flags and
 aliases, plus ``--device``.
 
-Flag values outside what the port covers are refused with an error that
-names the ROADMAP item that would bring them: backbones other than sage
-(Queue 1 item 5), ``--moe`` (item 5), the datasets that need downloaded
-files (item 8) and the neural text encoders they would be encoded with
-(item 11).  ``--use_vq 0`` (the no-VQ bypass) and ``--freeze_vq 0`` (the
+Every backbone and ``--moe`` with ``--lamda_env`` run as in JAX.  Flag
+values outside what the port covers are refused with an error that names
+the ROADMAP item that would bring them: the datasets that need downloaded
+files (Queue 1 item 8) and the neural text encoders they would be encoded
+with (item 11).  ``--use_vq 0`` (the no-VQ bypass) and ``--freeze_vq 0`` (the
 codebook trained with the rest) run as in JAX.  Link and graph
 datasets are refused as in the JAX scripts, which classify nodes only.
 """
@@ -80,11 +80,6 @@ def refusals(args) -> list:
          f"--text_encoder {args.text_encoder}: the neural text encoders "
          f"(data/text_encoder.py, nn/{{distilbert,bert,llama}}.py) are not "
          f"ported yet (ROADMAP Queue 1 item 11)"),
-        (args.backbone != "sage", f"--backbone {args.backbone}: only sage is "
-                                  f"ported (ROADMAP Queue 1 item 5)"),
-        (args.moe, "--moe: MoE-SAGE layers, and with them --lamda_env's "
-                   "environment regularizer, are not ported (ROADMAP Queue "
-                   "1 item 5)"),
     )
     return [msg for bad, msg in checks if bad]
 

@@ -111,20 +111,37 @@ def make_optimizer(trainable: dict, cfg: FinetuneConfig):
 
 
 def _loss_parts(model, cfg: FinetuneConfig, rows, y, row_mask, train_mask,
-                valid=None):
+                aux, valid=None):
     """The head-mean cross entropy over ``train_mask`` of the decoder's
     logits on ``rows`` (the VQ's loss covering ``row_mask``), or with
-    ``valid`` labels the multitask BCE, plus the Jacobian penalty: (loss,
-    {name: loss part})."""
+    ``valid`` labels the multitask BCE, plus the Jacobian penalty and
+    ``lamda_env`` times the encoder's MoE regularizer (``aux`` of the
+    encoder's forward; 0 without MoE layers): (loss, {name: loss part}).
+    ``env_loss`` is the scaled term, as JAX logs it (finetune_loop.py:
+    123)."""
     logits, _ = task_logits(model, cfg, rows, mask=row_mask)
     act = activation_loss(logits, y, "single" if valid is None else "multi",
                           mask=train_mask, valid=valid)
     jac = decoder_jacobian_penalty(model, cfg)
-    # the MoE environment regularizer is 0 without MoE layers
-    env = torch.zeros((), device=act.device)
-    loss = act + jac + cfg.lamda_env * env
+    env = cfg.lamda_env * aux["env_reg"]
+    loss = act + jac + env
     return loss, {"loss": loss, "act_loss": act, "jac_loss": jac,
                   "env_loss": env}
+
+
+def print_moe_usage(moe_stats):
+    """One line an MoE layer: the mean router probability and the top-1
+    share of each expert over the counted rows (JAX finetune_loop.py:
+    743-751)."""
+    for st in moe_stats:
+        vals = torch.cat([st["sum_prob"].float(), st["sum_top1"].float(),
+                          st["count"].float().reshape(1)]).cpu().tolist()
+        k = st["sum_prob"].shape[0]
+        cnt = max(vals[-1], 1.0)
+        avg = ", ".join(f"{v / cnt:.3f}" for v in vals[:k])
+        top1 = ", ".join(f"{v / cnt:.3f}" for v in vals[k:2 * k])
+        print(f"[MoE] Layer {st['layer']} avg_prob=[{avg}] "
+              f"top1_frac=[{top1}]", flush=True)
 
 
 def _apply(opt, loss):
@@ -144,32 +161,43 @@ def _make_node_steps(cfg: FinetuneConfig, task_kind: str = "node"):
     """``(loss_fn, train_step, eval_step)`` for the full-batch node or link
     task.  ``plain`` runs the aggregation kernels' plain versions."""
 
-    def rows(model, graph, generator=None, plain=False):
-        """The task's rows and their mask: nodes, or the midpoints of the
-        graph's edges."""
-        z = encode(model, graph, generator=generator, plain=plain)
+    def rows(model, graph, generator=None, plain=False, gumbel=None):
+        """The task's rows, their mask and the encoder's aux: nodes, or
+        the midpoints of the graph's edges."""
+        z, aux = encode(model, graph, generator=generator, plain=plain,
+                        gumbel=gumbel, return_aux=True)
         if task_kind == "link":
             return (gather_rows(z, graph.senders)
-                    + gather_rows(z, graph.receivers)) / 2.0, graph.edge_mask
-        return z, graph.node_mask
+                    + gather_rows(z, graph.receivers)) / 2.0, \
+                graph.edge_mask, aux
+        return z, graph.node_mask, aux
 
-    def loss_fn(model, train_mask, graph, y, generator=None, plain=False):
-        """Training-mode forward: (loss, {name: loss part})."""
+    def loss_fn(model, train_mask, graph, y, generator=None, plain=False,
+                gumbel=None):
+        """Training-mode forward: (loss, {name: loss part}); with MoE
+        layers the parts also hold the router statistics
+        (``moe_stats``)."""
         model.train()
-        z, row_mask = rows(model, graph, generator, plain)
-        return _loss_parts(model, cfg, z, y, row_mask, train_mask)
+        z, row_mask, aux = rows(model, graph, generator, plain, gumbel)
+        loss, parts = _loss_parts(model, cfg, z, y, row_mask, train_mask,
+                                  aux)
+        if aux["moe_stats"]:
+            parts["moe_stats"] = aux["moe_stats"]
+        return loss, parts
 
     def train_step(model, opt, train_mask, graph, y, generator=None,
-                   plain=False):
-        _, parts = loss_fn(model, train_mask, graph, y, generator, plain)
+                   plain=False, gumbel=None):
+        _, parts = loss_fn(model, train_mask, graph, y, generator, plain,
+                           gumbel)
         _apply(opt, parts["loss"])
-        return {k: v.detach() for k, v in parts.items()}
+        return {k: (v if k == "moe_stats" else v.detach())
+                for k, v in parts.items()}
 
     def eval_step(model, graph, plain=False):
         """Class probabilities [rows, C] from the head-mean logits."""
         model.eval()
         with torch.no_grad():
-            z, row_mask = rows(model, graph, plain=plain)
+            z, row_mask, _ = rows(model, graph, plain=plain)
             logits, _ = task_logits(model, cfg, z, mask=row_mask)
             return torch.softmax(logits.mean(1), dim=-1)
 
@@ -185,10 +213,10 @@ def _make_minibatch_train_step(cfg: FinetuneConfig, task_kind: str):
 
     def loss_fn(model, g, y_batch, mask, li=None, ri=None, generator=None):
         model.train()
-        z = encode(model, g, generator=generator)
+        z, aux = encode(model, g, generator=generator, return_aux=True)
         rows = (z[:y_batch.shape[0]] if task_kind == "node"
                 else (gather_rows(z, li) + gather_rows(z, ri)) / 2.0)
-        return _loss_parts(model, cfg, rows, y_batch, mask, mask)
+        return _loss_parts(model, cfg, rows, y_batch, mask, mask, aux)
 
     def step(model, opt, g, y_batch, mask, li=None, ri=None, generator=None):
         _, parts = loss_fn(model, g, y_batch, mask, li, ri, generator)
@@ -459,9 +487,11 @@ def _make_graph_steps(cfg: FinetuneConfig, batch_size: int, eval_bs: int,
 
     def loss_fn(model, g, y, valid, gmask, generator=None, plain=False):
         model.train()
-        z = encode(model, g, generator=generator, plain=plain)
+        z, aux = encode(model, g, generator=generator, plain=plain,
+                        return_aux=True)
         pooled = pool_graph(z, g, "mean", num_segments=batch_size)
-        return _loss_parts(model, cfg, pooled, y, gmask, gmask, valid=valid)
+        return _loss_parts(model, cfg, pooled, y, gmask, gmask, aux,
+                           valid=valid)
 
     def train_step(model, opt, g, y, valid, gmask, generator=None,
                    plain=False):
@@ -761,14 +791,12 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
     parameters right before its first step (``init_params``, on the CPU),
     and per epoch its loss parts (``epoch_losses``), host seconds
     (``epoch_s``, each ending in a device sync) and ``history``: the
-    evaluation's device ms (``eval_ms``, CUDA events) and, under
+    evaluation's device ms (``eval_ms``, CUDA events), full batch the
+    training step's (``step_ms``) and, under
     minibatches, the batches and their host and device times (see
     ``_minibatch_epoch``); with ``save_model_to``, the predictions of the
     saved snapshot's evaluation (``best_pred``)."""
     task = cfg.task
-    if any(cfg.encoder.moe_layer_flags()):
-        raise NotImplementedError("MoE-SAGE layers are not ported (ROADMAP "
-                                  "Queue 1 item 5)")
     if task == "graph":
         graphs, labels, split = ds
         return _run_graph_task(graphs, labels, split, cfg, pretrained,
@@ -818,6 +846,8 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
     # JAX draws every split's batches from one generator: default_rng(0)
     # (its FinetuneConfig has no seed field)
     rng_np = np.random.default_rng(0)
+    # the MoE usage lines of the full-batch epochs (finetune.py:239-254)
+    moe_print_interval = max(1, cfg.epochs // 20)
     events = _Events(device)
     out = {}
     for idx, split in enumerate(splits):
@@ -848,7 +878,12 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
                 loss, hist = _minibatch_epoch(ds, cfg, task, masks, rng_np,
                                               mb_step, model, opt, ctx, gen)
             else:
+                events.start("step_ms")
                 losses = train_step(model, opt, train_mask, graph, y, gen)
+                events.stop("step_ms")
+                moe_stats = losses.pop("moe_stats", None)
+                if moe_stats and epoch % moe_print_interval == 0:
+                    print_moe_usage(moe_stats)
             events.start("eval_ms")
             if cfg.eval_chunked:
                 pred = layerwise_eval_predict(

@@ -7,7 +7,10 @@ runs the hub-dense matmuls and the tail kernels and never materializes
 per-edge [E_pad, D] features.  On the CPU the plain padded graph with
 materialized edge features is returned unless the caller asks for the
 layout (``use_layout=True``; the kernel wrappers then run their plain
-versions).
+versions).  Only the sage layers read edge features: for the gcn, gin and
+gat backbones the plain graph carries none (JAX materializes them, [E, D],
+7.3 GB at arxiv scale, and never reads them), unless the caller asks for
+them (``edge_feat=True``: the pretrain step's topo-sem targets).
 """
 
 from __future__ import annotations
@@ -65,16 +68,20 @@ def maybe_reorder_dataset(ds, cfg: FinetuneConfig, task: str, device="cuda",
 def fused_full_graph(ds, cfg: FinetuneConfig, device="cuda",
                      use_layout: Optional[bool] = None,
                      profile: Optional[ChipProfile] = None,
-                     gwin: str = "auto"):
+                     gwin: str = "auto", edge_feat: Optional[bool] = None):
     """Padded full graph for ``ds`` on ``device``.  ``use_layout`` None
     means: on CUDA, when ``cfg.use_fused_layout`` and the backbone is
     sage.  ``profile`` fixes the gates' device profile; ``gwin`` the
-    in-kernel gather gate (``build_edge_layout``)."""
+    in-kernel gather gate (``build_edge_layout``).  ``edge_feat``: whether
+    a graph without a layout materializes the edge features (None: for
+    the sage backbone, the only one that reads them)."""
     device = torch.device(device)
     if use_layout is None:
         use_layout = _layout_applies(cfg, device)
     if not use_layout:
-        return ds.to_graph(device=device)
+        if edge_feat is None:
+            edge_feat = cfg.encoder.backbone == "sage"
+        return ds.to_graph(device=device, with_edge_feat=edge_feat)
     graph = ds.to_graph(node_pad_to=round_up(ds.num_nodes, 128),
                         with_edge_feat=False, device=device)
     # build from the HOST arrays, padded as make_graph pads them

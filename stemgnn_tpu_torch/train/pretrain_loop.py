@@ -61,9 +61,10 @@ from stemgnn_tpu_torch.vq.quantize import vq_kmeans_init
 def pretrain_graph(ds, cfg: PretrainConfig, device="cuda"):
     """The padded full graph of ``ds`` with the fused layout (hub blocks of
     up to 2,048 nodes a side, as the JAX step probe builds it) where
-    ``fused_full_graph`` gives one (on CUDA)."""
+    ``fused_full_graph`` gives one (on CUDA sage encoders), else with its
+    edge features materialized (the topo-sem targets)."""
     return fused_full_graph(ds, FinetuneConfig(encoder=cfg.encoder),
-                            device=device)
+                            device=device, edge_feat=True)
 
 
 def make_pretrain_optimizer(model, cfg: PretrainConfig):

@@ -5,9 +5,14 @@ The port's modules name their parameters and buffers after the JAX pytree
 paths and keep the same layouts (``Linear.w`` is ``[in, out]`` on both
 sides), so a conversion is a rename: ``layers/#0/lin_l/w`` in a checkpoint
 is ``layers.0.lin_l.w`` in ``Encoder.state_dict()``.  Nothing is transposed.
-A finetune task model adds the ``decoder`` tree (``models.task``); a
-pretrain model the decoders of ``models.pretrain`` and a teacher encoder
-whose BatchNorm statistics are the JAX state's ``sem_encoder``.
+Each layer kind keeps JAX's tree: ``{"lin_l", "lin_r"}`` for sage,
+``{"weights"}`` for an MoE-SAGE layer (its router in ``env_encoders``, a
+list JAX leaves empty without MoE layers, so it has no leaf then),
+``{"lin", "bias"}`` for gcn, ``{"lin", "eps"}`` for gin (``eps`` 0-dim) and
+``{"lin", "att_src", "att_dst", "bias"}`` for gat.  A finetune task model
+adds the ``decoder`` tree (``models.task``); a pretrain model the decoders
+of ``models.pretrain`` and a teacher encoder whose BatchNorm statistics are
+the JAX state's ``sem_encoder``.
 """
 
 from __future__ import annotations

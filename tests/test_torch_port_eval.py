@@ -526,14 +526,11 @@ def test_script_json_matches_the_jax_script(name, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--backbone", "gat"], "Queue 1 item 5"),
-    (["--moe"], "Queue 1 item 5"),
     (["--finetune_dataset", "kg_synthetic"],
      "not a node-classification dataset"),
     (["--finetune_dataset", "cora"], "Queue 1 item 8"),
     (["--finetune_dataset", "pubmed", "--text_encoder", "e5"],
      "Queue 1 item 11"),
-    (["--backbone", "gin"], "Queue 1 item 5"),
     (["--finetune_dataset", "FB15K237"],
      "not a node-classification dataset"),
 ])
@@ -543,6 +540,33 @@ def test_scripts_refuse_what_the_port_does_not_cover(name, flags, needle):
     with pytest.raises(SystemExit) as info:
         mod.main(["--device", "cpu", *SMALL, *flags])
     assert needle in str(info.value) and name in str(info.value)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--backbone", "gat"], ["--moe", "--lamda_env", "0.1"],
+    ["--backbone", "gin"]], ids=["gat", "moe", "gin"])
+@pytest.mark.parametrize("name", ["random_edge_drop", "tri_objective",
+                                  "degree_shift_ood"])
+def test_scripts_run_the_other_backbones_and_moe(name, flags):
+    """``--backbone gat|gin`` and ``--moe`` with ``--lamda_env``, once
+    refused naming ROADMAP Queue 1 item 5, run now: the encoder the flags
+    ask for (an MoE last layer with its router; gat / gin layers) and
+    finite accuracies in [0, 100] in the JSON's run row."""
+    mod = importlib.import_module(f"stemgnn_tpu_torch.scripts.{name}")
+    argv = ["--device", "cpu", "--finetune_dataset", "cora_synthetic",
+            *SMALL, *flags]
+    if "--moe" in flags:
+        argv += ["--moe_layers", "last"]
+    res = mod.main(argv)
+    cfg = res["cfg"]
+    assert cfg.encoder.backbone == (flags[1] if "--backbone" in flags
+                                    else "sage")
+    assert cfg.lamda_env == (0.1 if "--moe" in flags else 0.0)
+    assert any(k.startswith("encoder.env_encoders.")
+               for k in res["best"]["state"]) == ("--moe" in flags)
+    row = res["payload"]["runs"][0]
+    accs = [v for k, v in row.items() if k != "best_epoch"]
+    assert accs and all(np.isfinite(v) and 0 <= v <= 100 for v in accs)
 
 
 @pytest.mark.parametrize("flags", [["--use_vq", "0"], ["--freeze_vq", "0"]])

@@ -346,3 +346,50 @@ def test_graph_task_does_not_slide_to_the_cpu():
     assert proc.returncode != 0
     assert proc.stdout.count("raised:") == 2, proc.stdout + proc.stderr
     assert "CUDA is not available" in proc.stderr
+
+
+def test_backbone_modules_import_without_jax_or_the_jax_package():
+    """The MoE-SAGE and gcn / gin / gat slice (the convs, the encoder, the
+    decoders, the segment softmax, the layer-wise inference, the
+    reference-checkpoint importer) imports neither JAX nor the JAX
+    package, and builds and runs each backbone's encoder and the importer
+    without them."""
+    proc = _run("""
+        import importlib
+        for mod in ("nn.convs", "nn.encoder", "nn.decoders", "nn.init",
+                    "ops.segment", "train.infer", "utils.torch_import",
+                    "models.pretrain", "models.task", "train.finetune_loop",
+                    "train.pretrain_loop", "eval.runner", "scripts._common"):
+            importlib.import_module("stemgnn_tpu_torch." + mod)
+        import numpy as np
+        import torch
+        from stemgnn_tpu_torch.core.config import EncoderConfig
+        from stemgnn_tpu_torch.nn.encoder import Encoder
+        from stemgnn_tpu_torch.utils.torch_import import import_encoder
+        s = torch.arange(20) % 10
+        r = (s * 3 + 1) % 10
+        for bb, moe in (("gcn", "none"), ("gin", "none"), ("gat", "none"),
+                        ("sage", "last")):
+            cfg = EncoderConfig(input_dim=8, hidden_dim=8, backbone=bb,
+                                moe=moe != "none", moe_layers=moe)
+            z, aux = Encoder(cfg).train()(torch.randn(10, 8), s, r,
+                                          return_aux=True)
+            assert z.shape == (10, 8) and torch.isfinite(z).all()
+            assert (float(aux["env_reg"]) < 0) == (moe != "none")
+        sd = {f"layers.{i}.{k}.weight": np.ones((8, 8), np.float32)
+              for i in range(2) for k in ("lin_l", "lin_r")}
+        sd.update({f"layers.{i}.lin_l.bias": np.zeros(8, np.float32)
+                   for i in range(2)})
+        for i in range(2):
+            for k, v in (("weight", 1.0), ("bias", 0.0),
+                         ("running_mean", 0.0), ("running_var", 1.0)):
+                sd[f"norms.{i}.{k}"] = np.full(8, v, np.float32)
+        import_encoder(sd, EncoderConfig(input_dim=8, hidden_dim=8))
+        bad = [m for m in sys.modules
+               if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
+               or (m.startswith("jax") and sys.modules[m] is not None)]
+        assert not bad, bad
+        print("imported")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout

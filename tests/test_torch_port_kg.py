@@ -180,8 +180,6 @@ def test_every_jax_option_is_accepted():
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--moe"], "item 5"),
-    (["--backbone", "gat"], "item 5"),
     (["--donate"], "JAX mechanism"),
     (["--halo_shards", "2"], "item 10"),
     (["--halo_balance"], "item 10"),
@@ -214,6 +212,29 @@ def test_finetune_cli_accepts_the_bf16_flags(flags):
                                          else "float32")
     assert cfg.vq.compute_dtype == "float32"
     assert cfg.eval_bf16 == ("--eval_bf16" in flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--moe"], ["--backbone", "gat"],
+    ["--moe", "--moe_layers", "last", "--lamda_env", "0.1"],
+    ["--backbone", "gcn"], ["--backbone", "gin"]])
+def test_finetune_cli_accepts_moe_and_the_other_backbones(flags):
+    """Once refused naming ROADMAP Queue 1 item 5, now accepted: the
+    namespace equals the repo CLI's and the config takes JAX's encoder
+    fields (finetune.py:224-233: ``--moe``, ``--moe_layers``,
+    ``--moe_experts``, ``--moe_tau``, ``--backbone``) and ``lamda_env``."""
+    args = port_cli.parse(["--debug", *flags])
+    assert not port_cli.refusals(args)
+    got = vars(args).copy()
+    assert got.pop("device") is None
+    assert got == vars(_load_jax_cli().get_args().parse_args(
+        ["--debug", *flags]))
+    cfg = port_cli.make_config(args, 4)
+    enc = cfg.encoder
+    assert enc.backbone == (flags[1] if "--backbone" in flags else "sage")
+    assert enc.moe == ("--moe" in flags) and enc.num_experts == 3
+    assert enc.moe_layers == ("last" if "last" in flags else "none")
+    assert cfg.lamda_env == (0.1 if "--lamda_env" in flags else 0.0)
 
 
 def test_fb15k237_preset_trains_on_the_cpu(capsys):

@@ -301,16 +301,31 @@ def test_layerwise_inference_matches_jax(task):
 
 
 def test_layerwise_refuses_other_backbones():
-    _, ds_p = _datasets("node")
-    cfg = pcfg.EncoderConfig(input_dim=D, hidden_dim=D)
-
-    class Gat:
-        pass
-    enc = Gat()
-    enc.cfg = dataclasses.replace(cfg, backbone="gat")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port_infer.layerwise_encode(enc, ds_p.node_features(),
-                                    *ds_p.edge_index)
+    """Once the refusal of every backbone but sage (ROADMAP Queue 1 item
+    5); the gat backbone streams now: ``layerwise_encode`` over 4 blocks
+    of edges (the two-pass online softmax) and ``layerwise_eval_predict``
+    against JAX's, z and the probabilities to 1e-5."""
+    ds_j, ds_p = _datasets("node")
+    cfg = _jax_cfg("node", ds_p.num_classes)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, backbone="gat"))
+    params, state = _jax_initial(cfg, _bundle(cfg))
+    assert "att_src" in params["encoder"]["layers"][0]
+    model = task_model_from_jax(params, state, _port_cfg(cfg))
+    block = -(-ds_p.num_edges // 4)
+    args = (ds_p.node_features(), ds_p.edge_index[0], ds_p.edge_index[1])
+    kw = dict(num_nodes=ds_p.num_nodes, edge_block=block)
+    z_j, _ = jax_infer.layerwise_encode(params["encoder"], state["encoder"],
+                                        cfg.encoder, *args, **kw)
+    z_p, _ = port_infer.layerwise_encode(model.encoder, *args, **kw)
+    np.testing.assert_allclose(z_p.numpy(), np.asarray(z_j), rtol=1e-5,
+                               atol=1e-5)
+    pad = ds_p.num_nodes + 3
+    want = jax_infer.layerwise_eval_predict(params, state, cfg, ds_j, "node",
+                                            pad, edge_block=block)
+    got = port_infer.layerwise_eval_predict(model, _port_cfg(cfg), ds_p,
+                                            "node", pad, edge_block=block)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------------ export and --mode predict

@@ -826,7 +826,6 @@ def test_pretrain_cli_runs_on_the_cpu():
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--moe"], "item 5"), (["--backbone", "gcn"], "item 5"),
     (["--data_parallel"], "item 10"), (["--halo_shards", "2"], "item 10"),
     (["--donate"], "--donate"), (["--text_encoder", "e5"], "item 11"),
 ])
@@ -857,6 +856,30 @@ def test_pretrain_cli_accepts_the_mixed_precision_flags(flags):
     assert cfg.encoder.compute_dtype == "bfloat16"
     assert cfg.vq.compute_dtype == ("bfloat16" if mp else "float32")
     assert cfg.teacher_bf16 == cfg.loss_bf16 == mp
+
+
+@pytest.mark.parametrize("flags", [
+    ["--moe"], ["--backbone", "gcn"],
+    ["--moe", "--moe_layers", "all", "--lamda_env", "0.1"]])
+def test_pretrain_cli_accepts_moe_and_the_other_backbones(flags):
+    """Once refused (ROADMAP Queue 1 item 5), now accepted: the namespace
+    equals the repo CLI's and the config takes JAX's encoder fields and
+    ``lamda_env`` (pretrain.py:140-176)."""
+    spec = importlib.util.spec_from_file_location(
+        "repo_pretrain", os.path.join(ROOT, "pretrain.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    args = port_cli.parse(flags)
+    assert not port_cli.refusals(args)
+    got = vars(args).copy()
+    assert got.pop("device") is None
+    assert got == vars(mod.get_args().parse_args(flags))
+    cfg = port_cli.make_config(args)
+    assert cfg.encoder.backbone == (flags[1] if "--backbone" in flags
+                                    else "sage")
+    assert cfg.encoder.moe == ("--moe" in flags)
+    assert cfg.encoder.moe_layers == ("all" if "all" in flags else "none")
+    assert cfg.lamda_env == (0.1 if "--lamda_env" in flags else 0.0)
 
 
 def test_pretrain_cli_flags_mirror_the_repo_cli():

@@ -980,9 +980,10 @@ def test_graph_task_eval_bf16_matches_jax(bf16, monkeypatch):
     real_encode = port_ft.encode
 
     def encode_rec(model, g, **k):
-        z = real_encode(model, g, **k)
+        out = real_encode(model, g, **k)
+        z = out[0] if k.get("return_aux") else out
         dtypes.append((model.training, z.dtype))
-        return z
+        return out
     monkeypatch.setattr(port_ft, "encode", encode_rec)
     port_ft.run_finetune(port_synthetic.synthetic_graph_dataset(**kw), pc,
                          device="cpu")

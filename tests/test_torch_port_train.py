@@ -342,12 +342,10 @@ def test_finetune_train_step_matches_jax(route):
 @pytest.mark.parametrize("flags,needle", [
     (["--finetune_dataset", "mol_synthetic", "--text_encoder", "e5"],
      "--text_encoder e5"),
-    (["--moe"], "--moe"),
     (["--donate"], "--donate"),
     (["--halo_shards", "2"], "--halo_shards"),
     (["--halo_order", "rcm"], "--halo_order"),
     (["--reorder", "rcm"], "--reorder rcm"),
-    (["--backbone", "gcn"], "--backbone gcn"),
 ])
 def test_finetune_cli_refuses_what_the_slice_does_not_cover(flags, needle):
     with pytest.raises(SystemExit) as info:
@@ -364,13 +362,16 @@ def test_finetune_cli_refuses_what_the_slice_does_not_cover(flags, needle):
     ["--freeze_vq", "0"],
     ["--bf16"],
     ["--eval_bf16", "1"],
+    ["--moe", "--moe_layers", "last", "--lamda_env", "0.1"],
+    ["--backbone", "gcn"],
 ])
 def test_finetune_cli_runs_what_the_slice_now_covers(flags, tmp_path):
     """The flag values the CLI used to refuse run now: minibatches, the
     layer-wise chunked evaluation, the task-model export, the no-VQ bypass,
-    a trained codebook, the bf16 encoder and ``--eval_bf16 1`` (accepted
-    on a node task, where it changes nothing, as in JAX), one epoch of
-    cora_synthetic at width D."""
+    a trained codebook, the bf16 encoder, ``--eval_bf16 1`` (accepted
+    on a node task, where it changes nothing, as in JAX), an MoE last
+    layer with ``--lamda_env`` (the scaled env term in the loss) and the
+    gcn backbone, one epoch of cora_synthetic at width D."""
     flags = [f.format(tmp=tmp_path) for f in flags]
     res = port_cli.main(["--device", "cpu", "--debug", "--finetune_dataset",
                          "cora_synthetic", "--feat_dim", str(D),
@@ -387,6 +388,10 @@ def test_finetune_cli_runs_what_the_slice_now_covers(flags, tmp_path):
     assert res["cfg"].encoder.compute_dtype == (
         "bfloat16" if "--bf16" in flags else "float32")
     assert res["cfg"].eval_bf16 == ("--eval_bf16" in flags)
+    assert res["cfg"].encoder.backbone == ("gcn" if "gcn" in flags
+                                           else "sage")
+    env = res["epoch_losses"][0]["env_loss"]
+    assert (env < 0) if "--moe" in flags else env == 0.0
 
 
 def test_finetune_cli_trains_on_the_cpu(tmp_path):
