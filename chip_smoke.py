@@ -12,7 +12,8 @@ default size and at WN18RR's 40,943 entities and 93,003 triples), the five
 robustness evaluations and the reference's link presets on the cached
 WN18RR and FB15K237, and holds every CUDA kernel of their paths against its
 plain PyTorch version; then the graph tasks on molecules, mixed precision,
-and the MoE-SAGE layer and the gcn / gin / gat backbones.  Phases, each
+the MoE-SAGE layer and the gcn / gin / gat backbones, and cora from raw
+files through the language-model text encoders.  Phases, each
 announced before it starts and timed when it ends:
 
   1. device  — the card's name and power limit (nvidia-smi);
@@ -46,7 +47,7 @@ announced before it starts and timed when it ends:
                no kernel-1 launch; outputs checked; the same encoder on
                ``gwin="off"`` layouts (2 kernel-1 launches) and through the
                plain versions, ``z`` compared;
-  7. train   — ``stemgnn_tpu_torch.finetune.main``, 3 epochs: 3 kernel-2
+  7. train   — ``stemgnn_tpu_torch.finetune.main``, 2 epochs: 3 kernel-2
                launches per training step and 2 per evaluation, finite
                losses, trainable parameters moved and the frozen VQ not,
                one step's gradients against the plain versions and against
@@ -64,12 +65,13 @@ announced before it starts and timed when it ends:
   9. pretrain_mb — the minibatch pretrain: the native sampler built from
                the port's copy of its source (the native route asserted);
                the CLI chain at full width on ``arxiv_synthetic_pl``
-               (``pretrain.main`` for one epoch cut at 8 steps, a resume
-               that saves epoch 2, ``finetune.main`` and ``infer.main``
-               from those checkpoints, and a finetune with no checkpoint,
+               (``pretrain.main`` for one epoch cut at 4 steps, a resume
+               that saves epoch 2, ``finetune.main`` (1 epoch) and
+               ``infer.main`` from those checkpoints, and a finetune with no
+               checkpoint (1 epoch),
                whose codebook is k-means-initialized), its run directory
                removed at the end; then ``run_pretrain`` on both routes,
-               12 steps each: ``"on"`` (each batch's own layout) launches
+               6 steps each: ``"on"`` (each batch's own layout) launches
                kernel 1 three times and kernel 2 twice a step, ``"auto"``
                neither; finite losses that move, one step's gradients on
                the ``"on"`` route against the plain versions, step ms,
@@ -82,7 +84,7 @@ announced before it starts and timed when it ends:
                finite losses, one step's gradients against the plain
                versions; step ms, epoch walls, peak memory;
  11. ood     — the five robustness evaluations, each script's ``main``
-               (``stemgnn_tpu_torch.scripts.*``) with one run of 3 epochs
+               (``stemgnn_tpu_torch.scripts.*``) with one run of 2 epochs
                at full width on ``arxiv_synthetic_fragile`` (169,343 nodes,
                the graph they were built for): ``tri_objective`` (four
                missing-feature re-evaluations), ``random_edge_drop``,
@@ -102,7 +104,7 @@ announced before it starts and timed when it ends:
  12. kg      — the reference's knowledge-graph link presets through
                ``finetune.main --use_params`` on the repository's cached
                WN18RR (40,943 entities, 93,003 triples, 11 relations; full
-               batch, 3 epochs) and FB15K237 (14,537 entities, 38,001
+               batch, 2 epochs) and FB15K237 (14,537 entities, 38,001
                triples, 228 relations; batches of 1,024 edges with 30
                neighbours over 2 hops, 2 epochs, ``--save_model``), one edge
                text each (T = 1, the factored branch): entities, edges,
@@ -125,9 +127,9 @@ announced before it starts and timed when it ends:
  13. graph   — the graph tasks, which launch no kernel (a molecule batch
                carries no layout, as in JAX): ``finetune.main --use_params``
                on ``mol_synthetic`` (600 graphs, 4 tasks, batches of 64, 2
-               epochs; the materialized bundle, the host AUC), then 20,000
-               random valence-safe molecules (about half of MoleculeNet
-               HIV's count, 128 tasks, 60% NaN, 80/10/10), written to a
+               epochs; the materialized bundle, the host AUC), then 3,000
+               random valence-safe molecules (of MoleculeNet HIV's 41,127;
+               128 tasks, 60% NaN, 80/10/10), written to a
                CSV under ``chiprun_out/``, featurized once, through
                ``finetune.main --finetune_dataset smiles:<csv>`` with
                chemhiv's preset values as flags (batches of 1,024, lr
@@ -156,10 +158,10 @@ announced before it starts and timed when it ends:
                step ms, the stage split, peak memory; (b) the pretrain CLI
                with ``--mixed_precision`` (``fused_minibatch`` auto: no
                kernel) and its config on ``"on"`` through ``run_pretrain``
-               (kernel 1 x 3 and kernel 2 x 2 a step), 4 steps each; (c)
+               (kernel 1 x 3 and kernel 2 x 2 a step), 2 steps each; (c)
                ``finetune --bf16`` on the node task (kernel 2 with bf16
                out) and the typed link task on ``kg_synthetic`` (kernel 2's
-               xe mode and kernel 3 with bf16 out), 3 epochs each, those
+               xe mode and kernel 3 with bf16 out), 2 epochs each, those
                launches checked and timed, ``z`` against the plain route;
                (d) the graph task on ``mol_synthetic`` with ``--bf16`` and
                with ``--eval_bf16 1`` (the evaluation's ``z`` bf16, the
@@ -170,7 +172,7 @@ announced before it starts and timed when it ends:
  16. backbones — the MoE-SAGE layer and the gcn / gin / gat backbones at
                full width on ``arxiv_synthetic_pl``: (a) ``finetune.main
                --moe --moe_layers last --lamda_env 0.1`` from an MoE
-               checkpoint written here, 3 epochs (layer 1, sage, through
+               checkpoint written here, 2 epochs (layer 1, sage, through
                kernel 2 once a step and once an evaluation; the MoE layer
                by gathers and ``index_add_``), the ``[MoE]`` usage lines,
                the scaled env term below 0, one step's gradients against
@@ -179,7 +181,7 @@ announced before it starts and timed when it ends:
                once a step on layer 1's dropout tail, kernel 2 once on the
                teacher's), ``env_reg_loss`` below 0, one step's gradients
                against the plain versions; (c) ``--backbone gcn``, ``gin``
-               and ``gat`` from scratch, 2 epochs each (no layout, no
+               and ``gat`` from scratch, 1 epoch each (no layout, no
                kernel, as in JAX; gat with ``--eval_chunked 1``); (d) the
                layer-wise evaluation of gat's and (a)'s models: ``z``
                against the full f32 encode, probabilities against the full
@@ -187,7 +189,28 @@ announced before it starts and timed when it ends:
                ``degree_shift_ood --moe --lamda_env 0.1`` on the shared
                ``arxiv_synthetic_fragile`` (kernel 2 once in the k-means
                init, twice an epoch).  For each: launches, step and
-               evaluation ms by CUDA events, peak memory.
+               evaluation ms by CUDA events, peak memory;
+ 17. text    — bring-your-own data and the text encoders, with the cache
+               root in a temporary directory: (a) cora's raw files at its
+               size (a PyG ``cora.pt`` of 2,708 texts of 150-250 words
+               over a synthetic 30,522-entry WordPiece vocabulary, 10,556
+               directed edges with duplicates, 7 classes, and
+               ``categories.csv``) and a seeded DistilBERT snapshot at
+               multi-qa-distilbert-cos-v1's widths (6 x 768, 12 heads, FFN
+               3,072) through ``finetune.main --finetune_dataset cora
+               --use_params --text_encoder ST``, 2 epochs: the texts
+               encoded on the card, kernel 2 twice in the k-means init and
+               five times an epoch; 32 texts' embeddings on the card
+               against the CPU's on the same weights; (b) ST on 4,096
+               generated texts; (c) e5 at e5-large-v2's widths (24 x
+               1,024, 16 heads, FFN 4,096) from a snapshot on 512 texts,
+               card against CPU on 4; (d) Llama-2-7B's widths (32 x 4,096,
+               32 heads, FFN 11,008) built on the card from the seed, 16
+               rows of about 128 ids, card against CPU on its first 2
+               layers; (e) a reference PyG cache of cora imported and an
+               ``.st`` memmap cache written and read back.  For each
+               encoder: texts/s, tokens/s, host tokenizing ms and device ms
+               (CUDA events) a batch, the idle share and peak memory.
 
 Each dataset is generated or read once and shared by the phases that load
 it (the entry points change none of its arrays).  Prints the
@@ -212,6 +235,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -219,7 +243,8 @@ import torch
 from stemgnn_tpu_torch.core.config import (EncoderConfig, FinetuneConfig,
                                            VQConfig)
 from stemgnn_tpu_torch import finetune as finetune_cli
-from stemgnn_tpu_torch.data import native_sampler, registry
+from stemgnn_tpu_torch.data import (importers, native_sampler, raw_parsers,
+                                    registry, text_encoder)
 from stemgnn_tpu_torch.data.merge import merge_datasets
 from stemgnn_tpu_torch.data.registry import load_dataset
 from stemgnn_tpu_torch.data.sampler import (CSCGraph, NeighborBatchIterator,
@@ -251,6 +276,12 @@ from stemgnn_tpu_torch.scripts import (degree_shift_ood, homophily_shift_ood,
                                        missing_feature, random_edge_drop,
                                        tri_objective)
 from stemgnn_tpu_torch.data.synthetic import write_smiles_csv
+from stemgnn_tpu_torch.data.text_encoder import (E5Encoder, LlamaEncoder,
+                                                 SentenceEncoder)
+from stemgnn_tpu_torch.nn.bert import BertConfig, BertModel
+from stemgnn_tpu_torch.nn.distilbert import (DistilBertConfig,
+                                             WordPieceTokenizer, load_into)
+from stemgnn_tpu_torch.nn.llama import LlamaConfig, LlamaModel
 from stemgnn_tpu_torch.train import finetune_loop
 from stemgnn_tpu_torch.train.finetune_loop import (_batch_graph_list,
                                                    _graph_feeder,
@@ -275,16 +306,18 @@ DATASET = "arxiv_synthetic_pl"
 FEAT_DIM = 768
 NUM_CLASSES = 40
 SEED = 42
-EPOCHS = 3
+# the finetunes' epochs (3 until the text phase came: PERF.md, section 4)
+EPOCHS = 2
 PRETRAIN_STEPS = 3
 # phase mp: the full-graph steps and the minibatch steps of each route
 # under --mixed_precision, and the losses held to the JAX package's gate
-MP_STEPS, MP_MB_STEPS = 3, 4
+MP_STEPS, MP_MB_STEPS = 3, 2
 MP_LOSSES = ("feat_recon_loss", "topo_recon_loss", "topo_sem_recon_loss",
              "sem_recon_loss", "commit_loss")
-# the minibatch pretrain: the reference's batches (pretrain.yaml) and the
-# steps of each run_pretrain route
-MB_BATCH, MB_FANOUT, MB_STEPS = 1024, 10, 12
+# the minibatch pretrain: the reference's batches (pretrain.yaml), the
+# steps of each run_pretrain route and the epochs of the finetunes that
+# follow the pretrain CLI
+MB_BATCH, MB_FANOUT, MB_STEPS, MB_FT_EPOCHS = 1024, 10, 6, 1
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 K1, K2 = "scatter_rows_sorted", "gathered_scatter_rows_sorted"
@@ -303,11 +336,11 @@ KG = "kg_synthetic"
 KG_TYPES = 11
 # WN18RR's entity and triple counts (the generator keeps its 11 relations)
 WN18RR_ENTITIES, WN18RR_TRIPLES = 40_943, 93_003
-# the graph phase's indexed bundle with PCBA's 128 tasks: 20,000 molecules,
-# about half of MoleculeNet HIV's 41,127 (the reference's chemhiv); at
-# 41,127 the host work of the molecules took the whole smoke past its 4
-# minutes on an H100 machine with a slow host CPU (PERF.md, section 4)
-MOLECULES, MOL_TASKS = 20_000, 128
+# the graph phase's indexed bundle with PCBA's 128 tasks: 3,000 molecules
+# of MoleculeNet HIV's 41,127 (the reference's chemhiv); the host work of
+# 41,127, then of 20,000, took the whole smoke past its 4 minutes with the
+# later phases (PERF.md, section 4)
+MOLECULES, MOL_TASKS = 3_000, 128
 # the robustness evaluations' graph and the JSON keys of the JAX scripts
 # (scripts/*.py): the payload's, and one run's row
 OOD_DATASET = "arxiv_synthetic_fragile"
@@ -1065,9 +1098,9 @@ def pretrain_mb_cli(ds, tmp, dev, paths):
             "2"]
     save_root = None
     try:
-        for tag, extra, epoch in (("pretrain", ["--max_steps", "8"], 1),
-                                  ("resume", ["--resume", "--max_steps",
-                                              "4"], 2)):
+        for tag, steps, epoch in (("pretrain", 4, 1), ("resume", 2, 2)):
+            extra = (["--resume"] if epoch == 2 else []) + [
+                "--max_steps", str(steps)]
             argv = base + extra
             print(f"  python -m stemgnn_tpu_torch.pretrain {' '.join(argv)}",
                   flush=True)
@@ -1080,8 +1113,7 @@ def pretrain_mb_cli(ds, tmp, dev, paths):
                   f" steps, checkpoint)", flush=True)
             expect_counts(f"pretrain CLI ({tag}, fused_minibatch auto)",
                           paths[f"pretrain_cli_{tag}"], {})
-            mb_check_losses(f"pretrain CLI ({tag})", hist,
-                            8 if epoch == 1 else 4)
+            mb_check_losses(f"pretrain CLI ({tag})", hist, steps)
             for part in ("encoder", "vq", "full"):
                 if not os.path.exists(os.path.join(save_root,
                                                    f"{part}_{epoch}.npz")):
@@ -1090,16 +1122,18 @@ def pretrain_mb_cli(ds, tmp, dev, paths):
 
         argv = ["--finetune_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
                 "--pretrain_path", save_root, "--pretrain_model_epoch", "2",
-                "--seed", str(SEED), "--epochs", "2", "--repeat", "1"]
+                "--seed", str(SEED), "--epochs", str(MB_FT_EPOCHS),
+                "--repeat", "1"]
         print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
               flush=True)
         reset_counts()
         res = finetune_main(argv)
         paths["finetune_from_pretrain_cli"] = read_counts()
-        expect_counts("finetune from the port's checkpoint (2 x (train "
-                      "step + eval))", paths["finetune_from_pretrain_cli"],
-                      {K2: 2 * (3 + 2)})
-        check_losses(res, 2)
+        expect_counts(f"finetune from the port's checkpoint ({MB_FT_EPOCHS} "
+                      f"x (train step + eval))",
+                      paths["finetune_from_pretrain_cli"],
+                      {K2: MB_FT_EPOCHS * (3 + 2)})
+        check_losses(res, MB_FT_EPOCHS)
         del res
 
         out = os.path.join(tmp, "mb_out.npz")
@@ -1120,21 +1154,23 @@ def pretrain_mb_cli(ds, tmp, dev, paths):
             remove_run_dir(save_root)
 
     argv = ["--finetune_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
-            "--seed", str(SEED), "--epochs", "2", "--repeat", "1"]
+            "--seed", str(SEED), "--epochs", str(MB_FT_EPOCHS), "--repeat",
+            "1"]
     print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)} (no "
           f"checkpoint: the codebook's k-means init)", flush=True)
     reset_counts()
     res = finetune_main(argv)
     paths["finetune_kmeans_init"] = read_counts()
-    expect_counts("finetune with the k-means init (one eval-mode encode, "
-                  "2 x (train step + eval))", paths["finetune_kmeans_init"],
-                  {K2: 2 + 2 * (3 + 2)})
+    expect_counts(f"finetune with the k-means init (one eval-mode encode, "
+                  f"{MB_FT_EPOCHS} x (train step + eval))",
+                  paths["finetune_kmeans_init"],
+                  {K2: 2 + MB_FT_EPOCHS * (3 + 2)})
     vq = res["model"].vq
     sizes = vq.cluster_size.sum(1).tolist()
     if not bool(vq.initted) or sizes != [float(ds.num_nodes)] * len(sizes):
         raise AssertionError(f"k-means init: initted {bool(vq.initted)}, "
                              f"bins sum to {sizes}")
-    check_losses(res, 2)
+    check_losses(res, MB_FT_EPOCHS)
     del res, vq
 
 
@@ -1410,7 +1446,9 @@ def shared_datasets():
     def load_once(*a, **kw):
         bound = sig.bind(*a, **kw)
         bound.apply_defaults()
-        key = json.dumps(bound.arguments, sort_keys=True, default=str)
+        # every phase runs on the one card: the device names no other data
+        key = json.dumps({k: v for k, v in bound.arguments.items()
+                          if k != "device"}, sort_keys=True, default=str)
         if key not in loaded:
             t0 = time.perf_counter()
             loaded[key] = real(*a, **kw)
@@ -2357,8 +2395,8 @@ def backbones_run(tmp, graph, dev, paths):
         chunked = ["--eval_chunked", "1"] if bb == "gat" else []
         res = bb_finetune(f"bb_{bb}", [*base, "--backbone", bb,
                                        "--pretrain_dataset", "na",
-                                       "--epochs", "2", *chunked],
-                          paths, {}, 2)
+                                       "--epochs", "1", *chunked],
+                          paths, {}, 1)
         if res["graph"].layout is not None or res["graph"].edge_feat \
                 is not None:
             raise AssertionError(f"{bb}: the graph carries a layout or "
@@ -2396,6 +2434,414 @@ def backbones_run(tmp, graph, dev, paths):
           flush=True)
     del res
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------- phase text
+
+CORA = dict(nodes=2_708, edges=10_556, classes=7)
+CORA_LABELS = ("Case_Based", "Genetic_Algorithms", "Neural_Networks",
+               "Probabilistic_Methods", "Reinforcement_Learning",
+               "Rule_Learning", "Theory")
+ST_TEXTS, E5_TEXTS, LLAMA_TEXTS, LLAMA_IDS = 4_096, 512, 16, 128
+# the card against the CPU on the same weights: every embedding entry
+# within this share of the largest
+EMB_RTOL = 1e-4
+
+
+def synthetic_vocab(rng, path):
+    """A 30,522-entry uncased WordPiece ``vocab.txt`` in BERT's order
+    ([PAD] 0, [unused*], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103),
+    then punctuation, whole words and ``##`` pieces drawn from the seed.
+    Returns the whole words and the punctuation."""
+    head = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+            + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    punct = [".", ",", ";", ":", "(", ")", "-", "'"]
+    n_rest = 30_522 - len(head) - len(punct)
+    # random lowercase strings of 2-10 letters, unique, 80% of them whole
+    # words and the rest "##" continuation pieces
+    codes = rng.integers(97, 123, (2 * n_rest, 10), dtype=np.uint8)
+    lens = rng.integers(2, 11, 2 * n_rest)
+    cand = list(dict.fromkeys(bytes(c[:k]).decode()
+                              for c, k in zip(codes, lens)))[:n_rest]
+    n_words = int(0.8 * n_rest)
+    words, pieces = cand[:n_words], ["##" + w for w in cand[n_words:]]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(head + punct + words + pieces) + "\n")
+    return np.array(words), np.array(punct)
+
+
+def synthetic_texts(rng, vocab, n, lo=150, hi=250):
+    """``n`` texts of ``lo``-``hi`` words from the vocabulary's whole words
+    with a punctuation mark every ~12 words and a capital to start."""
+    words, punct = vocab
+    out = []
+    for k in rng.integers(lo, hi + 1, n):
+        w = words[rng.integers(0, len(words), int(k))].astype(object)
+        marks = rng.random(int(k)) < 1 / 12
+        w[marks] = w[marks] + punct[rng.integers(0, len(punct),
+                                                 int(marks.sum()))]
+        out.append(" ".join(w).capitalize())
+    return out
+
+
+def save_pyg_data(path, payload):
+    """``torch.save`` of ``payload`` with each dict in it replaced by a
+    PyG 2.3 ``Data`` (its attributes in ``_store._mapping``), pickled under
+    the real ``torch_geometric`` module names as PyG writes it; the
+    modules are registered for the save only."""
+    mods = {n: types.ModuleType(n) for n in (
+        "torch_geometric", "torch_geometric.data",
+        "torch_geometric.data.data", "torch_geometric.data.storage")}
+
+    class GlobalStorage:
+        def __init__(self, mapping, parent=None):
+            self._mapping, self._parent = dict(mapping), parent
+
+    class Data:
+        def __init__(self, **kw):
+            self.__dict__["_store"] = GlobalStorage(kw, parent=self)
+
+    for cls, mod in ((GlobalStorage, "storage"), (Data, "data")):
+        cls.__module__ = f"torch_geometric.data.{mod}"
+        cls.__qualname__ = cls.__name__
+        setattr(mods[cls.__module__], cls.__name__, cls)
+    saved = {n: sys.modules.get(n) for n in mods}
+    sys.modules.update(mods)
+    try:
+        obj = (tuple(Data(**p) if isinstance(p, dict) else p
+                     for p in payload) if isinstance(payload, tuple)
+               else Data(**payload))
+        torch.save(obj, path)
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+def write_cora_tree(root, vocab, rng):
+    """cora's raw files at its size: ``cora.pt`` (a PyG ``Data``: 2,708
+    texts of 150-250 words, 7 classes, 10,556 directed edges: 5,000 random
+    pairs both ways and 556 duplicates) and ``categories.csv``."""
+    os.makedirs(root, exist_ok=True)
+    n, n_dup = CORA["nodes"], CORA["edges"] // 19
+    pairs = rng.integers(0, n, ((CORA["edges"] - n_dup) // 2, 2))
+    ei = np.concatenate([pairs, pairs[:, ::-1]], 0)
+    ei = np.concatenate([ei, ei[rng.integers(0, len(ei), n_dup)]]).T
+    save_pyg_data(os.path.join(root, "cora.pt"), {
+        "raw_texts": synthetic_texts(rng, vocab, n),
+        "y": torch.from_numpy(rng.integers(0, CORA["classes"], n)),
+        "edge_index": torch.from_numpy(np.ascontiguousarray(ei)),
+        "label_names": list(CORA_LABELS)})
+    with open(os.path.join(root, "categories.csv"), "w") as f:
+        f.write(",description\n" + "".join(
+            f'{lab},"{" ".join(synthetic_texts(rng, vocab, 1, 8, 20))}"\n'
+            for lab in CORA_LABELS))
+
+
+def hf_distilbert_state(cfg, gen):
+    """A Hugging Face ``DistilBertModel`` state dict at ``cfg``'s widths,
+    drawn on ``gen``'s device as HF initializes (weights N(0, 0.02),
+    biases 0, norms 1 / 0) and moved to the CPU."""
+    dev = gen.device
+    d, f = cfg.dim, cfg.hidden_dim
+
+    def w(*shape):
+        return torch.empty(shape, device=dev).normal_(0.0, 0.02,
+                                                      generator=gen).cpu()
+
+    def lin(name, o, i):
+        return {f"{name}.weight": w(o, i), f"{name}.bias": torch.zeros(o)}
+
+    def ln(name):
+        return {f"{name}.weight": torch.ones(d), f"{name}.bias":
+                torch.zeros(d)}
+    sd = {"embeddings.word_embeddings.weight": w(cfg.vocab_size, d),
+          "embeddings.position_embeddings.weight":
+              w(cfg.max_position_embeddings, d), **ln("embeddings.LayerNorm")}
+    for i in range(cfg.n_layers):
+        p = f"transformer.layer.{i}"
+        for name in ("q_lin", "k_lin", "v_lin", "out_lin"):
+            sd.update(lin(f"{p}.attention.{name}", d, d))
+        sd.update({**lin(f"{p}.ffn.lin1", f, d), **lin(f"{p}.ffn.lin2", d, f),
+                   **ln(f"{p}.sa_layer_norm"),
+                   **ln(f"{p}.output_layer_norm")})
+    return sd
+
+
+def write_snapshot(path, vocab_path, cfg, gen):
+    """A DistilBERT snapshot directory as Hugging Face lays it out:
+    ``vocab.txt`` and ``pytorch_model.bin``.  Returns its size in GB."""
+    os.makedirs(path, exist_ok=True)
+    shutil.copy(vocab_path, os.path.join(path, "vocab.txt"))
+    sd = hf_distilbert_state(cfg, gen)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    return sum(v.numel() * 4 for v in sd.values()) / 1e9
+
+
+def clone_model(model, device, keep=None):
+    """The model's weights on ``device`` (a copy unless they are there
+    already) in a new module of its class; with ``keep`` (a config of
+    fewer layers) only the embeddings, the layers it names and the final
+    norm."""
+    cfg = keep or model.cfg
+    names = {k for k, _ in type(model)(cfg, device="meta").named_parameters()}
+    return load_into(type(model)(cfg, device="meta"),
+                     {k: v.to(device) for k, v in model.state_dict().items()
+                      if k in names}, device)
+
+
+@contextlib.contextmanager
+def captured_encoders():
+    """The text encoders the raw-file loaders build, each with the
+    ``history`` of every encode it ran (``enc.histories``)."""
+    real, made = raw_parsers.get_text_encoder, []
+
+    def make(*a, **kw):
+        enc = real(*a, **kw)
+        enc.histories, encode = [], enc.encode
+
+        def encode_kept(texts):
+            out = encode(texts)
+            enc.histories.append(dict(enc.history))
+            return out
+        enc.encode = encode_kept
+        made.append(enc)
+        return enc
+    raw_parsers.get_text_encoder = make
+    try:
+        yield made
+    finally:
+        raw_parsers.get_text_encoder = real
+
+
+def encoder_report(tag, enc, peak, card, h=None):
+    """One encode's rates, host and device ms a batch, idle share and peak
+    memory (``peak``: GB above what was held, and GB held, the model's
+    weights among them), from ``h``, by default the encoder's last
+    ``history``."""
+    peak_gb, held_gb = peak
+    h = enc.history if h is None else h
+    wall_ms = h["wall_s"] * 1e3
+    dev_ms = float(np.sum(h["device_ms"]))
+    out = {"texts": h["texts"], "batches": len(h["tokenize_ms"]),
+           "batch_size": enc.batch_size, "tokens": h["tokens"],
+           "positions": h["positions"], "wall_s": h["wall_s"],
+           "texts_per_s": h["texts"] / h["wall_s"],
+           "tokens_per_s": h["tokens"] / h["wall_s"],
+           "tokenize_ms": float(np.mean(h["tokenize_ms"])),
+           "device_ms": float(np.mean(h["device_ms"])),
+           "idle": 1.0 - dev_ms / wall_ms, "peak_gb": peak_gb,
+           "held_gb": held_gb}
+    print(f"  {tag}: {out['texts']} texts in {out['batches']} batches of "
+          f"{out['batch_size']}, {out['tokens']} tokens ({out['positions']} "
+          f"positions run): {out['texts_per_s']:.1f} texts/s, "
+          f"{out['tokens_per_s']:.0f} tokens/s; a batch: host tokenizing "
+          f"{out['tokenize_ms']:.3f} ms, device {out['device_ms']:.3f} ms "
+          f"(CUDA events); idle share {out['idle']:.4f} of "
+          f"{out['wall_s']:.3f} s; peak device memory {peak_gb:.2f} GB "
+          f"above the {held_gb:.2f} GB held before it (the weights among "
+          f"them); {card}", flush=True)
+    return out
+
+
+def check_embeddings(tag, got, want):
+    """Card against CPU: finite, and within ``EMB_RTOL`` of the largest."""
+    got, want = np.asarray(got), np.asarray(want)
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    ok = np.isfinite(got).all() and err <= EMB_RTOL * scale
+    print(f"  {tag}: {got.shape[0]} embeddings of {got.shape[1]}, "
+          f"max_abs_err {err:.3e} against the CPU's (largest {scale:.3e}, "
+          f"tol {EMB_RTOL} of it) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{tag}: the card's embeddings disagree")
+    return err
+
+
+def measured(enc, texts_or_ids, dev, by_ids=False):
+    """The embeddings, and the peak device memory of the encode above what
+    was held before it (the model's weights among it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated(dev)
+    emb = enc.encode_ids(texts_or_ids) if by_ids else enc.encode(
+        texts_or_ids)
+    return emb, ((torch.cuda.max_memory_allocated(dev) - held) / 1e9,
+                 held / 1e9)
+
+
+def text_run(dev, paths, card):
+    """Phase text (module docstring): cora from raw files through ST into
+    the finetune CLI, ST / e5 / Llama-2-7B on the card with their
+    card-against-CPU checks, the reference-cache import and the ``.st``
+    memmap cache.  The cache root is a temporary directory throughout."""
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tmp_dir = tempfile.TemporaryDirectory()
+    root = tmp_dir.name
+    saved_root = importers.DEFAULT_CACHE_ROOT
+    saved_env = {k: os.environ.pop(k, None) for k in (
+        "ST_MODEL_DIR", "E5_MODEL_DIR", "LLAMA2_7B_MODEL_DIR")}
+    importers.DEFAULT_CACHE_ROOT = root
+    reports = {}
+    try:
+        # (a) cora from its raw files through ST, into the finetune CLI
+        t0 = time.perf_counter()
+        vocab_path = os.path.join(root, "vocab.txt")
+        vocab = synthetic_vocab(rng, vocab_path)
+        write_cora_tree(os.path.join(root, "raw", "single_graph", "Cora"),
+                        vocab, rng)
+        st_dir = text_encoder.default_model_dir("ST")
+        gb = write_snapshot(st_dir, vocab_path, DistilBertConfig(), gen)
+        print(f"  (a) cora's raw tree ({CORA['nodes']} texts of 150-250 "
+              f"words, {CORA['edges']} directed edges, {CORA['classes']} "
+              f"classes, a PyG cora.pt) and a DistilBERT snapshot at "
+              f"multi-qa-distilbert-cos-v1's widths ({gb:.3f} GB) written "
+              f"in {time.perf_counter() - t0:.2f} s", flush=True)
+        st_dim = DistilBertConfig().dim
+        argv = ["--finetune_dataset", "cora", "--use_params",
+                "--text_encoder", "ST", "--feat_dim", str(st_dim),
+                "--hidden_dim", str(st_dim), "--code_dim", str(st_dim),
+                "--epochs", str(EPOCHS), "--repeat", "1", "--seed",
+                str(SEED), "--debug"]
+        print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+              flush=True)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated(dev)
+        with captured_encoders() as made:
+            reset_counts()
+            res = finetune_main(argv)
+            paths["text_cora"] = read_counts()
+        peak = ((torch.cuda.max_memory_allocated(dev) - held) / 1e9,
+                held / 1e9)
+        print(f"  finetune wall {time.perf_counter() - t0:.2f} s with the "
+              f"raw parse and the encoding; "
+              f"{describe_layout(res['graph'].layout)}", flush=True)
+        expect_counts(f"cora (k-means init, {EPOCHS} x (train step + eval))",
+                      paths["text_cora"], {K2: 2 + EPOCHS * (3 + 2)})
+        check_losses(res)
+        if len(made) != 1 or not isinstance(made[0], SentenceEncoder):
+            raise AssertionError(f"the loader built {made}, not one ST "
+                                 f"encoder")
+        if made[0].device.type != dev.type:
+            raise AssertionError("cora's texts were encoded off the card")
+        reports["ST cora"] = encoder_report(
+            "ST on cora's node texts (in the finetune's load; the peak the "
+            "whole finetune's)", made[0], peak, card, made[0].histories[0])
+        ds = importers.load_dataset_cache("cora", "ST", st_dim)
+        if ds is None or ds.node_text_feat.shape != (CORA["nodes"], st_dim):
+            raise AssertionError(f"no ST cache of cora at {st_dim} dims")
+        del res, made
+        st = SentenceEncoder.from_dir(st_dir, device=dev)
+        short = synthetic_texts(rng, vocab, 32, 20, 45)
+        reports["ST cora"]["max_abs_err"] = check_embeddings(
+            "ST card vs CPU", st.encode(short),
+            SentenceEncoder(clone_model(st.model, "cpu"),
+                            st.tokenizer).encode(short))
+
+        # (b) ST throughput
+        t0 = time.perf_counter()
+        texts = synthetic_texts(rng, vocab, ST_TEXTS)
+        print(f"  (b) {ST_TEXTS} texts generated in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        emb, peak = measured(st, texts, dev)
+        if emb.shape != (ST_TEXTS, st_dim) or not np.isfinite(emb).all() or \
+                not np.allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-5):
+            raise AssertionError("ST embeddings not finite unit rows")
+        reports["ST"] = encoder_report("ST", st, peak, card)
+        del st, emb
+        torch.cuda.empty_cache()
+
+        # (c) e5 at e5-large-v2's widths, built on the card from the seed
+        # (the snapshot route is ST's above)
+        t0 = time.perf_counter()
+        e5 = E5Encoder(BertModel(BertConfig(), generator=gen, device=dev),
+                       WordPieceTokenizer.from_vocab_file(vocab_path))
+        torch.cuda.synchronize()
+        print(f"  (c) e5 built on the card in {time.perf_counter() - t0:.2f}"
+              f" s: {e5.model.cfg}", flush=True)
+        emb, peak = measured(e5, synthetic_texts(rng, vocab, E5_TEXTS), dev)
+        if emb.shape != (E5_TEXTS, e5.dim) or not np.isfinite(emb).all():
+            raise AssertionError("e5 embeddings not finite")
+        reports["e5"] = encoder_report("e5", e5, peak, card)
+        short = synthetic_texts(rng, vocab, 4, 20, 45)
+        reports["e5"]["max_abs_err"] = check_embeddings(
+            "e5 card vs CPU", e5.encode(short),
+            E5Encoder(clone_model(e5.model, "cpu"), e5.tokenizer).encode(
+                short))
+        del e5, emb
+        torch.cuda.empty_cache()
+
+        # (d) Llama-2-7B's widths, 32 layers, on the card from the seed
+        t0 = time.perf_counter()
+        llama = LlamaModel(LlamaConfig(), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        print(f"  (d) Llama-2-7B's widths built on the card in "
+              f"{time.perf_counter() - t0:.2f} s: "
+              f"{sum(p.numel() for p in llama.parameters()) / 1e9:.3f}B "
+              f"parameters, {llama.cfg}", flush=True)
+        lengths = rng.integers(LLAMA_IDS - 24, LLAMA_IDS + 1, LLAMA_TEXTS)
+        ids = np.full((LLAMA_TEXTS, LLAMA_IDS), 2, np.int32)   # EOS = 2
+        for i, k in enumerate(lengths):
+            ids[i, 0] = 1                                      # BOS
+            ids[i, 1:k] = rng.integers(3, llama.cfg.vocab_size, k - 1)
+        enc = LlamaEncoder(llama, pad_id=2)
+        emb, peak = measured(enc, ids, dev, by_ids=True)
+        if emb.shape != (LLAMA_TEXTS, llama.cfg.dim) or \
+                not np.isfinite(emb).all():
+            raise AssertionError("llama embeddings not finite")
+        enc.history["tokens"] = int(lengths.sum())
+        reports["llama2_7b"] = encoder_report("llama2_7b", enc, peak, card)
+        two = LlamaConfig(n_layers=2)
+        reports["llama2_7b"]["max_abs_err"] = check_embeddings(
+            "llama2_7b (its first 2 layers) card vs CPU",
+            LlamaEncoder(clone_model(llama, dev, two),
+                         pad_id=2).encode_ids(ids[:2]),
+            LlamaEncoder(clone_model(llama, "cpu", two),
+                         pad_id=2).encode_ids(ids[:2]))
+        del llama, enc, emb
+        torch.cuda.empty_cache()
+
+        # (e) the importers at cora's size
+        t0 = time.perf_counter()
+        ref = os.path.join(root, "geometric_data_processed.pt")
+        save_pyg_data(ref, ({
+            "x": torch.from_numpy(ds.x), "xe": torch.from_numpy(ds.xe),
+            "edge_index": torch.from_numpy(ds.edge_index),
+            "y": torch.from_numpy(ds.labels),
+            "node_text_feat": torch.from_numpy(ds.node_text_feat),
+            "edge_text_feat": torch.from_numpy(ds.edge_text_feat),
+            "class_node_text_feat": torch.from_numpy(
+                ds.class_node_text_feat)}, None))
+        imported = importers.import_reference_cache(ref, "cora")
+        st_path = importers.save_dataset_cache_memmap(ds, "ST", root=root)
+        back = importers.load_dataset_cache_memmap("cora", "ST", st_dim,
+                                                   root=root)
+        for k in ("node_text_feat", "edge_text_feat", "class_node_text_feat",
+                  "x", "xe", "edge_index", "labels"):
+            for tag, got in (("reference cache", imported), (".st", back)):
+                if not np.array_equal(np.asarray(getattr(got, k)),
+                                      getattr(ds, k)):
+                    raise AssertionError(f"{tag}: {k} differs")
+        if not isinstance(back.node_text_feat, np.memmap) or \
+                "torch_geometric" in sys.modules:
+            raise AssertionError("the .st cache is not memory-mapped, or "
+                                 "the PyG stubs outlived the import")
+        print(f"  (e) a reference PyG cache of cora imported and an .st "
+              f"cache ({st_path}) written and memory-mapped back, equal, in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    finally:
+        importers.DEFAULT_CACHE_ROOT = saved_root
+        for k, v in saved_env.items():
+            if v is not None:
+                os.environ[k] = v
+        tmp_dir.cleanup()
+    print(json.dumps({"text_encoders": reports}), flush=True)
+    return reports
 
 
 def save_checkpoint(tmp, gen, moe: bool = False):
@@ -2714,6 +3160,11 @@ def main():
     with phase("backbones"):
         backbones_run(tmp, graph, dev, paths)
     tmp_dir.cleanup()
+    del graph
+    torch.cuda.empty_cache()
+
+    with phase("text"):
+        text_run(dev, paths, card)
     shared.close()
     line = []
     for k in kernels:

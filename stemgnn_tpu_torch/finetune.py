@@ -29,8 +29,12 @@ backward) unless ``--device cpu`` is given; without CUDA and without
 ``--device cpu`` it exits with an error.  Every flag of the JAX CLI is
 accepted; ``--moe`` (with ``--lamda_env``'s environment regularizer) and
 ``--backbone gcn|gin|gat`` train as in JAX; values outside the port
-(multi-GPU, buffer donation, node relabelling, neural text encoders) are
-refused with an error naming their ROADMAP item.  Without a checkpoint
+(multi-GPU, buffer donation, node relabelling) are refused with an error
+naming their ROADMAP item.  ``cora``, ``pubmed``, ``arxiv`` and ``wikics``
+load from their cache or raw files (``data/raw_parsers.py``), and
+``--text_encoder ST|e5|llama2_7b|llama2_13b`` encodes texts with a local
+snapshot's language model on ``--device`` (``data/text_encoder.py``);
+``--feat_dim`` must then be the model's width.  Without a checkpoint
 the codebook is k-means-initialized before training.
 
   python -m stemgnn_tpu_torch.finetune --finetune_dataset WN18RR --use_params
@@ -53,7 +57,9 @@ from stemgnn_tpu_torch.core import config as cfglib
 from stemgnn_tpu_torch.core.config import (EncoderConfig, FinetuneConfig,
                                            VQConfig)
 from stemgnn_tpu_torch.core.device import resolve_device
-from stemgnn_tpu_torch.data.registry import dataset2task, load_dataset
+from stemgnn_tpu_torch.data.registry import (check_feature_width,
+                                             dataset2task, load_dataset)
+from stemgnn_tpu_torch.data.text_encoder import NEURAL
 from stemgnn_tpu_torch.train.finetune_loop import run_finetune
 from stemgnn_tpu_torch.utils import checkpoint as ckpt
 from stemgnn_tpu_torch.utils.convert import from_jax_pytree
@@ -61,7 +67,6 @@ from stemgnn_tpu_torch.utils.observability import apply_wandb_sweep_config
 from stemgnn_tpu_torch.utils.seeding import seed_everything
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
-NEURAL_TEXT_ENCODERS = ("ST", "st", "e5", "llama2_7b", "llama2_13b")
 
 
 def get_args():
@@ -122,7 +127,7 @@ def get_args():
     p.add_argument("--decoder_jac_coeff", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--text_encoder", default="hash",
-                   choices=["hash", "tfidf", *NEURAL_TEXT_ENCODERS])
+                   choices=["hash", "tfidf", *NEURAL])
     p.add_argument("--save_model", default="",
                    help="write the best-val task model to this npz for "
                         "infer --mode predict")
@@ -191,9 +196,6 @@ def refusals(args) -> list:
         (args.reorder in ("rcm", "degree", "community"),
          f"--reorder {args.reorder}: node relabelling (ops/reorder.py) is "
          f"not ported (ROADMAP Queue 1 item 3); use auto or off"),
-        (args.text_encoder in NEURAL_TEXT_ENCODERS,
-         f"--text_encoder {args.text_encoder}: the neural text encoders are "
-         f"not ported (ROADMAP Queue 1 item 11)"),
     )
     return [msg for bad, msg in checks if bad]
 
@@ -286,7 +288,8 @@ def main(argv=None):
 
     seed_everything(args.seed)
     ds = load_dataset(name, feat_dim=args.feat_dim, seed=args.seed,
-                      text_encoder=args.text_encoder)
+                      text_encoder=args.text_encoder, device=device)
+    check_feature_width(ds, args.feat_dim, args.text_encoder)
     enc, vq = _pretrained(args)
     # a graph dataset is (graphs, labels [G, T], split): T tasks
     cfg = make_config(args, ds[1].shape[1] if task == "graph"

@@ -42,7 +42,8 @@ import torch
 from stemgnn_tpu_torch.core.config import (EncoderConfig, FinetuneConfig,
                                            VQConfig, from_dict)
 from stemgnn_tpu_torch.core.device import resolve_device
-from stemgnn_tpu_torch.data.registry import dataset2task, load_dataset
+from stemgnn_tpu_torch.data.registry import (check_feature_width,
+                                             dataset2task, load_dataset)
 from stemgnn_tpu_torch.train.finetune_loop import (graph_task_encode,
                                                    graph_task_predict)
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
@@ -120,7 +121,7 @@ def main(argv=None):
         raise NotImplementedError(f"{name!r} is a link task; the port "
                                   f"encodes node and graph datasets")
     ds = load_dataset(name, feat_dim=args.feat_dim, seed=args.seed,
-                      text_encoder=args.text_encoder)
+                      text_encoder=args.text_encoder, device=device)
 
     path = args.pretrain_path or osp.join(
         ROOT, "ckpts", "pretrain_model", args.pretrain_run_id or "default")
@@ -128,6 +129,7 @@ def main(argv=None):
     enc = ckpt.load_pytree(osp.join(path, f"encoder_{ep}.npz"))
     vq = ckpt.load_pytree(osp.join(path, f"vq_{ep}.npz"))
     cfg = encode_config(args, path)
+    check_feature_width(ds, cfg.encoder.input_dim, args.text_encoder)
     encoder, quantizer = from_jax_pytree(
         {"encoder": enc["params"], "vq": vq["params"]},
         {"encoder": enc["state"], "vq": vq["state"]}, cfg)
@@ -175,7 +177,9 @@ def predict(args, task: str, device):
     model = task_model_from_jax(payload["params"], payload["state"],
                                 cfg).to(device).eval()
     ds = load_dataset(args.finetune_dataset, feat_dim=args.feat_dim,
-                      seed=args.seed, text_encoder=args.text_encoder)
+                      seed=args.seed, text_encoder=args.text_encoder,
+                      device=device)
+    check_feature_width(ds, cfg.encoder.input_dim, args.text_encoder)
     if task == "graph":
         # per-molecule multitask probabilities (JAX infer.py:85-99)
         graphs, labels, _ = ds

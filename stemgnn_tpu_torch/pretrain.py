@@ -21,8 +21,9 @@ EMA teacher's pass and the loss decoders (JAX pretrain.py:154-173), and the
 resident feature tables are bf16 under either.  ``--moe`` (with
 ``--moe_layers``, ``--moe_experts``, ``--moe_tau`` and ``--lamda_env``)
 and ``--backbone gcn|gin|gat`` train as in JAX.  Flag values outside the
-port (data parallelism, halo sharding, buffer donation, neural text
-encoders) are refused with an error naming the ROADMAP item.
+port (data parallelism, halo sharding, buffer donation) are refused with
+an error naming the ROADMAP item.  The neural text encoders run on
+``--device`` from a local snapshot (``data/text_encoder.py``).
 
   python -m stemgnn_tpu_torch.pretrain --pretrain_dataset arxiv_synthetic_pl
   python -m stemgnn_tpu_torch.pretrain --pretrain_dataset arxiv_synthetic_pl \\
@@ -41,7 +42,8 @@ import sys
 from stemgnn_tpu_torch.core import config as cfglib
 from stemgnn_tpu_torch.core.device import resolve_device
 from stemgnn_tpu_torch.data.merge import merge_datasets
-from stemgnn_tpu_torch.data.registry import load_dataset
+from stemgnn_tpu_torch.data.registry import (check_feature_width,
+                                             load_dataset)
 from stemgnn_tpu_torch.train.pretrain_loop import run_pretrain
 from stemgnn_tpu_torch.utils.seeding import seed_everything
 
@@ -131,9 +133,6 @@ def refusals(args) -> list:
         (args.donate, "--donate: buffer donation is a JAX mechanism with no "
                       "PyTorch counterpart (ROADMAP, differences kept on "
                       "purpose)"),
-        (args.text_encoder not in ("hash", "tfidf"),
-         f"--text_encoder {args.text_encoder}: the neural text encoders are "
-         f"not ported (ROADMAP Queue 1 item 11)"),
     )
     return [msg for bad, msg in checks if bad]
 
@@ -226,8 +225,10 @@ def main(argv=None):
     names, weights = dataset_mix(args.pretrain_dataset)
     print(f"Pre-training on {names} (weights {weights})", flush=True)
     datasets = [load_dataset(n, feat_dim=args.feat_dim, seed=args.seed,
-                             text_encoder=args.text_encoder)
+                             text_encoder=args.text_encoder, device=device)
                 for n in names]
+    for ds in datasets:
+        check_feature_width(ds, args.feat_dim, args.text_encoder)
     merged = merge_datasets(datasets)
     cfg = make_config(args)
 

@@ -2,13 +2,13 @@
 (counterpart of the repo's ``scripts/_common.py``): the same flags and
 aliases, plus ``--device``.
 
-Every backbone and ``--moe`` with ``--lamda_env`` run as in JAX.  Flag
-values outside what the port covers are refused with an error that names
-the ROADMAP item that would bring them: the datasets that need downloaded
-files (Queue 1 item 8) and the neural text encoders they would be encoded
-with (item 11).  ``--use_vq 0`` (the no-VQ bypass) and ``--freeze_vq 0`` (the
-codebook trained with the rest) run as in JAX.  Link and graph
-datasets are refused as in the JAX scripts, which classify nodes only.
+Every backbone and ``--moe`` with ``--lamda_env`` run as in JAX.  The node
+datasets of files (``cora``, ``pubmed``, ``arxiv``, ``wikics``) load from
+their cache or raw files, and the neural text encoders run on ``--device``
+(``data/text_encoder.py``).  ``--use_vq 0`` (the no-VQ bypass) and
+``--freeze_vq 0`` (the codebook trained with the rest) run as in JAX.  Link
+and graph datasets are refused as in the JAX scripts, which classify nodes
+only.
 """
 
 from __future__ import annotations
@@ -19,13 +19,11 @@ import os
 
 from stemgnn_tpu_torch.core import config as cfglib
 from stemgnn_tpu_torch.core.device import resolve_device
-from stemgnn_tpu_torch.data.registry import dataset2task, load_dataset
+from stemgnn_tpu_torch.data.registry import (check_feature_width,
+                                             dataset2task, load_dataset)
+from stemgnn_tpu_torch.data.text_encoder import NEURAL
 from stemgnn_tpu_torch.utils.observability import apply_wandb_sweep_config
 
-# the node datasets the port's registry generates without downloaded files
-SYNTHETIC_NODE = ("cora_synthetic", "arxiv_synthetic", "arxiv_synthetic_pl",
-                  "arxiv_synthetic_fragile")
-NEURAL_TEXT_ENCODERS = ("ST", "st", "e5", "llama2_7b", "llama2_13b")
 
 
 def base_parser(name: str) -> argparse.ArgumentParser:
@@ -34,7 +32,7 @@ def base_parser(name: str) -> argparse.ArgumentParser:
                    default="cora_synthetic")
     p.add_argument("--feat_dim", type=int, default=768)
     p.add_argument("--text_encoder", default="hash",
-                   choices=["hash", "tfidf", *NEURAL_TEXT_ENCODERS])
+                   choices=["hash", "tfidf", *NEURAL])
     p.add_argument("--hidden_dim", type=int, default=768)
     p.add_argument("--num_layers", type=int, default=2)
     p.add_argument("--normalize", default="none")
@@ -71,15 +69,6 @@ def refusals(args) -> list:
     checks = (
         (task != "node", f"{name} is not a node-classification dataset; the "
                          f"robustness evaluations classify nodes"),
-        (task == "node" and name not in SYNTHETIC_NODE,
-         f"{name} needs the raw-file loaders (data/raw_parsers.py, "
-         f"data/importers.py), which are not ported yet (ROADMAP Queue 1 "
-         f"item 8); the port generates {', '.join(SYNTHETIC_NODE)}"),
-        (args.text_encoder in NEURAL_TEXT_ENCODERS
-         and name not in SYNTHETIC_NODE,
-         f"--text_encoder {args.text_encoder}: the neural text encoders "
-         f"(data/text_encoder.py, nn/{{distilbert,bert,llama}}.py) are not "
-         f"ported yet (ROADMAP Queue 1 item 11)"),
     )
     return [msg for bad, msg in checks if bad]
 
@@ -104,8 +93,11 @@ def build_cfg(args, num_classes: int) -> cfglib.FinetuneConfig:
 
 
 def load_node_dataset(args):
-    return load_dataset(args.finetune_dataset, feat_dim=args.feat_dim,
-                        seed=args.seed, text_encoder=args.text_encoder)
+    ds = load_dataset(args.finetune_dataset, feat_dim=args.feat_dim,
+                      seed=args.seed, text_encoder=args.text_encoder,
+                      device=args.device)
+    check_feature_width(ds, args.feat_dim, args.text_encoder)
+    return ds
 
 
 def load_pretrained(args):

@@ -12,7 +12,9 @@ list JAX leaves empty without MoE layers, so it has no leaf then),
 ``{"lin", "att_src", "att_dst", "bias"}`` for gat.  A finetune task model
 adds the ``decoder`` tree (``models.task``); a pretrain model the decoders
 of ``models.pretrain`` and a teacher encoder whose BatchNorm statistics are
-the JAX state's ``sem_encoder``.
+the JAX state's ``sem_encoder``.  The language models of the text
+encoders (``nn/{distilbert,bert,llama}.py``) name theirs after the JAX
+pytrees too (``layers.0.q.w``, ``[in, out]``): :func:`language_model_from_jax`.
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ import torch
 
 from stemgnn_tpu_torch.models.pretrain import PretrainModel
 from stemgnn_tpu_torch.models.task import TaskModel, task_model_init
+from stemgnn_tpu_torch.nn.bert import BertConfig, BertModel
+from stemgnn_tpu_torch.nn.distilbert import (DistilBertConfig,
+                                             DistilBertModel, load_into)
 from stemgnn_tpu_torch.nn.encoder import Encoder
+from stemgnn_tpu_torch.nn.llama import LlamaConfig, LlamaModel
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
 
 
@@ -143,3 +149,17 @@ def pretrain_to_jax(model: PretrainModel, teacher: Encoder):
     teacher_params, teacher_state = _module_trees(teacher)
     state["sem_encoder"] = teacher_state
     return params, teacher_params, state
+
+
+LANGUAGE_MODELS = {DistilBertConfig: DistilBertModel, BertConfig: BertModel,
+                   LlamaConfig: LlamaModel}
+
+
+def language_model_from_jax(params_np: dict, cfg, device=None):
+    """The port's DistilBERT, BERT or Llama (picked by the type of ``cfg``,
+    the JAX package's config of the same name and fields) on ``device``
+    from the JAX ``*_init`` / ``import_hf_*`` pytree as numpy arrays."""
+    model = LANGUAGE_MODELS[type(cfg)](cfg, device="meta")
+    return load_into(model, {k: torch.from_numpy(np.array(v, np.float32))
+                             for k, v in _flat_names(params_np).items()},
+                     device)

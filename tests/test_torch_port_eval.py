@@ -528,18 +528,29 @@ def test_script_json_matches_the_jax_script(name, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags,needle", [
     (["--finetune_dataset", "kg_synthetic"],
      "not a node-classification dataset"),
-    (["--finetune_dataset", "cora"], "Queue 1 item 8"),
-    (["--finetune_dataset", "pubmed", "--text_encoder", "e5"],
-     "Queue 1 item 11"),
+    pytest.param(["--finetune_dataset", "cora"], "Dataset 'cora'",
+                 id="flags1-Queue 1 item 8"),
+    pytest.param(["--finetune_dataset", "pubmed", "--text_encoder", "e5"],
+                 "Dataset 'pubmed'", id="flags2-Queue 1 item 11"),
     (["--finetune_dataset", "FB15K237"],
      "not a node-classification dataset"),
 ])
 @pytest.mark.parametrize("name", ["random_edge_drop", "tri_objective"])
-def test_scripts_refuse_what_the_port_does_not_cover(name, flags, needle):
+def test_scripts_refuse_what_the_port_does_not_cover(name, flags, needle,
+                                                     tmp_path, monkeypatch):
+    """Link datasets are refused as in the JAX scripts.  cora and pubmed,
+    once refused naming ROADMAP Queue 1 items 8 and 11, now load as in JAX:
+    without a cache or raw files the registry raises ``FileNotFoundError``
+    (the cache root here a temporary directory)."""
+    from stemgnn_tpu_torch.data import importers
+    monkeypatch.setattr(importers, "DEFAULT_CACHE_ROOT", str(tmp_path))
     mod = importlib.import_module(f"stemgnn_tpu_torch.scripts.{name}")
-    with pytest.raises(SystemExit) as info:
+    refused = needle.startswith("not a")
+    with pytest.raises(SystemExit if refused else FileNotFoundError) as info:
         mod.main(["--device", "cpu", *SMALL, *flags])
-    assert needle in str(info.value) and name in str(info.value)
+    assert needle in str(info.value)
+    assert (name in str(info.value)) == refused
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("flags", [

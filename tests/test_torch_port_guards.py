@@ -35,7 +35,8 @@ def test_port_and_smoke_import_without_jax_or_the_jax_package():
                     "models.task", "utils.metrics", "utils.early_stop",
                     "utils.logger", "data.synthetic", "ops.fused_sage",
                     "ops.edge_layout", "data.importers", "data.kg",
-                    "train.infer"):
+                    "train.infer", "data.raw_parsers", "data.text_encoder",
+                    "nn.distilbert", "nn.bert", "nn.llama"):
             assert "stemgnn_tpu_torch." + mod in names, names
         print(len(names))
     """)

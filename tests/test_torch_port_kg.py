@@ -68,13 +68,21 @@ def test_kg_caches_equal_jax(name, encoder):
 @pytest.mark.parametrize("kw", [dict(feat_dim=64),
                                 dict(text_encoder="st")])
 def test_missing_kg_cache_raises_naming_the_roadmap_item(kw):
-    with pytest.raises(FileNotFoundError) as info:
-        registry.load_dataset("WN18RR", **kw)
-    msg = str(info.value)
-    assert "item 8, second half" in msg
+    """Once a refusal naming ROADMAP Queue 1 item 8, now JAX's route: a
+    missing cache sends the loader to the raw triples, and without them it
+    raises ``FileNotFoundError`` naming the file it wanted, as JAX's does;
+    no cache is written."""
     path = importers.cache_path("WN18RR", kw.get("text_encoder", "hash"),
                                 kw.get("feat_dim", 768))
-    assert path in msg and not os.path.exists(path)
+    for reg in (registry, jax_registry):
+        with pytest.raises(FileNotFoundError) as info:
+            reg.load_dataset("WN18RR", root="/nonexistent-kg", **kw)
+        assert "entity2text.txt" in str(info.value)
+    with pytest.raises(FileNotFoundError) as info:
+        registry.load_dataset("WN18RR", **kw)
+    assert os.path.join(importers.DEFAULT_CACHE_ROOT, "raw", "KG",
+                        "WN18RR") in str(info.value)
+    assert not os.path.exists(path)
 
 
 def test_cache_round_trip(tmp_path):
@@ -185,11 +193,24 @@ def test_every_jax_option_is_accepted():
     (["--halo_balance"], "item 10"),
     (["--halo_order", "rcm"], "item 10"),
     (["--reorder", "degree"], "item 3"),
-    (["--text_encoder", "e5"], "item 11"),
+    pytest.param(["--text_encoder", "e5"], None, id="flags5-item 11"),
 ])
 def test_finetune_cli_refuses_naming_the_roadmap_item(flags, needle):
+    """``--text_encoder e5``, once refused naming ROADMAP Queue 1 item 11,
+    is accepted as in JAX: the default ``cora_synthetic`` is generated
+    whatever the encoder, so its features equal the hash run's."""
+    argv = ["--device", "cpu", "--debug", *flags]
+    if needle is None:
+        assert port_cli.refusals(port_cli.parse(argv)) == []
+        for reg in (registry, jax_registry):
+            a = reg.load_dataset("cora_synthetic", feat_dim=8,
+                                 text_encoder="e5")
+            b = reg.load_dataset("cora_synthetic", feat_dim=8)
+            assert np.array_equal(np.asarray(a.node_text_feat),
+                                  np.asarray(b.node_text_feat))
+        return
     with pytest.raises(SystemExit) as info:
-        port_cli.main(["--device", "cpu", "--debug", *flags])
+        port_cli.main(argv)
     assert needle in str(info.value)
 
 

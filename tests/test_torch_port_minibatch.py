@@ -827,11 +827,29 @@ def test_pretrain_cli_runs_on_the_cpu():
 
 @pytest.mark.parametrize("flags,needle", [
     (["--data_parallel"], "item 10"), (["--halo_shards", "2"], "item 10"),
-    (["--donate"], "--donate"), (["--text_encoder", "e5"], "item 11"),
+    (["--donate"], "--donate"),
+    pytest.param(["--text_encoder", "e5"], None, id="flags3-item 11"),
 ])
 def test_pretrain_cli_refuses_what_the_port_does_not_cover(flags, needle):
+    """``--text_encoder e5``, once refused naming ROADMAP Queue 1 item 11,
+    is accepted as in JAX: the default mix (``synthetic``) is generated
+    whatever the encoder, in both registries."""
+    argv = ["--device", "cpu", *flags]
+    if needle is None:
+        args = port_cli.parse(argv)
+        assert port_cli.refusals(args) == [] and args.text_encoder == "e5"
+        from stemgnn_tpu.data import registry as jax_registry
+        from stemgnn_tpu_torch.data import registry as port_registry
+        names, _ = port_cli.dataset_mix(args.pretrain_dataset)
+        for reg in (port_registry, jax_registry):
+            for name in names:
+                a = reg.load_dataset(name, feat_dim=8, text_encoder="e5")
+                b = reg.load_dataset(name, feat_dim=8)
+                assert np.array_equal(np.asarray(a.node_text_feat),
+                                      np.asarray(b.node_text_feat))
+        return
     with pytest.raises(SystemExit) as info:
-        port_cli.main(["--device", "cpu", *flags])
+        port_cli.main(argv)
     assert needle in str(info.value)
 
 

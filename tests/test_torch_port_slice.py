@@ -73,12 +73,12 @@ def test_registry_loads_synthetic_and_refuses_the_rest():
     ds = registry.load_dataset("arxiv_synthetic_pl", feat_dim=8, seed=0,
                                num_nodes=1000)
     assert ds.num_nodes == 1000 and ds.node_text_feat.shape == (1000, 8)
-    # the knowledge graphs load from the repository's caches now; a
-    # dataset that needs downloaded files is still refused
+    # the knowledge graphs load from the repository's caches; a dataset
+    # of downloaded files without its cache or raw files raises as in JAX
     wn = registry.load_dataset("WN18RR")
     assert (wn.num_nodes, wn.num_edges) == (40_943, 93_003)
-    with pytest.raises(NotImplementedError):
-        registry.load_dataset("cora")
+    with pytest.raises(FileNotFoundError, match="Dataset 'cora'"):
+        registry.load_dataset("cora", root="/nonexistent-raw-tree")
     with pytest.raises(KeyError):
         registry.load_dataset("no_such_dataset")
 
