@@ -77,13 +77,29 @@ announced before it starts and timed when it ends:
                the ``"on"`` route against the plain versions, step ms,
                wall ms a step, the sampler's and the layout build's host
                ms a batch, the idle share and peak memory;
- 10. typed   — the link finetune on typed edges: ``finetune.main`` on
+ 10. vq      — the VQ's training options through ``run_pretrain`` at full
+               width, 4 steps each on batches of 128 seeds (no layout, no
+               kernel): the cosine codebook with ``ema_update`` and
+               ``threshold_ema_dead_code=2`` (the dead codes replaced a
+               step counted and printed), and a euclidean codebook with
+               ``affine_param``, stochastic and straight-through Gumbel
+               sampling and the EMA; finite losses, the codebook moved and
+               equal to the adopted EMA target, the cluster sizes moved,
+               the affine statistics updated; for each run one step on
+               one batch on the card against the CPU with the same draws
+               (the loss within 1e-3 relative, the gradients within the
+               step gate, the VQ state after it within 1e-4 of each
+               entry's largest: the EMA sums, cluster sizes, target and
+               replaced dead codes on the codes whose nodes agree, the
+               affine statistics whole; the cosine run's step replaces
+               dead codes);
+ 11. typed   — the link finetune on typed edges: ``finetune.main`` on
                ``kg_synthetic``, then ``run_finetune`` at WN18RR's size, 3
                epochs each: kernel 3 once per step, kernel 2 (xe mode)
                twice per step and twice per evaluation, kernel 1 never;
                finite losses, one step's gradients against the plain
                versions; step ms, epoch walls, peak memory;
- 11. ood     — the five robustness evaluations, each script's ``main``
+ 12. ood     — the five robustness evaluations, each script's ``main``
                (``stemgnn_tpu_torch.scripts.*``) with one run of 2 epochs
                at full width on ``arxiv_synthetic_fragile`` (169,343 nodes,
                the graph they were built for): ``tri_objective`` (four
@@ -98,10 +114,10 @@ announced before it starts and timed when it ends:
                snapshot's ``z`` and one step's gradients against the plain
                versions; wall, host seconds of the buckets, perturbations
                and layout builds (the five share one build of the training
-               graph's layout, as they share the dataset; a
+               graph's layout, as every phase shares a dataset's graph; a
                missing-feature re-evaluation swaps its features into it),
                step / eval ms, peak memory;
- 12. kg      — the reference's knowledge-graph link presets through
+ 13. kg      — the reference's knowledge-graph link presets through
                ``finetune.main --use_params`` on the repository's cached
                WN18RR (40,943 entities, 93,003 triples, 11 relations; full
                batch, 2 epochs) and FB15K237 (14,537 entities, 38,001
@@ -123,8 +139,12 @@ announced before it starts and timed when it ends:
                layer-wise ``z`` against the fused encode and its
                probabilities against the fused evaluation's where the
                edges' endpoints keep their VQ codes (the ``z``
-               tolerance; at least 90% of the edges keep them);
- 13. graph   — the graph tasks, which launch no kernel (a molecule batch
+               tolerance; at least 90% of the edges keep them); ``infer
+               .main --mode encode`` on WN18RR and on ``kg_synthetic`` (11
+               types: typed hubs and kernel 2's xe mode), kernel 2 twice
+               each, ``z`` against the CPU's layout route (the ``z``
+               gates), the quantized rows where the codes agree likewise;
+ 14. graph   — the graph tasks, which launch no kernel (a molecule batch
                carries no layout, as in JAX): ``finetune.main --use_params``
                on ``mol_synthetic`` (600 graphs, 4 tasks, batches of 64, 2
                epochs; the materialized bundle, the host AUC), then 3,000
@@ -145,7 +165,7 @@ announced before it starts and timed when it ends:
                molecule at a near-tie of two VQ codes may take the other
                code in another batching, and is shown to); one step's
                gradients against the plain route; peak memory;
- 14. mp      — mixed precision: (a) the full-graph pretrain step under
+ 15. mp      — mixed precision: (a) the full-graph pretrain step under
                ``pretrain.py --mixed_precision`` on phase pretrain's graph
                and layout, 3 steps: kernel 1 three times a step (the
                dropout tails, bf16 init and out), kernel 2 twice (the bf16
@@ -166,10 +186,10 @@ announced before it starts and timed when it ends:
                (d) the graph task on ``mol_synthetic`` with ``--bf16`` and
                with ``--eval_bf16 1`` (the evaluation's ``z`` bf16, the
                device AUC against the host AUC, 1e-6);
- 15. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
+ 16. times   — kernels 1 and 2, their plain versions, bounds and yardsticks
                at the main paths' shapes (kernel 1 also on the pretrain
                step's dropout tails), by CUDA events;
- 16. backbones — the MoE-SAGE layer and the gcn / gin / gat backbones at
+ 17. backbones — the MoE-SAGE layer and the gcn / gin / gat backbones at
                full width on ``arxiv_synthetic_pl``: (a) ``finetune.main
                --moe --moe_layers last --lamda_env 0.1`` from an MoE
                checkpoint written here, 2 epochs (layer 1, sage, through
@@ -190,7 +210,32 @@ announced before it starts and timed when it ends:
                ``arxiv_synthetic_fragile`` (kernel 2 once in the k-means
                init, twice an epoch).  For each: launches, step and
                evaluation ms by CUDA events, peak memory;
- 17. text    — bring-your-own data and the text encoders, with the cache
+ 18. locality — the node relabels: ``finetune.main --reorder off | rcm |
+               community | degree`` on ``arxiv_synthetic`` (169,343 nodes,
+               2,370,802 edges), 1 epoch each, dropout 0, from phase
+               slice's checkpoint: kernel 2 five times a run, each
+               relabelled run's loss within 1e-3 relative of the
+               unrelabelled run's, its ``z`` mapped back through
+               ``node_perm`` against the unrelabelled graph's (the ``z``
+               gates), each relabel's host seconds; WN18RR's preset with
+               ``--reorder community``, 1 epoch, link labels and splits in
+               their slots; then the local/stray split: a shuffled
+               ``community_power_law_graph`` (169,343 nodes, 1,166,243
+               edges, 640 communities), community-ordered (with its
+               layouts built in a thread beside phase backbones), with
+               ``loc_split="on"`` and the merged metadata, without and with
+               hub blocks (2,048 + 2,048, forced): the fused aggregation
+               forward and backward, f32 and bf16 (the hub case f32 only),
+               through the two launches
+               (kernels 1 and 2 once a direction) and the merged launch
+               (kernel 2 once a direction; hub tails carry no merged
+               metadata, as in JAX), against the plain versions and the
+               unsplit layout; kernel 2's merged launch with its stray
+               inputs, and the chain's kernel 1 and kernel 2 launches,
+               checked and timed like every kernel case (``time_case``);
+               the unsplit kernel 2, the two-launch chain and the merged
+               route timed on the same edges;
+ 19. text    — bring-your-own data and the text encoders, with the cache
                root in a temporary directory: (a) cora's raw files at its
                size (a PyG ``cora.pt`` of 2,708 texts of 150-250 words
                over a synthetic 30,522-entry WordPiece vocabulary, 10,556
@@ -201,9 +246,9 @@ announced before it starts and timed when it ends:
                --use_params --text_encoder ST``, 2 epochs: the texts
                encoded on the card, kernel 2 twice in the k-means init and
                five times an epoch; 32 texts' embeddings on the card
-               against the CPU's on the same weights; (b) ST on 4,096
+               against the CPU's on the same weights; (b) ST on 1,024
                generated texts; (c) e5 at e5-large-v2's widths (24 x
-               1,024, 16 heads, FFN 4,096) from a snapshot on 512 texts,
+               1,024, 16 heads, FFN 4,096) from a snapshot on 256 texts,
                card against CPU on 4; (d) Llama-2-7B's widths (32 x 4,096,
                32 heads, FFN 11,008) built on the card from the seed, 16
                rows of about 128 ids, card against CPU on its first 2
@@ -213,7 +258,11 @@ announced before it starts and timed when it ends:
                (CUDA events) a batch, the idle share and peak memory.
 
 Each dataset is generated or read once and shared by the phases that load
-it (the entry points change none of its arrays).  Prints the
+it, and so is each full graph (and layout) of such a dataset
+(``shared_datasets``; the entry points change none of their arrays): a
+wall printed for an entry point counts a layout build only where it built
+the graph first (the slice's encode wall is printed with the build of its
+graph in phase kernel).  Prints the
 ``{"kernels": [...]}`` line of this run's measurements, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result line, on any failure and
@@ -224,6 +273,7 @@ removed at the end of their phase; the evaluations' TSV goes to a
 temporary directory).
 """
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -251,7 +301,6 @@ from stemgnn_tpu_torch.data.sampler import (CSCGraph, NeighborBatchIterator,
                                             get_train_node_idx)
 from stemgnn_tpu_torch.eval import runner as eval_runner
 from stemgnn_tpu_torch.eval.runner import snapshot_model
-from stemgnn_tpu_torch.finetune import main as finetune_main
 from stemgnn_tpu_torch import infer as infer_cli
 from stemgnn_tpu_torch.infer import main as infer_main
 from stemgnn_tpu_torch import pretrain as pretrain_cli
@@ -275,14 +324,16 @@ from stemgnn_tpu_torch.scripts import _common as scripts_common
 from stemgnn_tpu_torch.scripts import (degree_shift_ood, homophily_shift_ood,
                                        missing_feature, random_edge_drop,
                                        tri_objective)
-from stemgnn_tpu_torch.data.synthetic import write_smiles_csv
+from stemgnn_tpu_torch.data.synthetic import (community_power_law_graph,
+                                              write_smiles_csv)
+from stemgnn_tpu_torch.ops.reorder import community_order, relabel
 from stemgnn_tpu_torch.data.text_encoder import (E5Encoder, LlamaEncoder,
                                                  SentenceEncoder)
 from stemgnn_tpu_torch.nn.bert import BertConfig, BertModel
 from stemgnn_tpu_torch.nn.distilbert import (DistilBertConfig,
                                              WordPieceTokenizer, load_into)
 from stemgnn_tpu_torch.nn.llama import LlamaConfig, LlamaModel
-from stemgnn_tpu_torch.train import finetune_loop
+from stemgnn_tpu_torch.train import finetune_loop, graph_setup
 from stemgnn_tpu_torch.train.finetune_loop import (_batch_graph_list,
                                                    _graph_feeder,
                                                    _make_node_steps,
@@ -291,6 +342,7 @@ from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
 from stemgnn_tpu_torch.train.infer import (layerwise_encode,
                                            layerwise_eval_predict)
+from stemgnn_tpu_torch.train import pretrain_loop
 from stemgnn_tpu_torch.train.pretrain_loop import (augmented, batch_graph,
                                                    draw_step,
                                                    make_pretrain_optimizer,
@@ -334,6 +386,25 @@ POSITIONAL = {K1: ("m", "local_row", "block_ptr"),
                    "xe")}
 KG = "kg_synthetic"
 KG_TYPES = 11
+# phase locality: the relabelled finetunes' dataset and orders, their loss
+# gate against the unrelabelled run, and the shuffled community graph of
+# the local/stray split (arxiv's node count and ogbn-arxiv's 1,166,243
+# edges; communities of ~265 nodes, so that one fits the split's reach of
+# 256 rows about its block's median)
+LOCALITY = "arxiv_synthetic"
+REORDERS = ("rcm", "community", "degree")
+LOC_LOSS_RTOL = 1e-3
+LOC_NODES, LOC_EDGES, LOC_COMMUNITIES = 169_343, 1_166_243, 640
+# phase vq: run_pretrain's steps and batch (seeds) with each VQ option (a
+# batch of 128 seeds gives each of the 128 codes of a head ~25 rows, so
+# codes a batch leaves under 10 rows fall below the dead-code threshold 2
+# after the first EMA step: 1,024 seeds left none dead in 4 steps), and
+# the seeds of the batch the card is held against the CPU on
+VQ_STEPS, VQ_BATCH, VQ_CHECK_BATCH = 4, 128, 32
+# the VQ state after the card's step against the CPU's: each entry within
+# this share of its largest magnitude (f32 on both devices, where only the
+# order of the sums differs)
+VQ_STATE_RTOL = 1e-4
 # WN18RR's entity and triple counts (the generator keeps its 11 relations)
 WN18RR_ENTITIES, WN18RR_TRIPLES = 40_943, 93_003
 # the graph phase's indexed bundle with PCBA's 128 tasks: 3,000 molecules
@@ -378,6 +449,14 @@ Z_RTOL, Z_ATOL = 3e-2, 1e-2
 # gp flip; each parameter's worst difference against 2% of the largest
 # gradient of the step
 GRAD_RTOL = 2e-2
+
+
+def finetune_main(argv):
+    """``finetune.main`` with ``--debug``: the wandb sweep round-trip off,
+    so that no run imports wandb or reaches for a host (the smoke runs
+    offline)."""
+    return finetune_cli.main(argv if "--debug" in argv
+                             else [*argv, "--debug"])
 
 
 def phase(name):
@@ -1176,7 +1255,8 @@ def pretrain_mb_cli(ds, tmp, dev, paths):
 
 def pretrain_mb_run(ds, dev, paths):
     """``run_pretrain`` at full width on both routes, ``MB_STEPS`` steps
-    each (module docstring, phase 9)."""
+    each (module docstring, phase 9).  Returns the merged payload and its
+    CSC graph (phase vq samples from them too)."""
     merged = merge_datasets([ds])
     node_table = torch.from_numpy(merged["node_text_feat"]).float().to(dev)
     edge_table = torch.from_numpy(merged["edge_text_feat"]).float().to(dev)
@@ -1257,10 +1337,11 @@ def pretrain_mb_run(ds, dev, paths):
               f"the {held_gb:.2f} GB held before", flush=True)
         del model, teacher, opt, g
         torch.cuda.empty_cache()
+    return merged, csc
 
 
 def ood_run(tmp, dev, paths):
-    """The five robustness evaluations (module docstring, phase 11): each
+    """The five robustness evaluations (module docstring, phase 12): each
     script's ``main`` with its launches, JSON and times; the kernel-vs-plain
     checks on the edge-dropped and the missing-feature graphs."""
     mods = {"tri_objective": tri_objective,
@@ -1273,10 +1354,8 @@ def ood_run(tmp, dev, paths):
                "degree_shift_ood": 0, "homophily_shift_ood": 0,
                "missing_feature": 1}
     results = {}
-    ds = load_dataset(OOD_DATASET, feat_dim=FEAT_DIM, seed=SEED)
-    with shared_layout(ds):
-        for name, mod in mods.items():
-            results[name] = ood_script(name, mod, reevals[name], tmp, paths)
+    for name, mod in mods.items():
+        results[name] = ood_script(name, mod, reevals[name], tmp, paths)
     ood_route_checks(results["random_edge_drop"], "edge-dropped", dev)
     # the missing-feature graph keeps the training graph's structure, so
     # its step makes the training path's kernel-2 launches
@@ -1285,31 +1364,6 @@ def ood_run(tmp, dev, paths):
     del results
     torch.cuda.empty_cache()
     return k2
-
-
-@contextlib.contextmanager
-def shared_layout(ds):
-    """The five evaluation scripts train on one graph, ``ds``: its full
-    graph and layout (``eval.runner``'s build, per configuration) are
-    built once and shared, as the dataset is (the scripts read them and
-    change nothing; a perturbed graph still gets its own)."""
-    real = eval_runner.fused_full_graph
-    built = {}
-
-    def build_once(d, cfg, **kw):
-        if d is not ds:
-            return real(d, cfg, **kw)
-        key = json.dumps([cfg.encoder.backbone, cfg.use_fused_layout,
-                          cfg.hub_size, cfg.sc_hub_size, sorted(kw.items())],
-                         default=str)
-        if key not in built:
-            built[key] = real(d, cfg, **kw)
-        return built[key]
-    eval_runner.fused_full_graph = build_once
-    try:
-        yield
-    finally:
-        eval_runner.fused_full_graph = real
 
 
 def ood_script(name, mod, reevals, tmp, paths):
@@ -1434,14 +1488,40 @@ def ood_route_checks(res, what, dev, time_k2=False):
 @contextlib.contextmanager
 def shared_datasets():
     """Every phase's loads of one (name, width, seed, encoder, size) through
-    the port's registry return one dataset object, generated or read once:
-    the entry points the smoke drives (the CLIs, the evaluation scripts)
-    read their arrays and change none of them."""
+    the port's registry return one dataset object, generated or read once,
+    and every full graph of such a dataset (``graph_setup.
+    fused_full_graph``, per device and configuration of its layout) is
+    built once: the entry points the smoke drives (the CLIs, the
+    evaluation scripts) read their arrays and change none of them.  A
+    relabelled or perturbed copy of a dataset gets its own graph, built
+    where it is asked for.  Yields the graphs' cache (clear it to free
+    their device memory)."""
     mods = (sys.modules[__name__], finetune_cli, infer_cli, pretrain_cli,
             scripts_common)
     real = registry.load_dataset
     sig = inspect.signature(real)
     loaded = {}
+    graph_mods = (sys.modules[__name__], finetune_loop, pretrain_loop,
+                  infer_cli, eval_runner)
+    real_graph = graph_setup.fused_full_graph
+    graph_sig = inspect.signature(real_graph)
+    graphs = {}
+
+    def graph_once(*a, **kw):
+        bound = graph_sig.bind(*a, **kw)
+        bound.apply_defaults()
+        args = dict(bound.arguments)
+        ds, cfg = args.pop("ds"), args.pop("cfg")
+        if not any(ds is d for d in loaded.values()):
+            return real_graph(*a, **kw)
+        # what the build reads of the configuration
+        key = json.dumps([id(ds), str(torch.device(args.pop("device"))),
+                          cfg.encoder.backbone, cfg.use_fused_layout,
+                          cfg.hub_size, cfg.sc_hub_size, cfg.reorder == "off",
+                          sorted(args.items())], default=str)
+        if key not in graphs:
+            graphs[key] = real_graph(*a, **kw)
+        return graphs[key]
 
     def load_once(*a, **kw):
         bound = sig.bind(*a, **kw)
@@ -1457,13 +1537,19 @@ def shared_datasets():
                   f"phase that loads it)", flush=True)
         return loaded[key]
     saved = [m.load_dataset for m in mods]
+    saved_graph = [m.fused_full_graph for m in graph_mods]
     for m in mods:
         m.load_dataset = load_once
+    for m in graph_mods:
+        m.fused_full_graph = graph_once
     try:
-        yield
+        yield graphs
     finally:
         for m, f in zip(mods, saved):
             m.load_dataset = f
+        for m, f in zip(graph_mods, saved_graph):
+            m.fused_full_graph = f
+        graphs.clear()
 
 
 def kg_describe(name, res):
@@ -1474,7 +1560,7 @@ def kg_describe(name, res):
 
 
 def kg_run(tmp, dev, paths):
-    """The knowledge-graph link presets (module docstring, phase 12).
+    """The knowledge-graph link presets (module docstring, phase 13).
     Returns kernel 2's check and times at the WN18RR evaluation's first
     launch."""
     base = ["--use_params", "--repeat", "1", "--seed", str(SEED),
@@ -1723,7 +1809,7 @@ def check_device_auc(res, labels, split, dev):
 
 
 def graph_run(tmp, dev, paths):
-    """The graph tasks (module docstring, phase 13)."""
+    """The graph tasks (module docstring, phase 14)."""
     torch.cuda.reset_peak_memory_stats()
     base = ["--repeat", "1", "--seed", str(SEED), "--debug"]
     # (a) the mol_synthetic preset: the materialized bundle, the host AUC
@@ -2361,7 +2447,7 @@ def bb_pretrain(graph, dev, paths):
 
 
 def backbones_run(tmp, graph, dev, paths):
-    """Phase backbones (module docstring, phase 16)."""
+    """Phase backbones (module docstring, phase 17)."""
     ds = load_dataset(DATASET, feat_dim=FEAT_DIM, seed=SEED)
     moe_dir = os.path.join(tmp, "moe")
     os.makedirs(moe_dir, exist_ok=True)
@@ -2442,7 +2528,9 @@ CORA = dict(nodes=2_708, edges=10_556, classes=7)
 CORA_LABELS = ("Case_Based", "Genetic_Algorithms", "Neural_Networks",
                "Probabilistic_Methods", "Reinforcement_Learning",
                "Rule_Learning", "Theory")
-ST_TEXTS, E5_TEXTS, LLAMA_TEXTS, LLAMA_IDS = 4_096, 512, 16, 128
+# texts a run of each encoder (cut by depth from ST 4,096 and e5 512:
+# PERF.md, section 4)
+ST_TEXTS, E5_TEXTS, LLAMA_TEXTS, LLAMA_IDS = 1_024, 256, 16, 128
 # the card against the CPU on the same weights: every embedding entry
 # within this share of the largest
 EMB_RTOL = 1e-4
@@ -2844,6 +2932,511 @@ def text_run(dev, paths, card):
     return reports
 
 
+# ------------------------------------------------------------ phase locality
+
+class Relabels:
+    """Records each relabel an entry point makes (``graph_setup.
+    reorder_dataset``, which ``maybe_reorder_dataset`` calls): (method,
+    dataset before, dataset after, host seconds)."""
+
+    def __enter__(self):
+        self.done, self.real = [], graph_setup.reorder_dataset
+
+        def timed(ds, method="rcm", task="node"):
+            t0 = time.perf_counter()
+            out = self.real(ds, method, task)
+            self.done.append((method, ds, out, time.perf_counter() - t0))
+            return out
+        graph_setup.reorder_dataset = timed
+        return self
+
+    def __exit__(self, *exc):
+        graph_setup.reorder_dataset = self.real
+        return False
+
+
+def locality_finetunes(tmp, dev, paths):
+    """``finetune.main --reorder off|rcm|community|degree`` on
+    ``arxiv_synthetic``, 1 epoch each, dropout 0, from phase slice's
+    checkpoint: each relabelled run's epoch loss within LOC_LOSS_RTOL of
+    the unrelabelled run's, and its ``z`` mapped back through
+    ``node_perm`` against the unrelabelled graph's (same model, the ``z``
+    gates)."""
+    base = ["--finetune_dataset", LOCALITY, "--feat_dim", str(FEAT_DIM),
+            "--pretrain_path", tmp, "--pretrain_model_epoch", "50",
+            "--seed", str(SEED), "--epochs", "1", "--repeat", "1",
+            "--dropout", "0"]
+    graph_off, loss_off = None, None
+    for mode in ("off", *REORDERS):
+        argv = [*base, "--reorder", mode]
+        reset_counts()
+        t0 = time.perf_counter()
+        with Relabels() as rl:
+            res = finetune_main(argv)
+        paths[f"locality_{mode}"] = read_counts()
+        wall = time.perf_counter() - t0
+        expect_counts(f"finetune --reorder {mode} (train step + eval)",
+                      paths[f"locality_{mode}"], {K2: 3 + 2})
+        check_losses(res, epochs=1)
+        loss = res["epoch_losses"][0]["loss"]
+        if mode == "off":
+            if rl.done:
+                raise AssertionError("--reorder off relabelled the graph")
+            graph_off, loss_off = res["graph"], loss
+            print(f"  --reorder off: loss {loss:.6f}, wall {wall:.2f} s",
+                  flush=True)
+            continue
+        (method, _, after, host_s), = rl.done
+        perm = torch.from_numpy(after.extras["node_perm"]).to(dev)
+        rel = abs(loss - loss_off) / abs(loss_off)
+        print(f"  --reorder {mode}: relabel {host_s:.2f} s of host, loss "
+              f"{loss:.6f} ({rel:.2e} relative to off's), wall {wall:.2f} s",
+              flush=True)
+        if method != mode or rel > LOC_LOSS_RTOL:
+            raise AssertionError(f"--reorder {mode}: loss {loss} vs {loss_off}")
+        model = res["model"].eval()
+        with torch.no_grad():
+            n = after.num_nodes
+            z = task_encode(model, res["graph"])[:n]
+            z_off = task_encode(model, graph_off)[:n]
+            check_z(f"--reorder {mode} z mapped back through node_perm "
+                    f"(unrelabelled graph, same model)", z,
+                    z_off.index_select(0, perm), n)
+        del res, model, z, z_off
+    del graph_off
+    torch.cuda.empty_cache()
+
+
+def locality_kg(dev, paths):
+    """WN18RR's full-batch preset with ``--reorder community``, 1 epoch:
+    the relabel keeps each link label and split in its slot."""
+    argv = ["--finetune_dataset", "WN18RR", "--use_params", "--epochs", "1",
+            "--repeat", "1", "--seed", str(SEED), "--debug", "--reorder",
+            "community"]
+    print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
+          flush=True)
+    reset_counts()
+    with Relabels() as rl:
+        res = finetune_main(argv)
+    paths["locality_wn18rr"] = read_counts()
+    expect_counts("WN18RR --reorder community (k-means init, train step + "
+                  "eval)", paths["locality_wn18rr"], {K2: 2 + 3 + 2})
+    check_losses(res, epochs=1)
+    (_, before, after, host_s), = rl.done
+    kept = (np.array_equal(after.labels, before.labels) and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(after.splits,
+                                                   before.splits)
+        for k in b))
+    moved = int((after.edge_index != before.edge_index).any(0).sum())
+    print(f"  WN18RR community relabel {host_s:.2f} s of host; "
+          f"{moved} of {before.num_edges} edges renamed; link labels and "
+          f"splits in their slots: {kept}", flush=True)
+    if not kept or not moved:
+        raise AssertionError("the WN18RR relabel moved link labels or "
+                             "renamed nothing")
+    del res
+
+
+def locality_prepare(dev):
+    """What phase locality reads and no earlier phase made: the relabelled
+    finetunes' dataset (loaded through the shared registry) and the split
+    layouts (:func:`locality_split_layouts`)."""
+    load_dataset(LOCALITY, feat_dim=FEAT_DIM, seed=SEED)
+    return locality_split_layouts(dev)
+
+
+def locality_split_layouts(dev):
+    """The shuffled community graph (LOC_NODES nodes, LOC_EDGES edges,
+    LOC_COMMUNITIES communities), community-ordered, and its layouts with
+    ``loc_split="on"`` (and the merged metadata), without and with hub
+    blocks: ({name: (unsplit view, split layout)}, N_pad, the lines to
+    print).  Host work and copies, no kernel: the smoke builds them in a
+    thread beside phase backbones, whose device work leaves the host
+    idle."""
+    notes = []
+    t0 = time.perf_counter()
+    _, s, r, _ = community_power_law_graph(
+        LOC_NODES, LOC_EDGES, 8, num_communities=LOC_COMMUNITIES, seed=SEED)
+    t1 = time.perf_counter()
+    s, r, _ = relabel(community_order(s, r, LOC_NODES), s, r)
+    notes.append(f"community graph {LOC_NODES} nodes / {LOC_EDGES} edges "
+                 f"in {LOC_COMMUNITIES} communities, ids shuffled: generated "
+                 f"in {t1 - t0:.2f} s, community_order "
+                 f"{time.perf_counter() - t1:.2f} s of host")
+    s, r = s.astype(np.int32), r.astype(np.int32)
+    n_pad = -(-LOC_NODES // 128) * 128
+    hub = dict(hub_size=FinetuneConfig().hub_size,
+               sc_hub_size=FinetuneConfig().sc_hub_size,
+               hub_min_coverage=-1.0)
+    lays = {}
+    for name, kw in (("nohub", {}), ("hub", hub)):
+        t0 = time.perf_counter()
+        split = build_edge_layout(s, r, n_pad, device=dev, loc_split="on",
+                                  loc_merge=True, **kw)
+        sp = split.split_r if name == "nohub" else split.hub_r.tail.split_r
+        notes.append(f"{name}: split layout {time.perf_counter() - t0:.2f} "
+                     f"s of host; local fraction {sp.loc_frac:.4f} (receiver "
+                     f"order); {describe_layout(split)}")
+        lays[name] = (unsplit_view(split), split)
+    return lays, n_pad, notes
+
+
+def unsplit_view(lay):
+    """The same layout without its local/stray splits (the splits are extra
+    fields beside the unsplit arrays): the unsplit route on one graph."""
+    def bare(sub):
+        return dataclasses.replace(sub, split_r=None, split_s=None)
+    out = bare(lay)
+    for order in ("r", "s"):
+        hub = getattr(lay, "hub_" + order)
+        if hub is not None:
+            out = dataclasses.replace(out, **{"hub_" + order: dataclasses
+                                              .replace(hub,
+                                                       tail=bare(hub.tail))})
+    return out
+
+
+def locality_split_run(dev, paths, prep):
+    """The community graph's layouts with ``loc_split="on"`` (and the merged
+    metadata), without and with hub blocks (``prep``, from
+    :func:`locality_split_layouts`), against the same graph's unsplit
+    layouts: ``fused_sage_aggregate`` forward and backward through
+    the two-launch split and the merged launch, against the plain versions
+    (the kernel tolerance of the out dtype) and against the unsplit layout
+    (the ``z`` gates), launches counted.  Returns kernel 2's stray case
+    (check and times) and the split's kernel 1 and kernel 2 launches,
+    checked and timed."""
+    lays, n_pad, notes = prep
+    print("".join(f"  {line} (built beside phase backbones)\n"
+                  for line in notes), end="", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x32 = torch.randn(n_pad, FEAT_DIM, device=dev, generator=gen)
+    # one upstream gradient for every route: the backward rounds its input
+    # to bf16, so upstream gradients that differ by f32 noise (each
+    # route's own forward) could differ there by a bf16 ulp
+    g32 = torch.randn(n_pad, FEAT_DIM, device=dev, generator=gen)
+    calls = {}
+    real = {K1: fused_sage.scatter_rows_sorted,
+            K2: fused_sage.gathered_scatter_rows_sorted}
+
+    def run(lay, x, merged, plain=False, record=None):
+        xi = x.detach().clone().requires_grad_()
+        if record is not None:
+            for k in real:
+                def rec(*a, _k=k, **kw):
+                    calls.setdefault((record, _k), []).append((a, kw))
+                    return real[_k](*a, **kw)
+                setattr(fused_sage, k, rec)
+        try:
+            out = fused_sage.fused_sage_aggregate(xi, lay, None,
+                                                  loc_merged=merged,
+                                                  plain=plain)
+            out.backward(g32.to(out.dtype))
+        finally:
+            for k, f in real.items():
+                setattr(fused_sage, k, f)
+        torch.cuda.synchronize()
+        return out.detach(), xi.grad
+    for name, (unsplit, split) in lays.items():
+        for merged in (False, True):
+            # the hub case in f32 only: its bf16 passes take the routes
+            # nohub checks in bf16.  Hub tails carry no merged metadata:
+            # merged there is the two-launch route again, run for its
+            # launch counts
+            for dt in ((torch.float32,) if name == "hub"
+                       else (torch.float32, torch.bfloat16)):
+                tag = (f"{name} {'merged' if merged else 'two-launch'} "
+                       f"{str(dt)[6:]}")
+                x = x32.to(dt)
+                reset_counts()
+                key = f"{name}_{'merged' if merged else 'two'}"
+                out, grad = run(split, x, merged,
+                                record=key if dt == torch.float32 else None)
+                got = read_counts()
+                paths.setdefault(f"locality_{key}", got)
+                # the merged launch exists where the split carries the
+                # merged metadata (not on hub tails, as in JAX)
+                one = merged and name == "nohub"
+                expect_counts(f"{tag} forward + backward", got,
+                              {K2: 2} if one else {K1: 2, K2: 2})
+                p_out, p_grad = run(split, x, merged, plain=True)
+                check_kernel(f"{tag} out vs the plain versions", out, p_out,
+                             out.dtype)
+                check_kernel(f"{tag} dx vs the plain versions", grad,
+                             p_grad, grad.dtype)
+                u_out, u_grad = run(unsplit, x, False)
+                check_z(f"{tag} out on the unsplit layout", out, u_out,
+                        LOC_NODES)
+                check_z(f"{tag} dx on the unsplit layout", grad, u_grad,
+                        LOC_NODES)
+    del x32, g32
+    # kernel 2's merged launch with stray inputs, and the two-launch
+    # chain's kernel 1 (strays) and kernel 2 (local) launches: each checked
+    # against its plain version and timed
+    merged_call = calls[("nohub_merged", K2)][0]
+    stray = launch_case("kernel 2 merged split (stray inputs, forward)", K2,
+                        "locsplit_merged", merged_call)
+    k1 = launch_case("kernel 1 locsplit stray pass (forward)", K1,
+                     "locsplit_stray", calls[("nohub_two", K1)][0])
+    k2 = launch_case("kernel 2 locsplit local pass (forward, init)", K2,
+                     "locsplit_local", calls[("nohub_two", K2)][0])
+    # the routes over the same receiver-order edges: the unsplit kernel 2,
+    # the two-launch chain (gather + kernel 1 + kernel 2) and the merged
+    # route (the stray buffer's gather + kernel 2)
+    unsplit, split = lays["nohub"]
+    a, kw = merged_call
+    x = a[3]
+    common = dict(num_nodes_padded=kw["num_nodes_padded"],
+                  relu=kw.get("relu"), scale=kw.get("scale"))
+    route = dict(t0=None, out_dtype=torch.float32, plain=False, **common)
+    routes = dict(
+        unsplit_ms=cuda_ms(lambda: sc.gathered_scatter_rows_sorted(
+            unsplit.senders_r[None, :], unsplit.lrow_r, unsplit.block_ptr_r,
+            x, plan=unsplit.plan_r, **common), 20),
+        chain_ms=cuda_ms(lambda: fused_sage._split(x, split.split_r, "r",
+                                                   **route), 20),
+        merged_route_ms=cuda_ms(lambda: fused_sage._split(
+            x, split.split_r, "r", merged=True, **route), 20))
+    print("  receiver-order routes on the community graph: " + ", ".join(
+        f"{k[:-3].replace('_', ' ')} {v:.3f} ms" for k, v in routes.items()),
+        flush=True)
+    stray[1].update(routes)
+    del lays, calls
+    torch.cuda.empty_cache()
+    return stray, k1, k2
+
+
+def locality_run(tmp, dev, paths, prep):
+    locality_finetunes(tmp, dev, paths)
+    locality_kg(dev, paths)
+    return locality_split_run(dev, paths, prep)
+
+
+# ------------------------------------------------------------ phase vq
+
+def vq_configs():
+    """The VQ training options of phase vq: the cosine codebook with the
+    EMA update and dead-code expiry, and a euclidean one with the affine
+    statistics and straight-through Gumbel sampling (and the EMA)."""
+    base = pretrain_config(FEAT_DIM)
+    return {
+        "ema": dataclasses.replace(base, vq=dataclasses.replace(
+            base.vq, ema_update=True, threshold_ema_dead_code=2.0)),
+        "affine_gumbel": dataclasses.replace(base, vq=dataclasses.replace(
+            base.vq, use_cosine_sim=False, affine_param=True,
+            straight_through_gumbel=True, stochastic_sample_codes=True,
+            ema_update=True))}
+
+
+class DeadCodes:
+    """Counts the codes each expiry replaces (``vq.codebook.
+    expire_dead_codes``, which the VQ calls through its module)."""
+
+    def __enter__(self):
+        self.counts, self.real = [], cb.expire_dead_codes
+
+        def counting(state, embed, xh, *, threshold, **kw):
+            if threshold > 0:
+                self.counts.append(int((state["cluster_size"]
+                                        < threshold).sum()))
+            return self.real(state, embed, xh, threshold=threshold, **kw)
+        cb.expire_dead_codes = counting
+        return self
+
+    def __exit__(self, *exc):
+        cb.expire_dead_codes = self.real
+        return False
+
+
+def vq_run(merged, csc, dev, paths):
+    """``run_pretrain`` with the VQ's training options, VQ_STEPS steps each
+    at full width (phase vq): finite losses, the codebook moved and adopted
+    from the EMA target, the EMA cluster sizes moved, dead codes replaced;
+    then, for each run, one step on one batch on the card against the CPU
+    with the same draws handed to both: the loss within 1e-3 relative, the
+    gradients within the step gate and the VQ state after it (the EMA
+    sums, cluster sizes, target codebook, replaced dead codes, affine
+    statistics) within VQ_STATE_RTOL (:func:`check_vq_state`)."""
+    node_table = torch.from_numpy(merged["node_text_feat"]).float()
+    edge_table = torch.from_numpy(merged["edge_text_feat"]).float()
+    tables = (node_table, edge_table, node_table.to(dev),
+              edge_table.to(dev))
+    for name, cfg in vq_configs().items():
+        cfg = dataclasses.replace(cfg, batch_size=VQ_BATCH, fanout=MB_FANOUT,
+                                  fused_minibatch="auto")
+        # run_pretrain's own seeded model, built here to keep its codebook
+        model = PretrainModel(cfg, generator=torch.Generator().manual_seed(
+            cfg.seed))
+        init_embed = model.vq.embed.detach().clone()
+        reset_counts()
+        t0 = time.perf_counter()
+        with DeadCodes() as dead:
+            model, teacher, hist = run_pretrain(
+                merged, cfg, weights=[1.0], max_steps=VQ_STEPS, device=dev,
+                verbose=False, model=model)
+        paths[f"vq_{name}"] = read_counts()
+        expect_counts(f"run_pretrain {name} ({VQ_STEPS} steps, no layout)",
+                      paths[f"vq_{name}"], {})
+        mb_check_losses(f"run_pretrain {name}", hist, VQ_STEPS)
+        vq = model.vq
+        moved = float((vq.embed.detach().cpu() - init_embed).abs().max())
+        if not torch.equal(vq.embed, vq.embed_target):
+            raise AssertionError("the EMA codebook was not adopted")
+        sizes = vq.cluster_size.detach().cpu()
+        print(f"  {name}: {time.perf_counter() - t0:.2f} s; codebook "
+              f"|change| max {moved:.3e}; cluster sizes {float(sizes.min()):.3f}"
+              f"..{float(sizes.max()):.3f} (sum {float(sizes.sum()):.1f}); "
+              f"dead codes replaced a step {dead.counts}", flush=True)
+        expiry = cfg.vq.threshold_ema_dead_code > 0
+        if not (moved > 0 and float(sizes.sum()) > 0
+                and len(dead.counts) == VQ_STEPS * expiry
+                and (sum(dead.counts) > 0) == expiry):
+            raise AssertionError(f"phase vq {name}: the codebook, its sizes "
+                                 f"or its dead codes did not move")
+        if cfg.vq.affine_param and not bool(vq.affine_initted):
+            raise AssertionError("the affine statistics were not updated")
+        vq_card_vs_cpu(name, cfg, model, teacher, merged, csc, tables, dev)
+        del model, teacher, vq
+        torch.cuda.empty_cache()
+
+
+def vq_card_vs_cpu(name, cfg, model, teacher, merged, csc, tables, dev):
+    """One pretrain step on one batch of VQ_CHECK_BATCH seeds on the card
+    and on the CPU, from copies of the same model with the same draws
+    (the augmentation's, the VQ's Gumbel noise and dead-code rows)."""
+    rng = np.random.default_rng(SEED + 2)
+    it = NeighborBatchIterator(
+        csc, merged["x"], merged["xe"],
+        get_train_node_idx(merged["ptr"], [1.0], rng), VQ_CHECK_BATCH,
+        [MB_FANOUT, MB_FANOUT], rng, drop_last=True)
+    ig = next(iter(it))[0]
+    g_cpu = batch_graph(ig, *tables[:2], torch.device("cpu"), False)
+    g_dev = batch_graph(ig, *tables[2:], dev, False)
+    gen = torch.Generator().manual_seed(SEED)
+    draws = draw_step(cfg, g_cpu, gen)
+    h = cfg.vq.num_codebooks
+    draws["vq_gumbel"] = cb.gumbel_noise(
+        (h, g_cpu.num_nodes_padded, cfg.vq.codebook_size), gen)
+    draws["vq_expire"] = cb.sample_indices(
+        h, g_cpu.num_nodes_padded, cfg.vq.codebook_size, g_cpu.node_mask,
+        gen)
+    out = {}
+    for where, g in (("cpu", g_cpu), ("card", g_dev)):
+        d = {k: (tuple(t.to(g.node_feat.device) for t in v)
+                 if isinstance(v, tuple) else
+                 None if v is None else v.to(g.node_feat.device))
+             for k, v in draws.items()}
+        # dropout 0 on both sides: the draws of the masks are the device's
+        m = copy.deepcopy(model).to(g.node_feat.device)
+        t = copy.deepcopy(teacher).to(g.node_feat.device)
+        for enc in (m.encoder, t):
+            enc.cfg = dataclasses.replace(enc.cfg, dropout=0.0)
+        with DeadCodes() as dead:
+            loss, _, aux = pretrain_forward(
+                m, t, cfg, augmented(cfg, g, d), g, bs=VQ_CHECK_BATCH,
+                draws=d, drop_seed=d["drop_seed"])
+        loss.backward()
+        out[where] = ({k: p.grad.cpu() for k, p in m.named_parameters()
+                       if p.grad is not None},
+                      {k: v.detach().cpu() for k, v in
+                       m.vq.state_dict().items()}, float(loss.detach()),
+                      aux["vq"]["indices"][g.node_mask].cpu(), dead.counts)
+    rel = abs(out["card"][2] - out["cpu"][2]) / abs(out["cpu"][2])
+    print(f"  {name}: one step on a batch of {ig.n_node} nodes, loss card "
+          f"{out['card'][2]:.6f} / CPU {out['cpu'][2]:.6f} ({rel:.2e} "
+          f"relative); dead codes replaced card {out['card'][4]} / CPU "
+          f"{out['cpu'][4]}", flush=True)
+    if rel > 1e-3:
+        raise AssertionError(f"phase vq {name}: the card's loss is not the "
+                             f"CPU's")
+    check_grads(f"the CPU ({name}, the same draws)", out["card"][0],
+                out["cpu"][0])
+    check_vq_state(name, cfg.vq, out["card"][1], out["cpu"][1],
+                   out["card"][3], out["cpu"][3])
+    if cfg.vq.threshold_ema_dead_code > 0 and not out["cpu"][4][0]:
+        raise AssertionError(f"phase vq {name}: the checked step replaced "
+                             f"no dead code")
+
+
+def check_vq_state(name, vq_cfg, card, cpu, codes_card, codes_cpu):
+    """The VQ state after one step on the card against the CPU's: every
+    floating entry within VQ_STATE_RTOL of its largest magnitude on the
+    CPU.  The per-code entries ([num_codebooks, C, ...]: the codebook, the
+    EMA sums and cluster sizes, the target codebook) only on the codes no
+    node moved to or from between the devices (``codes_*`` [n, heads], a
+    node at an f32 near-tie may take another code); the affine statistics
+    whole."""
+    h, c = vq_cfg.num_codebooks, vq_cfg.codebook_size
+    a, b = codes_card.reshape(-1, h), codes_cpu.reshape(-1, h)
+    same = torch.ones(h, c, dtype=torch.bool)
+    for head in range(h):
+        moved = a[:, head] != b[:, head]
+        same[head, a[moved, head]] = False
+        same[head, b[moved, head]] = False
+    errs = {}
+    for k, want in cpu.items():
+        if not want.is_floating_point():
+            continue
+        got = card[k]
+        if want.shape[:2] == (h, c):
+            got, want = got[same], want[same]
+        errs[k] = max_err(got, want)
+        if errs[k] > VQ_STATE_RTOL * float(want.abs().max()):
+            raise AssertionError(f"phase vq {name}: the card's {k} is "
+                                 f"{errs[k]:.3e} from the CPU's")
+    print(f"  {name}: the VQ state after the step, max |card - CPU| "
+          f"(within {VQ_STATE_RTOL:.0e} of each entry's largest; per code "
+          f"on the {int(same.sum())} of {h * c} codes whose nodes agree): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+
+
+def kg_encode_run(tmp, dev, paths):
+    """``infer.main --mode encode`` from phase slice's checkpoint on the
+    cached WN18RR (one edge text) and on ``kg_synthetic`` (11 edge types:
+    the typed hub block and kernel 2's xe mode), on the card and on the
+    CPU's layout route: kernel 2 once a layer, ``z`` against the CPU's
+    within the ``z`` gates, the quantized rows where the codes agree
+    likewise, and the codes' agreement printed."""
+    for name in ("WN18RR", KG):
+        out = os.path.join(tmp, f"encode_{name}.npz")
+        argv = ["--finetune_dataset", name, "--feat_dim", str(FEAT_DIM),
+                "--pretrain_path", tmp, "--pretrain_model_epoch", "50",
+                "--seed", str(SEED), "--out", out]
+        print(f"  python -m stemgnn_tpu_torch.infer {' '.join(argv)}",
+              flush=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        infer_main(argv)
+        paths[f"encode_{name}"] = read_counts()
+        wall = time.perf_counter() - t0
+        expect_counts(f"encode {name}", paths[f"encode_{name}"], {K2: 2})
+        card = {k: torch.from_numpy(v) for k, v in np.load(out).items()}
+        # the CPU on the same layout route (bf16 messages through the
+        # kernels' plain versions), so that only the sums' order differs
+        layout_applies = graph_setup._layout_applies
+        graph_setup._layout_applies = lambda cfg, device: True
+        t0 = time.perf_counter()
+        try:
+            infer_main([*argv, "--device", "cpu"])
+        finally:
+            graph_setup._layout_applies = layout_applies
+        cpu_s = time.perf_counter() - t0
+        cpu = {k: torch.from_numpy(v) for k, v in np.load(out).items()}
+        n = cpu["embeddings"].shape[0]
+        if not all(torch.isfinite(card[k]).all() for k in ("embeddings",
+                                                           "quantized")):
+            raise AssertionError(f"encode {name}: non-finite outputs")
+        check_z(f"encode {name} on the CPU", card["embeddings"],
+                cpu["embeddings"], n)
+        same = (card["codes"] == cpu["codes"]).all(1)
+        check_z(f"encode {name} quantized rows on the CPU (codes equal)",
+                card["quantized"][same], cpu["quantized"][same],
+                int(same.sum()))
+        print(f"  encode {name}: {n} nodes, card wall {wall:.2f} s, CPU "
+              f"{cpu_s:.2f} s; code rows equal on both: "
+              f"{float(same.float().mean()):.6f}", flush=True)
+
+
 def save_checkpoint(tmp, gen, moe: bool = False):
     """A JAX-format pretrain checkpoint with random weights and non-trivial
     BatchNorm statistics, and its config.json; with ``moe`` an MoE-SAGE
@@ -2875,8 +3468,9 @@ def save_checkpoint(tmp, gen, moe: bool = False):
 
 
 def check_encode_outputs(out, n):
-    got = np.load(out)
-    shapes = {k: got[k].shape for k in got.files}
+    with np.load(out) as f:     # each array read from the file once
+        got = dict(f)
+    shapes = {k: v.shape for k, v in got.items()}
     print(f"  outputs {shapes}", flush=True)
     want = {"embeddings": (n, FEAT_DIM), "quantized": (n, FEAT_DIM),
             "codes": (n, 4)}
@@ -2936,7 +3530,7 @@ def main():
     t_all = time.perf_counter()
     paths = {}                                      # path -> launch counts
     shared = contextlib.ExitStack()
-    shared.enter_context(shared_datasets())
+    graphs = shared.enter_context(shared_datasets())
 
     with phase("device"):
         card = card_line()
@@ -2963,8 +3557,11 @@ def main():
         kernel1_small_cases(dev)
         ds = load_dataset(DATASET, feat_dim=FEAT_DIM, seed=SEED)
         cfg = FinetuneConfig()
-        graph = fused_full_graph(ds, cfg, device=dev)
-        print(f"  {describe_layout(graph.layout)}", flush=True)
+        t0 = time.perf_counter()
+        graph = fused_full_graph(ds, cfg, device=dev)    # shared: see slice
+        graph_s = time.perf_counter() - t0
+        print(f"  full graph and layout built in {graph_s:.2f} s of host; "
+              f"{describe_layout(graph.layout)}", flush=True)
         k1_cases, k2_cases = arxiv_tail_cases(graph)
         errs = {}
         for direction, (args, kw, plan) in k1_cases.items():
@@ -3011,7 +3608,9 @@ def main():
         res = infer_main(argv)
         paths["encode"] = read_counts()
         encode_wall_s = time.perf_counter() - t0
-        print(f"  encode wall {encode_wall_s:.2f} s", flush=True)
+        print(f"  encode wall {encode_wall_s:.2f} s, and the build of the "
+              f"full graph and layout it reads ({graph_s:.2f} s, phase "
+              f"kernel)", flush=True)
         expect_counts("encode (default layout)", paths["encode"],
                       {K1: 0, K2: 2})
         n = res["num_nodes"]
@@ -3128,7 +3727,11 @@ def main():
         print(f"  native sampler built from the port's copy of its source "
               f"in {time.perf_counter() - t0:.2f} s ({lib})", flush=True)
         pretrain_mb_cli(ds, tmp, dev, paths)
-        pretrain_mb_run(ds, dev, paths)
+        mb_merged, mb_csc = pretrain_mb_run(ds, dev, paths)
+
+    with phase("vq"):
+        vq_run(mb_merged, mb_csc, dev, paths)
+        del mb_merged, mb_csc
 
     with phase("typed"):
         k3_path = typed_run(tmp, dev, paths)
@@ -3138,6 +3741,7 @@ def main():
 
     with phase("kg"):
         k2_kg = kg_run(tmp, dev, paths)
+        kg_encode_run(tmp, dev, paths)
 
     with phase("graph"):
         graph_run(tmp, dev, paths)
@@ -3158,9 +3762,19 @@ def main():
     torch.cuda.empty_cache()
 
     with phase("backbones"):
-        backbones_run(tmp, graph, dev, paths)
+        # the locality phase's dataset and split layouts: host work beside
+        # this phase's device work
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            split_prep = pool.submit(locality_prepare, dev)
+            backbones_run(tmp, graph, dev, paths)
+            loc_prep = split_prep.result()
+
+    with phase("locality"):
+        loc_stray, loc_k1, loc_k2 = locality_run(tmp, dev, paths, loc_prep)
+        del loc_prep
     tmp_dir.cleanup()
     del graph
+    graphs.clear()
     torch.cuda.empty_cache()
 
     with phase("text"):
@@ -3184,6 +3798,7 @@ def main():
             "bwd_plain_ms": bwd["plain_ms"], "bwd_bound_ms": bwd["bound_ms"],
             "bwd_library_ms": bwd["library_ms"]}
         if name == K1:
+            entry.update(case_fields({"locsplit_stray": loc_k1}))
             for direction in ("drop_fwd", "drop_bwd"):
                 entry.update({f"{direction}_max_abs_err":
                               errs[(name, direction)]})
@@ -3195,7 +3810,8 @@ def main():
                          row_walk_bound_ms=fwd["row_walk_bound_ms"],
                          bwd_row_walk_bound_ms=bwd["row_walk_bound_ms"])
             cases = {**k2_ood, "kg_eval": k2_kg,
-                     "xe": (typed_errs[K2], typed_times[K2])}
+                     "xe": (typed_errs[K2], typed_times[K2]),
+                     "stray": loc_stray, "locsplit_local": loc_k2}
             entry.update(case_fields(cases))
         line.append(entry)
     for entry in line:
@@ -3271,6 +3887,8 @@ def time_case(name, direction, args, kw, extra):
     n_pad = kw["num_nodes_padded"]
     bp, lrow = args["block_ptr"], args["local_row"]
     x, table, xe = args.get("x"), args.get("table"), args.get("xe")
+    # kernel 2's merged LocSplit: a stray edge reads stray_src[stray_idx[e]]
+    src, sidx = kw.get("stray_src"), kw.get("stray_idx")
     relu = kw.get("relu", False)
     out_dtype = kw.get("out_dtype", torch.float32)
     dev = bp.device
@@ -3282,8 +3900,8 @@ def time_case(name, direction, args, kw, extra):
     plain = cuda_ms(lambda: ref(**args, **kw), 5)
     # each input read once, each output written once, each at its own
     # dtype's size: out, block_ptr, the epilogue's init, scale and gate,
-    # then the edge stream (lrow, and m, keys, senders or types) and the x
-    # rows the launch reads
+    # then the edge stream (lrow, and m, keys, senders, types or stray
+    # ranks) and the x rows (and stray rows) the launch reads
     d = (args["m"] if name == K1 else x).shape[1]
     nbytes = (n_pad * d * torch.finfo(out_dtype).bits // 8
               + bp.numel() * bp.element_size())
@@ -3297,8 +3915,20 @@ def time_case(name, direction, args, kw, extra):
     else:
         idx = (args["keys"] if name == K2 else args["senders"]).reshape(
             -1)[:e_used][live].long()
-        x_rows = int(torch.unique(idx).numel())
-        x_bytes = x_rows * d * x.element_size()
+        # each edge's column of [x; stray_src]: its key, or N_pad + its
+        # stray rank
+        cols = idx
+        if sidx is None:
+            x_bytes = int(torch.unique(idx).numel()) * d * x.element_size()
+        else:
+            rank = sidx.reshape(-1)[:e_used][live].long()
+            strays = rank >= 0
+            cols = torch.where(strays, n_pad + rank, idx)
+            x_bytes = (int(torch.unique(idx[~strays]).numel()) * d
+                       * x.element_size()
+                       + int(torch.unique(rank[strays]).numel()) * d
+                       * src.element_size())
+            per_edge += 4
         nbytes += x_bytes + (0 if table is None
                              else table.numel() * table.element_size())
         per_edge += 4 + (0 if xe is None else 4)
@@ -3313,13 +3943,16 @@ def time_case(name, direction, args, kw, extra):
     # yardstick: one PyTorch call computing the same sums
     if name == K2 and xe is None:
         # A @ f(x) for the tail's count matrix A (f = relu(x + t0) rounded
-        # to bf16, or x itself): one sparse product in the out dtype
-        f = x.float() + (0.0 if table is None else table.float())
+        # to bf16, or x itself; x with the stray rows below it): one
+        # sparse product in the out dtype
+        f = x if src is None else torch.cat([x, src.to(x.dtype)])
+        f = f.float() + (0.0 if table is None else table.float())
         f = (torch.relu(f) if relu else f).to(torch.bfloat16).to(out_dtype)
         a = torch.sparse_coo_tensor(
-            torch.stack([rows_out, idx]),
+            torch.stack([rows_out, cols]),
             torch.ones(rows_out.numel(), device=dev, dtype=out_dtype),
-            (n_pad, n_pad), check_invariants=False).coalesce().to_sparse_csr()
+            (n_pad, f.shape[0]),
+            check_invariants=False).coalesce().to_sparse_csr()
         out["library_ms"] = cuda_ms(lambda: torch.sparse.mm(a, f), 20)
         lib = f"torch.sparse.mm (CSR {str(out_dtype)[6:]})"
         del a, f
@@ -3349,15 +3982,20 @@ def time_case(name, direction, args, kw, extra):
     if name == K2:
         plan, keys = extra["plan"], args["keys"].reshape(-1)
         valid = (lrow.reshape(-1) < sc.NODE_BLOCK)[:, None]
+        k1_kw = {k: v for k, v in kw.items() if not k.startswith("stray_")}
 
         def replaced():
             m = x.index_select(0, keys.clamp(max=n_pad - 1).long())
+            if sidx is not None:
+                r = sidx.reshape(-1).long()
+                m = torch.where((r >= 0)[:, None], src.to(m.dtype)
+                                .index_select(0, r.clamp(min=0)), m)
             if table is not None:
                 m = m + (table if xe is None
                          else table.index_select(0, xe.reshape(-1).long()))
             m = torch.where(valid, m, torch.zeros((), dtype=m.dtype,
                                                   device=dev))
-            return sc.scatter_rows_sorted(m, lrow, bp, plan=plan, **kw)
+            return sc.scatter_rows_sorted(m, lrow, bp, plan=plan, **k1_kw)
         out["replaced_ms"] = cuda_ms(replaced, 20)
         out["row_walk_bound_ms"] = bound_ms(
             nbytes - x_bytes + e_used * d * x.element_size(), flops)[0]

@@ -23,6 +23,19 @@
 // graphs.  On Hopper a row gather goes through L2 at any address, so the
 // kernel reads x[keys[e]] directly and needs no windows.
 //
+// Merged local/stray split (the TPU kernel's stray_src / stray_idx inputs,
+// _gathered_block_kernel's with_stray branch): an edge whose stray rank
+// stray_idx[e] >= 0 takes its row from stray_src[stray_idx[e]] (bf16, the
+// rows the TPU kernel's one-hot product rounds to bf16) in place of
+// x[keys[e]]; t0 / T[xe], the relu and the epilogue then apply as for every
+// other edge.  Its key is the sentinel, which is never read.  The TPU
+// kernel's per-chunk DMA metadata (stray_off, stray_cnt) is checked on the
+// host and not read here.  The ranks come in plan order, as the keys do, so
+// a merged launch is the same walk with one more index read per edge; the
+// kernel without strays is a separate instantiation (kStray false) and
+// does not pay for it.  Its least time adds the stray rows (S * D * 2) and
+// the ranks (E * 4) to the bytes above.
+//
 // Bound on the H100: bytes.  Each gathered bf16 value is used in one or
 // two adds, far below the ~295 operations per byte at which the tensor
 // cores would bind.  The least time reads each input once: (distinct x rows
@@ -50,6 +63,8 @@ enum TableMode { kNoTable = 0, kT0 = 1, kXe = 2 };
 struct Args {
   const int32_t* keys;        // [E_cnt] keys in plan order
   const int32_t* types;       // [E_cnt] xe in plan order, or NULL
+  const int32_t* sidx;        // [E_cnt] stray ranks in plan order, or NULL
+  const bf16* stray_src;      // [S, d] stray rows, or NULL
   const int32_t* item_row;
   const int32_t* item_start;
   const int32_t* item_slot;
@@ -65,7 +80,8 @@ struct Args {
   int n_items, n_split, n_pad, d, t_rows, relu, init_bf16, gate_bf16;
 };
 
-template <int kTable, typename OutT, int Vec, int NV, int U, int kMinBlocks>
+template <int kTable, bool kStray, typename OutT, int Vec, int NV, int U,
+          int kMinBlocks>
 __global__ void __launch_bounds__(rw::kThreads, kMinBlocks)
 gathered_rows_kernel(const Args a) {
   const long long item = rw::warp_item(a.n_items);
@@ -76,7 +92,7 @@ gathered_rows_kernel(const Args a) {
   const int start = __ldg(a.item_start + item);
   const int end = __ldg(a.item_start + item + 1);
   const int slot = __ldg(a.item_slot + item);
-  const long long d = a.d;
+  const long long d = a.d;  // 64-bit: the row offsets k * d, s * d, t * d
   if (slot < 0) {  // this item finishes its row: fetch the epilogue's rows
     rw::prefetch_row<Vec, NV>(a.init, a.init_bf16 ? 2 : 4, row, a.d, ln);
     rw::prefetch_row<Vec, NV>(a.gate, a.gate_bf16 ? 2 : 4, row, a.d, ln);
@@ -101,6 +117,8 @@ gathered_rows_kernel(const Args a) {
     const int my_key = lane < n_e ? __ldg(a.keys + base + lane) : -1;
     const int my_type =
         (kTable == kXe && lane < n_e) ? __ldg(a.types + base + lane) : -1;
+    const int my_sidx = (kStray && lane < n_e) ? __ldg(a.sidx + base + lane)
+                                               : -1;
     for (int j = 0; j < n_e; j += U) {
       rw::Vals<bf16, Vec> xr[U][NV];
       rw::Vals<bf16, Vec> tr[kTable == kXe ? U : 1][NV];
@@ -109,9 +127,14 @@ gathered_rows_kernel(const Args a) {
         const int k = __shfl_sync(rw::kFull, my_key, (j + u) & 31);
         const bool live = j + u < n_e;
         const bool kin = live && k >= 0 && k < a.n_pad;
+        const bf16* src = kin ? a.x + k * d : nullptr;
+        if constexpr (kStray) {
+          const int s = __shfl_sync(rw::kFull, my_sidx, (j + u) & 31);
+          if (live && s >= 0) src = a.stray_src + s * d;
+        }
 #pragma unroll
         for (int c = 0; c < NV; ++c) {
-          if (kin && ln.has[c]) xr[u][c].load(a.x + k * d + ln.col[c]);
+          if (src && ln.has[c]) xr[u][c].load(src + ln.col[c]);
           else xr[u][c].zero();
         }
         if constexpr (kTable == kXe) {
@@ -146,10 +169,11 @@ gathered_rows_kernel(const Args a) {
                                  static_cast<OutT*>(a.out), a.partials);
 }
 
-template <int kTable, typename OutT, int Vec, int NV, int U, int kMinBlocks>
+template <int kTable, bool kStray, typename OutT, int Vec, int NV, int U,
+          int kMinBlocks>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.n_items > 0)
-    gathered_rows_kernel<kTable, OutT, Vec, NV, U, kMinBlocks>
+    gathered_rows_kernel<kTable, kStray, OutT, Vec, NV, U, kMinBlocks>
         <<<rw::grid_for(a.n_items, a.d, 32 * Vec * NV), rw::kThreads, 0,
            stream>>>(a);
   cudaError_t err = cudaGetLastError();
@@ -177,32 +201,41 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 #ifndef K2_XE_MIN_BLOCKS
 #define K2_XE_MIN_BLOCKS 8
 #endif
-template <int kTable, typename OutT>
+template <int kTable, bool kStray, typename OutT>
 cudaError_t launch_cols(const Args& a, int col_mode, cudaStream_t stream) {
   switch (col_mode) {
     case rw::kFullRow:
       if constexpr (kTable == kXe)
-        return launch<kTable, OutT, 8, 3, K2_XE_UNROLL, K2_XE_MIN_BLOCKS>(
-            a, stream);
+        return launch<kTable, kStray, OutT, 8, 3, K2_XE_UNROLL,
+                      K2_XE_MIN_BLOCKS>(a, stream);
       else
-        return launch<kTable, OutT, 8, 3, K2_UNROLL, K2_MIN_BLOCKS>(a,
-                                                                   stream);
-    case rw::kPairs: return launch<kTable, OutT, 2, 3, 4, 1>(a, stream);
+        return launch<kTable, kStray, OutT, 8, 3, K2_UNROLL, K2_MIN_BLOCKS>(
+            a, stream);
+    case rw::kPairs:
+      return launch<kTable, kStray, OutT, 2, 3, 4, 1>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename OutT>
+template <bool kStray, typename OutT>
 cudaError_t launch_table(const Args& a, int col_mode, cudaStream_t stream) {
-  if (!a.table) return launch_cols<kNoTable, OutT>(a, col_mode, stream);
-  if (!a.types) return launch_cols<kT0, OutT>(a, col_mode, stream);
-  return launch_cols<kXe, OutT>(a, col_mode, stream);
+  if (!a.table) return launch_cols<kNoTable, kStray, OutT>(a, col_mode,
+                                                           stream);
+  if (!a.types) return launch_cols<kT0, kStray, OutT>(a, col_mode, stream);
+  return launch_cols<kXe, kStray, OutT>(a, col_mode, stream);
+}
+
+template <typename OutT>
+cudaError_t launch_stray(const Args& a, int col_mode, cudaStream_t stream) {
+  if (a.sidx) return launch_table<true, OutT>(a, col_mode, stream);
+  return launch_table<false, OutT>(a, col_mode, stream);
 }
 
 }  // namespace
 
 // Plain C entry for ctypes.  keys and types [E_cnt] int32 in plan order
-// (types NULL without an xe stream), the plan's item_row, item_slot
+// (types NULL without an xe stream), sidx [E_cnt] int32 stray ranks in plan
+// order and stray_src [S, d] bf16 (both NULL without strays), the plan's item_row, item_slot
 // [n_items], item_start [n_items + 1], split_row [n_split] and split_ptr
 // [n_split + 1] int32, x [n_pad, d] bf16, table [t_rows, d] bf16 or NULL
 // (a 1-row table with types NULL: t0 added to every message), init [n_pad,
@@ -214,7 +247,8 @@ cudaError_t launch_table(const Args& a, int col_mode, cudaStream_t stream) {
 // second pass over the split rows; returns the first cudaError_t (0 =
 // success).
 extern "C" int gathered_scatter_rows_sorted_launch(
-    const void* keys, const void* types, const void* item_row,
+    const void* keys, const void* types, const void* sidx,
+    const void* stray_src, const void* item_row,
     const void* item_start, const void* item_slot, const void* split_row,
     const void* split_ptr, const void* x, const void* table,
     const void* init, const void* scale, const void* gate, void* out,
@@ -223,6 +257,8 @@ extern "C" int gathered_scatter_rows_sorted_launch(
     void* stream) {
   const Args a{static_cast<const int32_t*>(keys),
                static_cast<const int32_t*>(types),
+               static_cast<const int32_t*>(sidx),
+               static_cast<const bf16*>(stray_src),
                static_cast<const int32_t*>(item_row),
                static_cast<const int32_t*>(item_start),
                static_cast<const int32_t*>(item_slot), split_row, split_ptr,
@@ -231,6 +267,6 @@ extern "C" int gathered_scatter_rows_sorted_launch(
                static_cast<float*>(partials), n_items, n_split, n_pad, d,
                t_rows, relu, init_bf16, gate_bf16};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_bf16) return launch_table<bf16>(a, col_mode, s);
-  return launch_table<float>(a, col_mode, s);
+  if (out_bf16) return launch_stray<bf16>(a, col_mode, s);
+  return launch_stray<float>(a, col_mode, s);
 }

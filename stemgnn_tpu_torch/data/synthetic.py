@@ -8,7 +8,10 @@ knowledge graph whose relation (one of T edge types) is the edge's label,
 ``synthetic_graph_dataset``, small random graphs with multitask binary
 labels, 20% of them NaN (``mol_synthetic``), and ``write_smiles_csv``, a
 ``smiles:<csv>`` file of random valence-safe molecules (``random_smiles``)
-with 128 tasks, 60% NaN, as ``scripts/bench_graph_scale.py`` generates them.
+with 128 tasks, 60% NaN, as ``scripts/bench_graph_scale.py`` generates them,
+and the benchmark graphs ``random_power_law_graph`` (Zipf in-degree skew)
+and ``community_power_law_graph`` (communities with power-law in-degree
+inside, node ids shuffled: what the locality relabels recover).
 The numpy draws are the JAX package's, in the same order, so the same seed
 gives the same arrays in both packages.
 """
@@ -248,3 +251,64 @@ def write_smiles_csv(path: str, num_graphs: int, num_tasks: int = 128,
               zip(smiles, split_names, cells.tolist())]
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def random_power_law_graph(num_nodes: int, num_edges: int, feat_dim: int,
+                           alpha: float = 1.5, seed: int = 0,
+                           with_edge_feat: bool = True):
+    """Benchmark graph with Zipf-ish in-degree skew (arxiv-like).  Returns
+    host arrays (node_feat, senders, receivers, edge_feat)."""
+    rng = np.random.default_rng(seed)
+    # receiver popularity ~ power law (inverse-CDF sampling; rng.choice with
+    # explicit p is ~100x slower at this scale)
+    ranks = np.arange(1, num_nodes + 1, dtype=np.float64)
+    p = ranks ** (-alpha)
+    cdf = np.cumsum(p)
+    cdf /= cdf[-1]
+    receivers = np.searchsorted(cdf, rng.random(num_edges)).astype(np.int32)
+    senders = rng.integers(0, num_nodes, num_edges).astype(np.int32)
+    node_feat = rng.standard_normal((num_nodes, feat_dim)).astype(np.float32)
+    edge_feat = rng.standard_normal((num_edges, feat_dim)).astype(np.float32) \
+        if with_edge_feat else None
+    return node_feat, senders, receivers, edge_feat
+
+
+def community_power_law_graph(num_nodes: int, num_edges: int, feat_dim: int,
+                              num_communities: int = 64,
+                              p_intra: float = 0.9, alpha: float = 1.5,
+                              seed: int = 0, shuffle: bool = True,
+                              with_edge_feat: bool = False):
+    """Community-structured benchmark graph (citation-network-like): nodes
+    belong to equal-size communities, ``p_intra`` of edges stay inside the
+    endpoint's community (with power-law in-degree skew inside), the rest
+    connect uniformly at random across the graph.  Node ids are SHUFFLED by
+    default so the raw ordering carries no locality — exactly the situation
+    the relabels of ops/reorder.py are meant to recover.
+    Returns host arrays (node_feat, senders, receivers, edge_feat)."""
+    rng = np.random.default_rng(seed)
+    csize = max(num_nodes // num_communities, 1)
+    n_eff = csize * num_communities
+    intra = rng.random(num_edges) < p_intra
+    comm = rng.integers(0, num_communities, num_edges)
+    # power-law local offsets inside the community for receivers
+    ranks = np.arange(1, csize + 1, dtype=np.float64)
+    p = ranks ** (-alpha)
+    cdf = np.cumsum(p)
+    cdf /= cdf[-1]
+    r_local = np.searchsorted(cdf, rng.random(num_edges))
+    s_local = rng.integers(0, csize, num_edges)
+    senders = np.where(intra, comm * csize + s_local,
+                       rng.integers(0, n_eff, num_edges)).astype(np.int64)
+    receivers = np.where(intra, comm * csize + r_local,
+                         rng.integers(0, n_eff, num_edges)).astype(np.int64)
+    if num_nodes > n_eff:
+        pass  # trailing isolated nodes keep the requested count
+    if shuffle:
+        perm = rng.permutation(num_nodes)
+        senders = perm[senders]
+        receivers = perm[receivers]
+    node_feat = rng.standard_normal((num_nodes, feat_dim)).astype(np.float32)
+    edge_feat = (rng.standard_normal((num_edges, feat_dim)).astype(np.float32)
+                 if with_edge_feat else None)
+    return (node_feat, senders.astype(np.int32),
+            receivers.astype(np.int32), edge_feat)

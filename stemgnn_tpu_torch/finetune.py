@@ -193,9 +193,6 @@ def refusals(args) -> list:
         (args.halo_balance or args.halo_order != "none",
          "--halo_balance / --halo_order: the halo partition's node orders "
          "are not ported (ROADMAP Queue 1 item 10)"),
-        (args.reorder in ("rcm", "degree", "community"),
-         f"--reorder {args.reorder}: node relabelling (ops/reorder.py) is "
-         f"not ported (ROADMAP Queue 1 item 3); use auto or off"),
     )
     return [msg for bad, msg in checks if bad]
 

@@ -4,10 +4,12 @@
 ``--mode encode`` (the default) loads a pretrain checkpoint
 (``<path>/encoder_<epoch>.npz`` and ``vq_<epoch>.npz``, with the
 architecture from ``config.json`` beside them when present, as ``python -m
-stemgnn_tpu_torch.pretrain`` writes them), encodes a node dataset's full
-graph and writes per-node ``embeddings`` [N, D], ``quantized`` embeddings
-[N, D] and VQ ``codes`` [N, H] into one npz; for a graph dataset the
-per-molecule mean-pooled analogs [G, D] / [G, H].
+stemgnn_tpu_torch.pretrain`` writes them), encodes a node or link
+dataset's full graph (a link dataset's typed edges through the type table,
+as JAX's ``infer.py`` encodes WN18RR) and writes per-node ``embeddings``
+[N, D], ``quantized`` embeddings [N, D] and VQ ``codes`` [N, H] into one
+npz; for a graph dataset the per-molecule mean-pooled analogs [G, D] /
+[G, H].
 
 ``--mode predict`` loads a task model that ``finetune --save_model`` wrote
 (either package's: the same trees and meta) and writes the class
@@ -32,6 +34,7 @@ exits with an error.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os.path as osp
 import sys
@@ -117,9 +120,6 @@ def main(argv=None):
         raise KeyError(f"Unknown dataset {name}")
     if args.mode == "predict":
         return predict(args, task, device)
-    if task == "link":
-        raise NotImplementedError(f"{name!r} is a link task; the port "
-                                  f"encodes node and graph datasets")
     ds = load_dataset(name, feat_dim=args.feat_dim, seed=args.seed,
                       text_encoder=args.text_encoder, device=device)
 
@@ -128,7 +128,7 @@ def main(argv=None):
     ep = args.pretrain_model_epoch
     enc = ckpt.load_pytree(osp.join(path, f"encoder_{ep}.npz"))
     vq = ckpt.load_pytree(osp.join(path, f"vq_{ep}.npz"))
-    cfg = encode_config(args, path)
+    cfg = dataclasses.replace(encode_config(args, path), task=task)
     check_feature_width(ds, cfg.encoder.input_dim, args.text_encoder)
     encoder, quantizer = from_jax_pytree(
         {"encoder": enc["params"], "vq": vq["params"]},
@@ -145,9 +145,12 @@ def main(argv=None):
         return {"embeddings": pooled, "quantized": quant, "codes": codes,
                 "encoder": encoder, "quantizer": quantizer}
 
+    # a link dataset's typed edges: the type table rides the layout
     graph = fused_full_graph(ds, cfg, device=device)
     if graph.layout is not None:
-        print(describe_layout(graph.layout), flush=True)
+        t_rows = (1 if graph.edge_table is None
+                  else int(graph.edge_table.shape[0]))
+        print(describe_layout(graph.layout, t_rows), flush=True)
     with torch.no_grad():
         z = encoder(graph.node_feat, graph.senders, graph.receivers,
                     edge_feat=graph.edge_feat, edge_mask=graph.edge_mask,
@@ -191,9 +194,12 @@ def predict(args, task: str, device):
               f"multitask)", flush=True)
         return {"probs": probs, "logits": logits, "model": model,
                 "cfg": cfg}
+    # a link dataset's typed edges: the type table rides the layout
     graph = fused_full_graph(ds, cfg, device=device)
     if graph.layout is not None:
-        print(describe_layout(graph.layout), flush=True)
+        t_rows = (1 if graph.edge_table is None
+                  else int(graph.edge_table.shape[0]))
+        print(describe_layout(graph.layout, t_rows), flush=True)
     with torch.no_grad():
         z = encode(model, graph)
         if task == "link":

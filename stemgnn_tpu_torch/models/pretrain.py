@@ -146,7 +146,9 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
     the dropout's edge mask.  With a layout and ``drop_seed``, the encoder
     takes the dropout as ``drop_hash`` (the fused form).  ``draws`` holds
     the step's random draws: ``slots`` and ``neg`` (the topo-recon edges)
-    and ``ortho_ids`` (the orthogonal term's codes, or None for all), and
+    and ``ortho_ids`` (the orthogonal term's codes, or None for all), the
+    VQ's sampling noise (``vq_gumbel``) and dead-code rows (``vq_expire``),
+    and
     optionally the MoE layers' Gumbel noise of the student (``gumbel``) and
     of the teacher (``teacher_gumbel``), one [N, K] tensor a layer;
     ``generator`` feeds the encoders' dropout and any Gumbel noise not
@@ -167,7 +169,9 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
         drop_hash=(drop_seed, cfg.edge_p) if use_hash else None,
         gumbel=draws.get("gumbel"), return_aux=True)
     vq_res = model.vq(z, mask=aug_g.node_mask,
-                      ortho_ids=draws.get("ortho_ids"), generator=generator)
+                      ortho_ids=draws.get("ortho_ids"), generator=generator,
+                      gumbel=draws.get("vq_gumbel"),
+                      expire_idx=draws.get("vq_expire"))
     query = vq_res["quantize"]
     seed_mask = orig_g.node_mask[:bs].float()
     # loss_bf16: the decoders read a bf16 copy of the query

@@ -22,13 +22,20 @@ forward side: a hub is a (sender, type) pair (``HubDense.hub_xe``).
 
 Always ``None`` here: the masked kernel's x-windows (``win_*``; the GPU
 ``masked_scatter_rows_sorted`` reads the node block's own rows and needs
-none) and the local/stray splits (``split_*``, JAX ``_build_loc_split``/
-``_build_merged_split``, not ported yet).
+none).
+
+``loc_split`` builds a per-direction local/stray split (:class:`LocSplit`,
+JAX ``_build_loc_split``/``_build_merged_split``) where the whole
+direction's gather gate is shut but the edges near their scatter block's
+median gather key clear it: "auto" as JAX gates it (so never under the
+H100 profile, whose gate is open on every graph), "on" forced.  A direction
+with a hub block gets the split on its hub tail instead.
 
 Port-only fields: ``plan_r``/``plan_s``, the :class:`RowPlan` of each
-direction (the row walk of the GPU kernels), on every layout and every hub
-tail; ``HubDense.cnt_nz``/``sc_nz``, the nonzero pairs of the count
-blocks (the pair-hash dropout's masks).
+direction (the row walk of the GPU kernels), on every layout, hub tail and
+split sub-layout; ``LocSplit.m_plan``, the plan of the merged order;
+``HubDense.cnt_nz``/``sc_nz``, the nonzero pairs of the count blocks (the
+pair-hash dropout's masks).
 """
 
 from __future__ import annotations
@@ -75,6 +82,10 @@ class RowPlan:
     keys: Optional[torch.Tensor] = None     # [E_cnt] int32 keys[pos]
     senders: Optional[torch.Tensor] = None  # [E_cnt] int32 senders[pos]
     xe: Optional[torch.Tensor] = None       # [E_cnt] int32 xe[pos]
+    # [E_cnt] int32 stray_idx[pos] of a merged LocSplit order, and the
+    # stray rows it reads (max + 1)
+    stray_idx: Optional[torch.Tensor] = None
+    stray_rows: int = 0
     chunk: int = ROW_CHUNK
     num_slots: int = 0
     # the arrays it was built from, each with its version counter then; the
@@ -133,17 +144,25 @@ def _plan_arrays(local_row: np.ndarray, block_ptr: np.ndarray, chunk: int):
 
 
 def row_plan(local_row, block_ptr, keys=None, senders=None, xe=None, *,
+             stray_idx=None, stray_off=None, stray_cnt=None,
              chunk: int = ROW_CHUNK) -> RowPlan:
     """The :class:`RowPlan` of one direction: ``local_row`` [1, E_pad] and
     ``block_ptr`` [N_pad/128 + 1] int32 tensors, and the per-edge arrays
     the kernels read in row order (``keys`` for kernel 2, ``senders`` for
-    kernel 3, ``xe`` for either), each [E_pad] or [1, E_pad] int32.  Built
+    kernel 3, ``xe`` for either, ``stray_idx`` for kernel 2's merged
+    LocSplit), each [E_pad] or [1, E_pad] int32.  ``stray_off`` /
+    ``stray_cnt`` (the TPU kernel's per-chunk metadata, which no GPU kernel
+    reads) come with ``stray_idx`` and are checked against it here.  Built
     with numpy on the host; the plan's tensors live on ``local_row``'s
     device."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    if (stray_idx is None) != (stray_off is None) \
+            or (stray_off is None) != (stray_cnt is None):
+        raise ValueError("stray_idx, stray_off and stray_cnt come together")
     arrays = dict(local_row=local_row, block_ptr=block_ptr, keys=keys,
-                  senders=senders, xe=xe)
+                  senders=senders, xe=xe, stray_idx=stray_idx,
+                  stray_off=stray_off, stray_cnt=stray_cnt)
     host = {k: None if t is None else t.detach().cpu().numpy()
             for k, t in arrays.items()}
     plan = _plan_from_numpy(host, chunk, local_row.device)
@@ -155,6 +174,11 @@ def row_plan(local_row, block_ptr, keys=None, senders=None, xe=None, *,
 def _plan_from_numpy(host: dict, chunk: int, device) -> RowPlan:
     pos, item_row, item_start, item_slot, split_row, split_ptr = \
         _plan_arrays(host["local_row"], host["block_ptr"], chunk)
+    stray_rows = 0
+    if host.get("stray_idx") is not None:
+        stray_rows = check_stray_metadata(host["stray_idx"],
+                                          host["stray_off"],
+                                          host["stray_cnt"])
 
     def t(a):
         return host_to_device(np.ascontiguousarray(a), device)
@@ -167,7 +191,36 @@ def _plan_from_numpy(host: dict, chunk: int, device) -> RowPlan:
                    item_slot=t(item_slot), split_row=t(split_row),
                    split_ptr=t(split_ptr), keys=permuted("keys"),
                    senders=permuted("senders"), xe=permuted("xe"),
+                   stray_idx=permuted("stray_idx"), stray_rows=stray_rows,
                    chunk=chunk, num_slots=int(split_ptr[-1]))
+
+
+def check_stray_metadata(stray_idx, stray_off, stray_cnt) -> int:
+    """Check the TPU kernel's per-chunk stray metadata against the per-edge
+    ranks (numpy or CPU tensors): chunk c of ``E_pad / C`` edges holds
+    ``stray_cnt[c]`` stray edges (``stray_idx >= 0``), each with a rank in
+    ``[stray_off[c], stray_off[c] + E_pad / C)`` (the one buffer slice the
+    TPU kernel reads a chunk).  Returns the stray rows the ranks read (max
+    rank + 1, 0 without strays); raises ValueError on a mismatch."""
+    sidx = np.asarray(stray_idx).reshape(-1).astype(np.int64)
+    soff = np.asarray(stray_off).reshape(-1).astype(np.int64)
+    scnt = np.asarray(stray_cnt).reshape(-1).astype(np.int64)
+    c = soff.shape[0]
+    if scnt.shape[0] != c or c == 0 or sidx.shape[0] % c:
+        raise ValueError(f"stray_off / stray_cnt must be [C] with C "
+                         f"dividing E_pad = {sidx.shape[0]}, got "
+                         f"{soff.shape} / {scnt.shape}")
+    eb = sidx.shape[0] // c
+    chunk_of = np.arange(sidx.shape[0]) // eb
+    stray = sidx >= 0
+    if not np.array_equal(np.bincount(chunk_of[stray], minlength=c), scnt):
+        raise ValueError("stray_cnt does not count the stray edges of each "
+                         "chunk")
+    rel = sidx[stray] - soff[chunk_of[stray]]
+    if rel.size and (rel.min() < 0 or rel.max() >= eb):
+        raise ValueError("a stray rank lies outside its chunk's slice "
+                         "[stray_off, stray_off + E_pad / C)")
+    return int(sidx.max(initial=-1)) + 1
 
 
 @dataclasses.dataclass
@@ -212,6 +265,41 @@ class HubDense:
 
 
 @dataclasses.dataclass
+class LocSplit:
+    """Per-direction local/stray edge split (JAX ``LocSplit``).
+
+    Edges whose gather key lies within ``loc_reach`` rows of their scatter
+    block's median gather key go into the ``loc`` sub-layout (in-kernel
+    gather), the rest into the ``stray`` sub-layout (gathered messages
+    through ``scatter_rows_sorted``).  The two kernels chain through the
+    epilogue's additive ``init``: the stray sums feed the local call.  Only
+    the named direction of each sub-layout is used.
+
+    The ``m_*`` fields are the single-launch variant (``loc_merge``): all
+    edges in one (scatter block, stray class, gather key) order; stray edges
+    carry the sentinel key and a stray rank ``m_sidx`` into the compact
+    buffer of rows ``x[m_stray_keys]``.  ``m_win_*``, ``m_gwin_w``,
+    ``m_soff`` and ``m_scnt`` are the TPU kernel's window and DMA metadata,
+    kept equal to JAX's; ``m_plan`` (port only) is the merged order's
+    :class:`RowPlan` with the ranks in row order."""
+    loc: "EdgeLayout"
+    stray: "EdgeLayout"
+    m_keys: Optional[torch.Tensor] = None       # [1, E_pad] int32 (stray:
+                                                #   the sentinel)
+    m_lrow: Optional[torch.Tensor] = None       # [1, E_pad] int32
+    m_block_ptr: Optional[torch.Tensor] = None  # [N_pad/NB + 1] int32
+    m_win_lo: Optional[torch.Tensor] = None     # [C] int32 (local edges)
+    m_win_nsub: Optional[torch.Tensor] = None   # [C] int32
+    m_sidx: Optional[torch.Tensor] = None       # [1, E_pad] int32 (-1 local)
+    m_soff: Optional[torch.Tensor] = None       # [C] int32
+    m_scnt: Optional[torch.Tensor] = None       # [C] int32
+    m_stray_keys: Optional[torch.Tensor] = None  # [S_pad] int32
+    loc_frac: float = 0.0
+    m_gwin_w: int = 0
+    m_plan: Optional[RowPlan] = None
+
+
+@dataclasses.dataclass
 class EdgeLayout:
     """Static per graph.  Edge arrays are padded to a multiple of
     ``edge_chunk``; padded slots carry the sentinel ``num_nodes_padded`` in
@@ -248,8 +336,9 @@ class EdgeLayout:
     gwin_nsub_s: Optional[torch.Tensor] = None
     hub_r: Optional[HubDense] = None
     hub_s: Optional[HubDense] = None
-    split_r: Optional[object] = None
-    split_s: Optional[object] = None
+    # local/stray splits per direction (build_edge_layout loc_split)
+    split_r: Optional[LocSplit] = None
+    split_s: Optional[LocSplit] = None
     node_block: int = 128
     edge_chunk: int = 512
     win_w: int = 0
@@ -375,12 +464,143 @@ def _pairs(keys: np.ndarray, width: int, device):
             host_to_device(keys % width, device))
 
 
+def _build_loc_split(senders, receivers, edge_mask, xe_ids, direction: str,
+                     enabled_already: bool, num_nodes_padded: int,
+                     node_block: int, edge_chunk: int, feat_dim_hint: int,
+                     loc_split: str, loc_reach: int, loc_merge: bool,
+                     prof: ChipProfile, device) -> Optional[LocSplit]:
+    """One direction's LocSplit (JAX ``_build_loc_split``), or None when it
+    would not pay: the whole direction's gate is open already, fewer than
+    80% of the edges are local, or the local subset's own gate is shut.
+    ``loc_split="on"`` forces it past every gate."""
+    force = loc_split == "on"
+    if enabled_already and not force:
+        return None
+    scatter_key, gather_key = ((receivers, senders) if direction == "r"
+                               else (senders, receivers))
+    # "local" is measured from each scatter block's median gather key
+    blk = scatter_key.astype(np.int64) // node_block
+    g64 = gather_key.astype(np.int64)
+    valid = np.nonzero(edge_mask)[0]
+    order = valid[np.lexsort((g64[valid], blk[valid]))]
+    sb, sg = blk[order], g64[order]
+    nblocks = num_nodes_padded // node_block + 1
+    lo = np.searchsorted(sb, np.arange(nblocks))
+    hi = np.searchsorted(sb, np.arange(nblocks), side="right")
+    med = np.zeros(nblocks, np.int64)
+    nz = hi > lo
+    if len(sg):
+        mid = np.minimum((lo + hi) // 2, len(sg) - 1)
+        med[nz] = sg[mid[nz]]
+    dist = g64 - med[np.minimum(blk, nblocks - 1)]
+    local = edge_mask & (np.abs(dist) <= loc_reach)
+    frac = float(local.sum()) / max(int(edge_mask.sum()), 1)
+    # the stray pass amortizes only when strays are a small minority
+    if not force and frac < 0.8:
+        return None
+    stray_mask = edge_mask & ~local
+    sub_kw = dict(node_block=node_block, edge_chunk=edge_chunk,
+                  feat_dim_hint=feat_dim_hint, profile=prof, device=device)
+    loc_lay = build_edge_layout(
+        senders[local], receivers[local], num_nodes_padded,
+        xe_ids=None if xe_ids is None else xe_ids[local],
+        gwin="on" if force else "auto", **sub_kw)
+    if not (loc_lay.use_gwin_r if direction == "r" else loc_lay.use_gwin_s):
+        return None
+    stray_lay = build_edge_layout(
+        senders[stray_mask], receivers[stray_mask], num_nodes_padded,
+        xe_ids=None if xe_ids is None else xe_ids[stray_mask],
+        gwin="off", **sub_kw)
+    merged = {}
+    if loc_merge:
+        merged = _build_merged_split(scatter_key, gather_key, local,
+                                     stray_mask, num_nodes_padded,
+                                     node_block, edge_chunk)
+        host = dict(local_row=merged["m_lrow"],
+                    block_ptr=merged["m_block_ptr"], keys=merged["m_keys"],
+                    stray_idx=merged["m_sidx"], stray_off=merged["m_soff"],
+                    stray_cnt=merged["m_scnt"])
+        plan = (_plan_from_numpy(host, ROW_CHUNK, device)
+                if node_block == 128 else None)
+        merged = {k: host_to_device(np.ascontiguousarray(v), device)
+                  if isinstance(v, np.ndarray) else v
+                  for k, v in merged.items()}
+        if plan is not None:
+            names = dict(local_row="m_lrow", block_ptr="m_block_ptr",
+                         keys="m_keys", stray_idx="m_sidx",
+                         stray_off="m_soff", stray_cnt="m_scnt")
+            plan.sources = {k: (merged[v], merged[v]._version)
+                            for k, v in names.items()}
+        merged["m_plan"] = plan
+    return LocSplit(loc=loc_lay, stray=stray_lay, loc_frac=frac, **merged)
+
+
+def _build_merged_split(scatter_key, gather_key, local, stray_mask,
+                        num_nodes_padded: int, node_block: int,
+                        edge_chunk: int) -> dict:
+    """Single-launch LocSplit metadata (JAX ``_build_merged_split``), numpy:
+    all valid edges in one (scatter block, stray class, gather key) order.
+    Local edges keep their gather keys; stray edges carry the sentinel key
+    and consecutive ranks, each chunk's first rank 8-aligned (the TPU
+    kernel's slice alignment; the gaps are dead buffer rows)."""
+    sentinel = num_nodes_padded
+    valid = local | stray_mask
+    idx = np.nonzero(valid)[0]
+    blk = scatter_key[idx].astype(np.int64) // node_block
+    cls = stray_mask[idx].astype(np.int64)
+    g = gather_key[idx].astype(np.int64)
+    idx = idx[np.lexsort((g, cls, blk))]
+    e = len(idx)
+    e_pad = round_up(max(e, edge_chunk), edge_chunk)
+    num_chunks = e_pad // edge_chunk
+
+    sk = np.full(e_pad, sentinel, np.int64)
+    sk[:e] = scatter_key[idx]
+    gk = np.full(e_pad, sentinel, np.int64)
+    gk[:e] = gather_key[idx]
+    is_stray = np.zeros(e_pad, bool)
+    is_stray[:e] = stray_mask[idx]
+    is_local = np.zeros(e_pad, bool)
+    is_local[:e] = ~stray_mask[idx]
+
+    lrow = np.where(is_local | is_stray, sk % node_block,
+                    node_block).astype(np.int32)[None, :]
+    block_ptr = _block_ptr(sk, num_nodes_padded, node_block)
+
+    # window metadata over the local edges only
+    keys = np.where(is_local, gk, sentinel).astype(np.int32)
+    lo, span = _chunk_windows(keys, is_local, edge_chunk, sentinel)
+    max_span = int(span.max()) if len(span) else 0
+    gwin_w = min(max(round_up(max_span, 128), 128), 512, num_nodes_padded)
+    nsub = np.where(span > 0, -(-span // gwin_w), 0).astype(np.int32)
+
+    ch = np.arange(e_pad) // edge_chunk
+    scnt = np.bincount(ch[is_stray], minlength=num_chunks).astype(np.int32)
+    soff = np.zeros(num_chunks, np.int32)
+    sidx = np.full(e_pad, -1, np.int32)
+    next_rank = 0
+    for c in np.nonzero(scnt)[0]:
+        next_rank = -(-next_rank // 8) * 8
+        soff[c] = next_rank
+        rows = np.nonzero(is_stray[c * edge_chunk:(c + 1) * edge_chunk])[0]
+        sidx[c * edge_chunk + rows] = next_rank + np.arange(len(rows))
+        next_rank += len(rows)
+    stray_keys = np.zeros(round_up(next_rank + edge_chunk, 8), np.int32)
+    stray_keys[sidx[is_stray]] = gk[is_stray].astype(np.int32)
+
+    return dict(m_keys=keys[None, :], m_lrow=lrow, m_block_ptr=block_ptr,
+                m_win_lo=lo.astype(np.int32), m_win_nsub=nsub,
+                m_sidx=sidx[None, :], m_soff=soff, m_scnt=scnt,
+                m_stray_keys=stray_keys, m_gwin_w=gwin_w)
+
+
 def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
                      num_nodes_padded: int, hub_size: int, node_block: int,
                      edge_chunk: int, min_coverage: float, tail_e_pad_to: int,
                      feat_dim_hint: int, sc_hub_size: int, xe_ids,
                      gwin: str, prof: ChipProfile, device,
-                     num_edge_types: int = 1) -> Optional[HubDense]:
+                     num_edge_types: int = 1, loc_split: str = "off",
+                     loc_reach: int = 256) -> Optional[HubDense]:
     """Hub-dense decomposition for one direction.  ``gather_by`` names which
     endpoint the gather indexes (the scatter key is the other one): the
     forward scatters by receiver and gathers senders.
@@ -491,7 +711,8 @@ def _build_hub_dense(senders, receivers, edge_mask, gather_by: str,
         xe_ids=None if xe_ids is None else xe_ids[tail],
         node_block=node_block, edge_chunk=edge_chunk,
         e_pad_to=tail_e_pad_to, feat_dim_hint=feat_dim_hint, gwin=gwin,
-        profile=prof, device=device)
+        loc_split=loc_split, loc_reach=loc_reach, profile=prof,
+        device=device)
     return HubDense(
         hub_ids=host_to_device(hub_ids_pad, device), cnt=cnt,
         tail=tail_layout, hub_size=h, coverage=coverage,
@@ -509,7 +730,8 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
                       hub_min_coverage: float = 0.1, e_pad_to: int = 0,
                       hub_tail_e_pad_to: int = 0, feat_dim_hint: int = 768,
                       sc_hub_size: int = 0, num_edge_types: int = 1,
-                      gwin: str = "auto",
+                      gwin: str = "auto", loc_split: str = "off",
+                      loc_reach: int = 256, loc_merge: bool = False,
                       profile: Optional[ChipProfile] = None,
                       device="cpu") -> EdgeLayout:
     """Host numpy prep, tensors on ``device`` out.  ``senders``/``receivers``
@@ -519,12 +741,18 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
     ``hub_size > 0`` also builds hub-dense decompositions per direction
     (``hub_r``/``hub_s``).  ``gwin`` sets the in-kernel row gather of each
     direction, here and on the hub tails: "auto" by :func:`_gwin_decide`,
-    "on" forced (tests), "off" never.  ``profile`` fixes the break-even
-    models' device profile (default: :func:`~stemgnn_tpu_torch.ops.
-    chip_profile.current_profile`)."""
+    "on" forced (tests), "off" never.  ``loc_split`` ("off", "auto",
+    "on"), ``loc_reach`` and ``loc_merge`` build the local/stray splits
+    (:class:`LocSplit`; only with ``gwin`` not "off"): on the layout's
+    directions without a hub block, and on the hub tails.  ``profile``
+    fixes the break-even models' device profile (default:
+    :func:`~stemgnn_tpu_torch.ops.chip_profile.current_profile`)."""
     prof = profile or current_profile()
     if gwin not in ("auto", "on", "off"):
         raise ValueError(f"gwin must be auto, on or off, got {gwin!r}")
+    if loc_split not in ("auto", "on", "off"):
+        raise ValueError(f"loc_split must be auto, on or off, got "
+                         f"{loc_split!r}")
     senders = np.asarray(senders, np.int32)
     receivers = np.asarray(receivers, np.int32)
     e = senders.shape[0]
@@ -600,11 +828,23 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
                       tail_e_pad_to=hub_tail_e_pad_to,
                       feat_dim_hint=feat_dim_hint, sc_hub_size=sc_hub_size,
                       xe_ids=xe_ids, gwin=gwin, prof=prof, device=device,
-                      num_edge_types=num_edge_types)
+                      num_edge_types=num_edge_types, loc_split=loc_split,
+                      loc_reach=loc_reach)
         hub_r = _build_hub_dense(senders, receivers, edge_mask, "sender",
                                  **hub_kw)
         hub_s = _build_hub_dense(senders, receivers, edge_mask, "receiver",
                                  **hub_kw)
+
+    # a direction with a hub block gets its split on the hub tail instead
+    split = {"r": None, "s": None}
+    if loc_split != "off" and gwin != "off":
+        for order, hub in (("r", hub_r), ("s", hub_s)):
+            if hub is None:
+                split[order] = _build_loc_split(
+                    senders, receivers, edge_mask, xe_ids, order,
+                    bool(use_gwin[0 if order == "r" else 1]),
+                    num_nodes_padded, node_block, edge_chunk, feat_dim_hint,
+                    loc_split, loc_reach, loc_merge, prof, device)
 
     def t(a):
         return None if a is None else host_to_device(
@@ -624,7 +864,7 @@ def build_edge_layout(senders, receivers, num_nodes_padded: int,
         in_degree=t(deg), perm_s2r=t(perm),
         perm_r2o=t(sorted_to_orig(order_r)),
         perm_s2o=t(sorted_to_orig(order_s)),
-        hub_r=hub_r, hub_s=hub_s,
+        hub_r=hub_r, hub_s=hub_s, split_r=split["r"], split_s=split["s"],
         node_block=node_block, edge_chunk=edge_chunk,
         use_gwin_r=bool(use_gwin[0]), use_gwin_s=bool(use_gwin[1]))
     if node_block == 128:

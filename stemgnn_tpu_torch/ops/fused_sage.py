@@ -23,6 +23,19 @@ exact:
     mask as the kernels' ``gate`` epilogue.  The edge table (frozen text
     embeddings) gets a zero gradient.
 
+**Local/stray split** (a layout or hub tail direction with a
+:class:`~stemgnn_tpu_torch.ops.edge_layout.LocSplit`, bf16 messages, no
+dropout; JAX ``_stray_then_windowed``, fused_sage.py:223-276): the stray
+edges' gathered messages through ``scatter_rows_sorted`` as raw sums
+chained from the hub partials (``init``), their [N, D] partial stored in
+bf16 when the output is bf16, then the local edges through
+``gathered_scatter_rows_sorted`` with that partial as ``init`` and the
+scale / gate / cast in its epilogue; forward in receiver order, backward
+in sender order with the relu ``gate``.  With ``loc_merged`` and the
+split's merged metadata one ``gathered_scatter_rows_sorted`` launch runs
+both classes, the stray rows ``src[m_stray_keys]`` handed in as
+``stray_src``.  Typed aggregations take no split, as in JAX.
+
 The hub split and the in-kernel gather need bf16 messages
 (``bf16_messages=True``); with f32 messages the gather route runs.  The
 dense hub blocks are bf16 products with f32 output (:func:`_mm`); kernels 2
@@ -69,8 +82,8 @@ the kept degrees once, at first use, and the encoder's layers and their
 backward share it (the seed and the layout do not change inside a step).
 
 ``relu=False`` and ``edge_keep`` (the runtime-mask route) are not ported
-and raise; ``drop_mask_layout`` (the halo path's hoisted form) is not
-ported.
+and raise; ``drop_mask_layout`` (the halo path's hoisted form) belongs to
+the multi-GPU halo pretrain and is not ported.
 """
 
 from __future__ import annotations
@@ -78,7 +91,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from stemgnn_tpu_torch.ops.edge_layout import EdgeLayout, HubDense
+from stemgnn_tpu_torch.ops.edge_layout import EdgeLayout, HubDense, LocSplit
 from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep
 from stemgnn_tpu_torch.ops.scatter import (gathered_scatter_rows_sorted,
                                            gathered_scatter_rows_sorted_ref,
@@ -301,11 +314,44 @@ def _tail(src, lay: EdgeLayout, order: str, num_nodes_padded: int, *,
     return scatter(m, lrow, block_ptr, **kw)
 
 
+def _split(src, sp: LocSplit, order: str, num_nodes_padded: int, *,
+           relu: bool, t0, init=None, scale=None, gate=None, out_dtype,
+           plain: bool, merged: bool = False):
+    """One direction's local/stray split (JAX ``_stray_then_windowed``):
+    the stray edges' raw sums chained from ``init`` into an [N, D] partial
+    (bf16 under a bf16 output), then the local edges through the in-kernel
+    gather with that partial as ``init`` and the epilogue.  ``merged`` with
+    the split's merged metadata: one launch over both classes."""
+    kw = dict(num_nodes_padded=num_nodes_padded, relu=relu, plain=plain,
+              t0=t0)
+    if merged and sp.m_keys is not None:
+        gathered = _row_walk(gathered_scatter_rows_sorted,
+                             gathered_scatter_rows_sorted_ref, plain,
+                             sp.m_plan)
+        return gathered(sp.m_keys, sp.m_lrow, sp.m_block_ptr, src, t0,
+                        num_nodes_padded=num_nodes_padded, relu=relu,
+                        init=init, scale=scale, gate=gate,
+                        out_dtype=out_dtype,
+                        stray_src=src.index_select(0, sp.m_stray_keys.long()),
+                        stray_idx=sp.m_sidx, stray_off=sp.m_soff,
+                        stray_cnt=sp.m_scnt)
+    partial = _tail(src, sp.stray, order, init=init, out_dtype=(
+        torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32),
+        **kw)
+    return _tail(src, sp.loc, order, init=partial, scale=scale, gate=gate,
+                 out_dtype=out_dtype, **kw)
+
+
+def _direction_split(lay: EdgeLayout, order: str):
+    return lay.split_r if order == "r" else lay.split_s
+
+
 def _hub_split(src, hub: HubDense, order: str, layout: EdgeLayout, *,
                relu: bool, t0, scale=None, gate=None, out_dtype, plain,
-               drop=None):
+               drop=None, merged: bool = False):
     """Hub-dense decomposition, final output: dense hub blocks + the tail
-    kernel, the hub sums riding the kernel's ``init``.  Under ``drop`` (a
+    kernel, the hub sums riding the kernel's ``init`` (through the tail's
+    local/stray split where it has one).  Under ``drop`` (a
     :class:`DropView`) the blocks are masked and the tail's messages carry
     their keep."""
     blocks = keep = None
@@ -313,6 +359,11 @@ def _hub_split(src, hub: HubDense, order: str, layout: EdgeLayout, *,
         blocks = drop.hub(hub)[:2]
         keep = drop.keep(hub.tail, order)
     init = hub_partials(src, hub, t0, relu, blocks, out_dtype)
+    sp = _direction_split(hub.tail, order)
+    if sp is not None and drop is None:
+        return _split(src, sp, order, layout.num_nodes_padded, relu=relu,
+                      t0=t0, init=init, scale=scale, gate=gate,
+                      out_dtype=out_dtype, plain=plain, merged=merged)
     return _tail(src, hub.tail, order, layout.num_nodes_padded, relu=relu,
                  t0=t0, init=init, scale=scale, gate=gate,
                  out_dtype=out_dtype, plain=plain, keep=keep)
@@ -407,21 +458,37 @@ def _mean_scale(layout, reduce, drop):
     return inv_deg(layout) if drop is None else drop.inv_deg()
 
 
-def _forward(x, layout, edge_table, reduce, mdtype, plain, drop=None):
+def _factored_direction(src, layout, order, mdtype, drop, merged, **kw):
+    """One direction of the factored aggregation: the hub split, the
+    local/stray split or the whole direction's tail (JAX ``fwd_impl`` /
+    ``f_bwd``'s order of routes)."""
+    hub = layout.hub_r if order == "r" else layout.hub_s
+    if hub is not None and mdtype == torch.bfloat16:
+        return _hub_split(src, hub, order, layout, drop=drop, merged=merged,
+                          **kw)
+    sp = _direction_split(layout, order)
+    if sp is not None and mdtype == torch.bfloat16 and drop is None:
+        return _split(src, sp, order, layout.num_nodes_padded,
+                      merged=merged, **kw)
+    keep = None if drop is None else drop.keep(layout, order)
+    return _tail(src, layout, order, layout.num_nodes_padded, keep=keep,
+                 **kw)
+
+
+def _forward(x, layout, edge_table, reduce, mdtype, plain, drop=None,
+             merged=False):
     if _typed(edge_table):
         return _typed_forward(x, layout, edge_table, reduce, mdtype, plain)
     out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    src = x.to(mdtype)
-    kw = dict(relu=True, t0=table_row(edge_table, mdtype),
-              scale=_mean_scale(layout, reduce, drop), out_dtype=out_dtype,
-              plain=plain)
-    if layout.hub_r is not None and mdtype == torch.bfloat16:
-        return _hub_split(src, layout.hub_r, "r", layout, drop=drop, **kw)
-    keep = None if drop is None else drop.keep(layout, "r")
-    return _tail(src, layout, "r", layout.num_nodes_padded, keep=keep, **kw)
+    return _factored_direction(
+        x.to(mdtype), layout, "r", mdtype, drop, merged, relu=True,
+        t0=table_row(edge_table, mdtype),
+        scale=_mean_scale(layout, reduce, drop), out_dtype=out_dtype,
+        plain=plain)
 
 
-def _backward(g, x, layout, edge_table, reduce, mdtype, plain, drop=None):
+def _backward(g, x, layout, edge_table, reduce, mdtype, plain, drop=None,
+              merged=False):
     """dx of the factored aggregation (JAX ``f_bwd``): the sender-order
     decomposition of ``gp = g / deg`` (rounded to the message dtype) with
     the relu gate ``x (+ t0) > 0`` in the kernels' epilogue."""
@@ -436,11 +503,9 @@ def _backward(g, x, layout, edge_table, reduce, mdtype, plain, drop=None):
     # the single-type shift keeps the forward's pre-activation arithmetic
     # (bf16 x + bf16 t0), so the mask matches the forward's relu exactly
     gate = x if t0 is None else x.to(mdtype) + t0
-    kw = dict(relu=False, t0=None, gate=gate, out_dtype=x.dtype, plain=plain)
-    if layout.hub_s is not None and mdtype == torch.bfloat16:
-        return _hub_split(gp, layout.hub_s, "s", layout, drop=drop, **kw)
-    keep = None if drop is None else drop.keep(layout, "s")
-    return _tail(gp, layout, "s", layout.num_nodes_padded, keep=keep, **kw)
+    return _factored_direction(gp, layout, "s", mdtype, drop, merged,
+                               relu=False, t0=None, gate=gate,
+                               out_dtype=x.dtype, plain=plain)
 
 
 class _FusedSage(torch.autograd.Function):
@@ -448,11 +513,14 @@ class _FusedSage(torch.autograd.Function):
     ``f``/``f_fwd``/``f_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, edge_table, layout, reduce, mdtype, plain, drop):
+    def forward(ctx, x, edge_table, layout, reduce, mdtype, plain, drop,
+                merged):
         ctx.save_for_backward(x, edge_table)
         ctx.layout, ctx.reduce, ctx.mdtype, ctx.plain, ctx.drop = (
             layout, reduce, mdtype, plain, drop)
-        return _forward(x, layout, edge_table, reduce, mdtype, plain, drop)
+        ctx.merged = merged
+        return _forward(x, layout, edge_table, reduce, mdtype, plain, drop,
+                        merged)
 
     @staticmethod
     def backward(ctx, g):
@@ -462,23 +530,26 @@ class _FusedSage(torch.autograd.Function):
         # as JAX's jit drops that computation
         if ctx.needs_input_grad[0]:
             dx = _backward(g, x, ctx.layout, edge_table, ctx.reduce,
-                           ctx.mdtype, ctx.plain, ctx.drop)
+                           ctx.mdtype, ctx.plain, ctx.drop, ctx.merged)
         if ctx.needs_input_grad[1]:
             dtable = torch.zeros_like(edge_table)
-        return dx, dtable, None, None, None, None, None
+        return dx, dtable, None, None, None, None, None, None
 
 
 def fused_sage_aggregate(x, layout: EdgeLayout, edge_table=None, *,
                          reduce: str = "mean", relu: bool = True,
                          bf16_messages: bool = True, plain: bool = False,
-                         edge_keep=None, drop_hash=None):
+                         edge_keep=None, drop_hash=None,
+                         loc_merged: bool = False):
     """Aggregation of ``x`` [N_pad, D] over ``layout``, differentiable in
     ``x``.  ``edge_table`` is None, a single-row [1, D] type table, or a
     [T, D] table whose rows the layout's ``xe`` ids pick per edge.
     ``plain`` runs the kernels' plain versions on the same device (to check
     the kernels against).  ``drop_hash`` is ``(seed, p)`` or a
     :class:`DropView` of this layout: the pair-hash edge dropout (module
-    docstring); factored aggregations only."""
+    docstring); factored aggregations only.  ``loc_merged`` runs a local/
+    stray split that carries the merged metadata in one launch (JAX's
+    ``loc_merged``, off by default as there)."""
     if x.shape[0] != layout.num_nodes_padded:
         raise ValueError(f"x has {x.shape[0]} rows, the layout "
                          f"{layout.num_nodes_padded}")
@@ -507,4 +578,4 @@ def fused_sage_aggregate(x, layout: EdgeLayout, edge_table=None, *,
             raise ValueError("the DropView was made for another layout")
     mdtype = torch.bfloat16 if bf16_messages else torch.float32
     return _FusedSage.apply(x, edge_table, layout, reduce, mdtype, plain,
-                            drop)
+                            drop, loc_merged)

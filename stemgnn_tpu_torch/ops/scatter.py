@@ -28,8 +28,14 @@ with ``x`` [N_pad, D] bf16, ``keys`` [1, E_pad] int32 gather-side node ids
 (sentinel N_pad on padded edges) and ``table`` None, one bf16 row ``t0``
 added to every message, or [T, D] bf16 rows picked by ``xe`` [1, E_pad].
 The TPU kernel's gather windows (``win_lo``, ``win_nsub``, ``win_w``) are
-TPU mechanism and have no counterpart; its merged-LocSplit ``stray_*``
-inputs are not ported and raise.
+TPU mechanism and have no counterpart.  Its merged-LocSplit inputs come
+all four together: an edge whose ``stray_idx[e] >= 0`` ([1, E_pad] int32,
+-1 elsewhere) takes its row from ``stray_src[stray_idx[e]]`` ([S, D] bf16
+or f32, rounded to bf16 as the TPU kernel's one-hot product rounds it) in
+place of ``x[keys[e]]``; ``stray_off`` / ``stray_cnt`` [C] are the TPU
+kernel's DMA metadata, checked against ``stray_idx`` on the host
+(:func:`~stemgnn_tpu_torch.ops.edge_layout.check_stray_metadata`, when the
+plan is built or, on the CPU, in the call) and read by no GPU kernel.
 
 ``masked_scatter_rows_sorted`` replaces ``masked_scatter_rows_sorted``
 (``:480``, ``pallas_call`` at ``:546``), the typed backward's sum of edge
@@ -80,6 +86,8 @@ from typing import Optional
 
 import torch
 
+from stemgnn_tpu_torch.ops.edge_layout import check_stray_metadata
+
 NODE_BLOCK = 128
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,7 +99,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name -> argument types of its C entry ``<name>_launch``
 KERNELS = {
     "scatter_rows_sorted": [_P] * 12 + [_I] * 9 + [_P],
-    "gathered_scatter_rows_sorted": [_P] * 14 + [_I] * 10 + [_P],
+    "gathered_scatter_rows_sorted": [_P] * 16 + [_I] * 10 + [_P],
     "masked_scatter_rows_sorted": [_P] * 13 + [_I] * 8 + [_P],
 }
 
@@ -341,12 +349,8 @@ def gathered_scatter_rows_sorted(keys, local_row, block_ptr, x, table=None,
     sum-scatter them into [num_nodes_padded, D] (module docstring).  CPU
     tensors run :func:`gathered_scatter_rows_sorted_ref`; CUDA tensors
     launch the kernel over ``plan`` (a RowPlan built from ``local_row``,
-    ``block_ptr``, ``keys`` and, when given, ``xe``) or raise."""
-    if any(a is not None for a in (stray_src, stray_idx, stray_off,
-                                   stray_cnt)):
-        raise NotImplementedError(
-            "the merged-LocSplit stray_* inputs of gathered_scatter_rows_"
-            "sorted are not ported (off by default in the JAX package)")
+    ``block_ptr``, ``keys`` and, when given, ``xe`` and the ``stray_*``
+    metadata) or raise."""
     if keys.dim() != 2 or keys.shape[0] != 1 or keys.dtype != torch.int32:
         raise ValueError(f"keys must be [1, E_pad] int32, got "
                          f"{tuple(keys.shape)} {keys.dtype}")
@@ -366,27 +370,45 @@ def gathered_scatter_rows_sorted(keys, local_row, block_ptr, x, table=None,
                            or xe.dtype != torch.int32):
         raise ValueError(f"xe must be [1, {e_pad}] int32 beside a table, "
                          f"got {tuple(xe.shape)} {xe.dtype}")
+    stray = dict(stray_src=stray_src, stray_idx=stray_idx,
+                 stray_off=stray_off, stray_cnt=stray_cnt)
+    _check_stray(stray, e_pad, d)
     _check_rows(e_pad, local_row, block_ptr, num_nodes_padded, node_block)
     _check_epilogue(d, num_nodes_padded, init, scale, gate, out_dtype)
     if x.device.type != "cpu":
         _check_plan("gathered_scatter_rows_sorted", plan,
                     dict(local_row=local_row, block_ptr=block_ptr,
-                         keys=keys), dict(xe=xe))
+                         keys=keys), dict(xe=xe, stray_idx=stray_idx,
+                                          stray_off=stray_off,
+                                          stray_cnt=stray_cnt))
+        if stray_src is not None and stray_src.shape[0] < plan.stray_rows:
+            raise ValueError(f"stray_src has {stray_src.shape[0]} rows, the "
+                             f"ranks read {plan.stray_rows}")
     _check_device("gathered_scatter_rows_sorted", x, dict(
         x=x, keys=keys, local_row=local_row, block_ptr=block_ptr,
-        table=table, xe=xe, init=init, scale=scale, gate=gate))
+        table=table, xe=xe, init=init, scale=scale, gate=gate, **stray))
     kw = dict(num_nodes_padded=num_nodes_padded, relu=relu, init=init,
               scale=scale, gate=gate, out_dtype=out_dtype)
     if x.device.type == "cpu":
+        if stray_src is not None:
+            # on the card the plan's build checks them
+            need = check_stray_metadata(stray_idx, stray_off, stray_cnt)
+            if stray_src.shape[0] < need:
+                raise ValueError(f"stray_src has {stray_src.shape[0]} rows, "
+                                 f"the ranks read {need}")
         return gathered_scatter_rows_sorted_ref(keys, local_row, block_ptr,
-                                                x, table, xe, **kw)
+                                                x, table, xe, **kw, **stray)
+    if stray_src is not None:
+        stray_src = stray_src.to(torch.bfloat16)
     out = torch.empty((num_nodes_padded, d), dtype=out_dtype, device=x.device)
     partials = (torch.empty((plan.num_slots, d), dtype=torch.float32,
                             device=x.device) if plan.num_slots else None)
-    mode = _col_mode(d, [x, table, init, gate, out, partials])
+    mode = _col_mode(d, [x, table, stray_src, init, gate, out, partials])
     with torch.cuda.device(x.device):
         _launch("gathered_scatter_rows_sorted", _ptr(plan.keys),
-                _ptr(None if xe is None else plan.xe), _ptr(plan.item_row),
+                _ptr(None if xe is None else plan.xe),
+                _ptr(None if stray_src is None else plan.stray_idx),
+                _ptr(stray_src), _ptr(plan.item_row),
                 _ptr(plan.item_start), _ptr(plan.item_slot),
                 _ptr(plan.split_row), _ptr(plan.split_ptr), _ptr(x),
                 _ptr(table), _ptr(init), _ptr(scale), _ptr(gate), _ptr(out),
@@ -395,6 +417,31 @@ def gathered_scatter_rows_sorted(keys, local_row, block_ptr, x, table=None,
                 0 if table is None else table.shape[0], _bf16(out),
                 int(relu), _bf16(init), _bf16(gate), mode)
     return out
+
+
+def _check_stray(stray: dict, e_pad: int, d: int):
+    """Shapes and dtypes of kernel 2's merged-LocSplit inputs: all four or
+    none."""
+    given = [k for k, v in stray.items() if v is not None]
+    if not given:
+        return
+    if len(given) != 4:
+        raise ValueError(f"stray_src, stray_idx, stray_off and stray_cnt "
+                         f"come together, got only {given}")
+    src, idx = stray["stray_src"], stray["stray_idx"]
+    if src.dim() != 2 or src.shape[1] != d \
+            or src.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"stray_src must be [S, {d}] bf16/f32, got "
+                         f"{tuple(src.shape)} {src.dtype}")
+    if idx.shape != (1, e_pad) or idx.dtype != torch.int32:
+        raise ValueError(f"stray_idx must be [1, {e_pad}] int32, got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    for k in ("stray_off", "stray_cnt"):
+        a = stray[k]
+        if a.dim() != 1 or a.dtype != torch.int32 or a.shape[0] == 0 \
+                or e_pad % a.shape[0]:
+            raise ValueError(f"{k} must be [C] int32 with C dividing "
+                             f"{e_pad}, got {tuple(a.shape)} {a.dtype}")
 
 
 def masked_scatter_rows_sorted(m, local_row, senders, block_ptr, x,
@@ -499,16 +546,25 @@ def gathered_scatter_rows_sorted_ref(keys, local_row, block_ptr, x,
                                      num_nodes_padded: int,
                                      relu: bool = False, init=None,
                                      scale=None, gate=None,
-                                     out_dtype=torch.float32):
+                                     out_dtype=torch.float32, stray_src=None,
+                                     stray_idx=None, stray_off=None,
+                                     stray_cnt=None):
     """The plain PyTorch version of kernel 2's contract: gather the rows of
-    the edges that count (a key outside [0, N_pad) reads a zero row), add
-    the type row in f32, relu, round to bf16, ``index_add_`` in f32."""
+    the edges that count (a key outside [0, N_pad) reads a zero row; a
+    stray edge reads its bf16-rounded ``stray_src`` row instead), add the
+    type row in f32, relu, round to bf16, ``index_add_`` in f32.  It reads
+    neither ``stray_off`` nor ``stray_cnt``: the wrapper checks them."""
     rows, ok = _edge_rows(local_row, block_ptr)
     k = keys.reshape(-1).long()[ok]
     inside = (k >= 0) & (k < x.shape[0])
     pre = torch.where(inside[:, None],
                       x.index_select(0, k.clamp(0, x.shape[0] - 1)).float(),
                       torch.zeros((), device=x.device))
+    if stray_src is not None:
+        s = stray_idx.reshape(-1).long()[ok]
+        rows_s = stray_src.to(torch.bfloat16).float().index_select(
+            0, s.clamp(min=0))
+        pre = torch.where((s >= 0)[:, None], rows_s, pre)
     if table is not None:
         if xe is None:
             pre = pre + table[0].float()

@@ -58,6 +58,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -86,7 +87,7 @@ from stemgnn_tpu_torch.utils.early_stop import EarlyStopping
 from stemgnn_tpu_torch.utils.logger import Logger
 from stemgnn_tpu_torch.utils.metrics import (device_multitask_auc, evaluate,
                                              task2metric)
-from stemgnn_tpu_torch.vq.quantize import vq_kmeans_init
+from stemgnn_tpu_torch.vq.quantize import adopt_ema_embed, vq_kmeans_init
 
 _LOSS_KEYS = ("loss", "act_loss", "jac_loss", "env_loss")
 
@@ -144,7 +145,10 @@ def print_moe_usage(moe_stats):
               f"top1_frac=[{top1}]", flush=True)
 
 
-def _apply(opt, loss):
+def _apply(opt, loss, model=None, cfg: Optional[FinetuneConfig] = None):
+    """One optimizer step on ``loss``; with ``model`` and ``cfg`` and a
+    trained EMA codebook the VQ's EMA target then replaces its ``embed``
+    (JAX finetune_loop.py:130-133)."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
     # optax decays a leaf the loss does not reach (the BatchNorm parameters
@@ -155,6 +159,9 @@ def _apply(opt, loss):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
     opt.step()
+    if cfg is not None and cfg.use_vq and not cfg.freeze_vq \
+            and cfg.vq.ema_update:
+        adopt_ema_embed(model.vq)
 
 
 def _make_node_steps(cfg: FinetuneConfig, task_kind: str = "node"):
@@ -189,7 +196,7 @@ def _make_node_steps(cfg: FinetuneConfig, task_kind: str = "node"):
                    plain=False, gumbel=None):
         _, parts = loss_fn(model, train_mask, graph, y, generator, plain,
                            gumbel)
-        _apply(opt, parts["loss"])
+        _apply(opt, parts["loss"], model, cfg)
         return {k: (v if k == "moe_stats" else v.detach())
                 for k, v in parts.items()}
 
@@ -220,7 +227,7 @@ def _make_minibatch_train_step(cfg: FinetuneConfig, task_kind: str):
 
     def step(model, opt, g, y_batch, mask, li=None, ri=None, generator=None):
         _, parts = loss_fn(model, g, y_batch, mask, li, ri, generator)
-        _apply(opt, parts["loss"])
+        _apply(opt, parts["loss"], model, cfg)
         return {k: v.detach() for k, v in parts.items()}
 
     return loss_fn, step
@@ -496,7 +503,7 @@ def _make_graph_steps(cfg: FinetuneConfig, batch_size: int, eval_bs: int,
     def train_step(model, opt, g, y, valid, gmask, generator=None,
                    plain=False):
         _, parts = loss_fn(model, g, y, valid, gmask, generator, plain)
-        _apply(opt, parts["loss"])
+        _apply(opt, parts["loss"], model, cfg)
         return {k: v.detach() for k, v in parts.items()}
 
     def predict(model, g, plain=False):

@@ -25,6 +25,8 @@ from stemgnn_tpu_torch.core.config import FinetuneConfig
 from stemgnn_tpu_torch.core.graph import round_up
 from stemgnn_tpu_torch.ops.chip_profile import ChipProfile
 from stemgnn_tpu_torch.ops.edge_layout import build_edge_layout, gwin_gate
+from stemgnn_tpu_torch.ops.reorder import (community_order, degree_order,
+                                           rcm_order, relabel)
 
 
 def _layout_applies(cfg: FinetuneConfig, device) -> bool:
@@ -32,36 +34,79 @@ def _layout_applies(cfg: FinetuneConfig, device) -> bool:
             and cfg.encoder.backbone == "sage")
 
 
+def reorder_dataset(ds, method: str = "rcm", task: str = "node"):
+    """Relabel the dataset's nodes for gather locality (JAX
+    ``reorder_dataset``; ``ops/reorder.py``'s RCM, community or degree
+    order).  A pure permutation: ``x`` (text-row ids), edge endpoints, node
+    labels and node split masks permute together, so every metric is
+    unchanged.  Link-task labels and splits are per edge and keep their
+    slots.  ``extras["node_perm"]`` records the permutation (new -> old);
+    cached host structures (underscore extras) are dropped."""
+    ei = np.asarray(ds.edge_index)
+    orders = dict(rcm=rcm_order, community=community_order,
+                  degree=degree_order)
+    if method not in orders:
+        raise ValueError(f"unknown reorder method {method!r}")
+    perm = orders[method](ei[0], ei[1], ds.num_nodes)
+    s2, r2, (x2,) = relabel(perm, ei[0], ei[1], node_arrays=(ds.x,))
+    kw = dict(x=x2, edge_index=np.stack([s2, r2]),
+              extras={k: v for k, v in ds.extras.items()
+                      if not k.startswith("_")})
+    kw["extras"]["node_perm"] = perm
+    if task == "node":
+        if ds.labels is not None and len(ds.labels) == ds.num_nodes:
+            kw["labels"] = np.asarray(ds.labels)[perm]
+        if ds.splits is not None:
+            kw["splits"] = [{k: np.asarray(v)[perm] for k, v in sp.items()}
+                            for sp in ds.splits]
+    return dataclasses.replace(ds, **kw)
+
+
 def maybe_reorder_dataset(ds, cfg: FinetuneConfig, task: str, device="cuda",
                           profile: Optional[ChipProfile] = None):
-    """The locality relabel of JAX ``maybe_reorder_dataset``, which relabels
-    only "when it will actually change the executed path".
+    """The locality relabel of JAX ``maybe_reorder_dataset``: a forced
+    method (``rcm``, ``community``, ``degree``) relabels; ``auto`` relabels
+    only where that changes the executed path.
 
-    The port checks the in-kernel gather gate on the ORIGINAL graph first.
-    On the H100 it is open already (the GPU kernel gathers rows at any
-    address), so ``auto`` leaves the graph as it is; JAX instead probes the
-    relabelled candidates.  Relabelling itself (``ops/reorder.py``) is not
-    ported: a forced method (``rcm``, ``community``, ``degree``) raises, and
-    ``auto`` with a closed gate leaves the graph as it is and says so."""
+    One difference is kept on purpose: ``auto`` checks the in-kernel gather
+    gate on the ORIGINAL graph first.  Under a profile that gathers rows in
+    the kernel (the H100) it is open on every graph, so ``auto`` leaves the
+    graph as it is.  Where it is closed (the ``V5E`` profile) the
+    candidates are probed as JAX probes them: ``community``, then ``rcm``,
+    each kept when its layout (``loc_split="auto"``) opens a direction's
+    windows or builds a local/stray split."""
     mode = cfg.reorder
     if mode == "off" or not _layout_applies(cfg, device) \
             or task not in ("node", "link"):
         return ds
     if mode in ("rcm", "community", "degree"):
-        raise NotImplementedError(f"--reorder {mode}: node relabelling "
-                                  f"(ops/reorder.py) is not ported yet")
+        return reorder_dataset(ds, mode, task)
     if mode != "auto":
         raise ValueError(f"unknown reorder mode {mode!r}")
+    d = int(ds.node_text_feat.shape[1])
+    n_pad = round_up(ds.num_nodes, 128)
     use_r, use_s = gwin_gate(
         np.asarray(ds.edge_index[0], np.int32),
-        np.asarray(ds.edge_index[1], np.int32), round_up(ds.num_nodes, 128),
-        feat_dim_hint=int(ds.node_text_feat.shape[1]), profile=profile)
+        np.asarray(ds.edge_index[1], np.int32), n_pad, feat_dim_hint=d,
+        profile=profile)
     if use_r or use_s:
         print(f"[reorder] auto: the in-kernel gather is open on {ds.name} "
               f"as it is; no relabel", flush=True)
-    else:
-        print(f"[reorder] auto: the in-kernel gather is closed on {ds.name}; "
-              f"relabelling is not ported, graph left as it is", flush=True)
+        return ds
+    for method in ("community", "rcm"):
+        cand = reorder_dataset(ds, method, task)
+        probe = build_edge_layout(
+            np.asarray(cand.edge_index[0], np.int32),
+            np.asarray(cand.edge_index[1], np.int32), n_pad,
+            feat_dim_hint=d, loc_split="auto", profile=profile)
+        if (probe.use_gwin_r or probe.use_gwin_s
+                or probe.split_r is not None or probe.split_s is not None):
+            why = ("whole-direction windows"
+                   if probe.use_gwin_r or probe.use_gwin_s
+                   else "local/stray split")
+            print(f"[reorder] {method} relabel enables {why} on {ds.name}",
+                  flush=True)
+            return cand
     return ds
 
 
@@ -105,6 +150,8 @@ def fused_full_graph(ds, cfg: FinetuneConfig, device="cuda",
                                          if hub_size and t_rows <= 1 else 0),
                             num_edge_types=t_rows,
                             feat_dim_hint=int(ds.node_text_feat.shape[1]),
+                            loc_split="off" if cfg.reorder == "off"
+                            else "auto",
                             gwin=gwin, profile=profile, device=device)
     return dataclasses.replace(
         graph, layout=lay,
@@ -115,6 +162,21 @@ def fused_full_graph(ds, cfg: FinetuneConfig, device="cuda",
 def _route(lay, order: str) -> str:
     use = lay.use_gwin_r if order == "r" else lay.use_gwin_s
     return "gathered_scatter_rows_sorted" if use else "scatter_rows_sorted"
+
+
+def _split_note(lay) -> str:
+    """The local/stray splits the aggregation runs: a direction's own, or
+    its hub tail's."""
+    parts = []
+    for order in ("r", "s"):
+        hub = getattr(lay, "hub_" + order)
+        sub = lay if hub is None else hub.tail
+        where = "" if hub is None else "hub tail "
+        sp = getattr(sub, "split_" + order)
+        if sp is not None:
+            parts.append(f"{where}{order} local {sp.loc_frac:.4f}"
+                         + (" (merged)" if sp.m_keys is not None else ""))
+    return "" if not parts else "; local/stray split: " + ", ".join(parts)
 
 
 def describe_layout(lay, num_edge_types: int = 1) -> str:
@@ -136,11 +198,12 @@ def describe_layout(lay, num_edge_types: int = 1) -> str:
     if hub is None:
         return (f"layout: no hub block, {lay.num_edges_padded} padded edges "
                 f"through {_route(lay, 'r')} (forward) and "
-                f"{_route(lay, 's')} (backward)")
+                f"{_route(lay, 's')} (backward){_split_note(lay)}")
     back = ("" if lay.hub_s is None else
             f"; backward tail {lay.hub_s.tail.num_edges_padded} padded edges "
             f"through {_route(lay.hub_s.tail, 's')}")
     return (f"layout: hub_r size {hub.hub_size} (coverage "
             f"{hub.coverage:.4f}), sc size {hub.sc_size} (coverage "
             f"{hub.sc_coverage:.4f}), tail {hub.tail.num_edges_padded} "
-            f"padded edges through {_route(hub.tail, 'r')}{back}")
+            f"padded edges through {_route(hub.tail, 'r')}{back}"
+            f"{_split_note(lay)}")

@@ -55,7 +55,7 @@ from stemgnn_tpu_torch.utils.convert import (load_pretrain_trees,
 from stemgnn_tpu_torch.utils.observability import (PreemptionHandler,
                                                    ThroughputMeter)
 from stemgnn_tpu_torch.vq.codebook import orthogonal_subset
-from stemgnn_tpu_torch.vq.quantize import vq_kmeans_init
+from stemgnn_tpu_torch.vq.quantize import adopt_ema_embed, vq_kmeans_init
 
 
 def pretrain_graph(ds, cfg: PretrainConfig, device="cuda"):
@@ -112,7 +112,9 @@ def make_pretrain_step(cfg: PretrainConfig, bs: int, generator=None):
     its EMA encoder, ``opt`` from :func:`make_pretrain_optimizer`; ``bs``
     the seed-node count of the losses (the padded node count for the full
     graph).  ``draws`` (see :func:`draw_step`) replaces the step's own
-    draws; ``generator`` feeds them and the encoders' dropout."""
+    draws; ``generator`` feeds them and the encoders' dropout.  With
+    ``ema_update`` the VQ's EMA codebook replaces ``embed`` after the
+    optimizer's step (JAX's step, pretrain_loop.py:79-82)."""
 
     def step(model, teacher, opt, graph, draws=None):
         if draws is None:
@@ -123,6 +125,8 @@ def make_pretrain_step(cfg: PretrainConfig, bs: int, generator=None):
             draws=draws, drop_seed=draws["drop_seed"], generator=generator)
         loss.backward()
         opt.step()
+        if cfg.vq.ema_update:
+            adopt_ema_embed(model.vq)
         ema_update_teacher(teacher, model.encoder, cfg.sem_encoder_decay)
         return {**{k: v.detach() for k, v in losses.items()},
                 "loss": loss.detach()}

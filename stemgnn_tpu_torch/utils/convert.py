@@ -12,7 +12,10 @@ list JAX leaves empty without MoE layers, so it has no leaf then),
 ``{"lin", "att_src", "att_dst", "bias"}`` for gat.  A finetune task model
 adds the ``decoder`` tree (``models.task``); a pretrain model the decoders
 of ``models.pretrain`` and a teacher encoder whose BatchNorm statistics are
-the JAX state's ``sem_encoder``.  The language models of the text
+the JAX state's ``sem_encoder``.  The VQ's buffers are JAX's VQ state
+(``embed_avg``, ``cluster_size``, ``initted``, and as configured
+``embed_target`` and the affine statistics), so they cross both ways with
+the parameters.  The language models of the text
 encoders (``nn/{distilbert,bert,llama}.py``) name theirs after the JAX
 pytrees too (``layers.0.q.w``, ``[in, out]``): :func:`language_model_from_jax`.
 """
@@ -77,10 +80,16 @@ def from_jax_pytree(params_np: dict, state_np: dict, cfg):
     """``params_np``/``state_np`` = ``{"encoder": ..., "vq": ...}`` as the
     JAX package's ``encoder_init``/``vq_init`` (or a loaded ``.npz``) give
     them; ``cfg`` has ``.encoder`` and ``.vq`` configs.  Returns
-    ``(Encoder, VectorQuantize)`` on the CPU, in eval mode."""
+    ``(Encoder, VectorQuantize)`` on the CPU, in eval mode.  The VQ state
+    of an EMA-trained codebook carries ``embed_target``; a VQ configured
+    without ``ema_update`` (a finetune of that checkpoint) drops it, as
+    JAX's VQ never reads it then."""
     enc = _load(Encoder(cfg.encoder), params_np["encoder"],
                 state_np["encoder"])
-    vq = _load(VectorQuantize(cfg.vq), params_np["vq"], state_np["vq"])
+    vq_state = dict(state_np["vq"])
+    if not cfg.vq.ema_update:
+        vq_state.pop("embed_target", None)
+    vq = _load(VectorQuantize(cfg.vq), params_np["vq"], vq_state)
     return enc.eval(), vq.eval()
 
 

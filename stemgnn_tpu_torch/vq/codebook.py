@@ -1,9 +1,16 @@
 """Codebook primitives of the VQ (counterpart of
 ``stemgnn_tpu/vq/codebook.py`` and of ``_orthogonal_loss`` in
-``stemgnn_tpu/vq/quantize.py``): l2 normalization, distances, the affine
-codebook map, the orthogonal regularizer of a learnable codebook and the
-k-means of the codebook's init.  EMA statistics and dead-code expiry are
-not ported."""
+``stemgnn_tpu/vq/quantize.py``): l2 normalization, distances, code
+sampling (argmax, or Gumbel-perturbed with an optional straight-through
+softmax), the EMA codebook statistics with Laplace smoothing, the affine
+codebook statistics and maps, dead-code expiry, the orthogonal regularizer
+of a learnable codebook and the k-means of the codebook's init.
+
+The statistics are dicts of tensors (the VQ's buffers) and the functions
+return new dicts, as JAX's do.  Every random draw can be handed in (the
+Gumbel noise, the expiry's sample rows); otherwise it is drawn from a
+``torch.Generator``.  The cross-replica sums of the JAX functions
+(``axis_name``) belong to the multi-GPU path and are not ported."""
 
 from __future__ import annotations
 
@@ -36,6 +43,167 @@ def euclidean_distances(xh, embed):
     e2 = (embed ** 2).sum(-1)[:, None, :]
     xe = torch.einsum("hnd,hcd->hnc", xh.float(), embed.float())
     return -torch.sqrt(torch.clamp(x2 + e2 - 2 * xe, min=0.0))
+
+
+def gumbel_noise(shape, generator=None, device=None):
+    """Standard Gumbel noise ``-log(-log(u))``, u uniform in (0, 1)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp(min=tiny, max=1.0 - 2 ** -24)))
+
+
+def sample_codes(logits, *, temperature: float = 1.0,
+                 stochastic: bool = False, training: bool = True,
+                 noise=None, generator=None):
+    """The code ids [h, n] of ``gumbel_sample``: the argmax of ``logits``,
+    or in training with ``stochastic`` of ``logits / temperature`` plus
+    Gumbel ``noise`` (drawn from ``generator`` when None)."""
+    if training and stochastic and temperature > 0:
+        if noise is None:
+            noise = gumbel_noise(logits.shape, generator, logits.device)
+        logits = logits / temperature + noise.to(logits.dtype)
+    return logits.argmax(dim=-1)
+
+
+def code_one_hot(ind, logits, *, temperature: float = 1.0,
+                 straight_through: bool = False, training: bool = True):
+    """The one-hot [h, n, c] of ``ind``; the straight-through form adds
+    ``pi - pi.detach()``, pi the softmax of ``logits / temperature``, so
+    gradients reach the logits."""
+    one_hot = torch.nn.functional.one_hot(ind, logits.shape[-1]).to(
+        logits.dtype)
+    if straight_through and temperature > 0 and training:
+        pi1 = torch.softmax(logits / temperature, dim=-1)
+        one_hot = one_hot + pi1 - pi1.detach()
+    return one_hot
+
+
+def gumbel_sample(logits, *, temperature: float = 1.0,
+                  stochastic: bool = False, straight_through: bool = False,
+                  training: bool = True, noise=None, generator=None):
+    """vq.py:63-100 (JAX ``gumbel_sample``; the reinmax path is not enabled
+    by the reference either): (ind [h, n], one_hot [h, n, c]) of
+    :func:`sample_codes` and :func:`code_one_hot`."""
+    ind = sample_codes(logits, temperature=temperature,
+                       stochastic=stochastic, training=training,
+                       noise=noise, generator=generator)
+    return ind, code_one_hot(ind, logits, temperature=temperature,
+                             straight_through=straight_through,
+                             training=training)
+
+
+def laplace_smoothing(x, n_categories: int, eps: float = 1e-5):
+    """vq.py:102-104."""
+    return (x + eps) / (x.sum(-1, keepdim=True) + n_categories * eps)
+
+
+def ema(old, new, decay: float):
+    """old.lerp_(new, 1 - decay) (vq.py:40-46)."""
+    return old * decay + new * (1.0 - decay)
+
+
+def ema_codebook_update(state: dict, xh, one_hot, *, decay: float,
+                        eps: float, use_cosine_sim: bool, mask=None):
+    """EMA cluster statistics and the normalized codebook (vq.py:661-682):
+    ``cluster_size`` and ``embed_avg`` move toward the batch's bins and
+    per-code sums of ``xh`` [h, n, d] (``mask`` [n] drops rows); the new
+    codebook is ``embed_avg`` over the Laplace-smoothed sizes (l2-normalized
+    for the cosine codebook).  Returns (new state, new embed)."""
+    if mask is not None:
+        one_hot = one_hot * mask.to(one_hot.dtype)[None, :, None]
+    bins = one_hot.sum(1)
+    embed_sum = torch.einsum("hnd,hnc->hcd", xh, one_hot)
+    cluster_size = ema(state["cluster_size"], bins, decay)
+    embed_avg = ema(state["embed_avg"], embed_sum, decay)
+    smoothed = laplace_smoothing(cluster_size, cluster_size.shape[-1], eps) \
+        * cluster_size.sum(-1, keepdim=True)
+    embed = embed_avg / smoothed[..., None]
+    if use_cosine_sim:
+        embed = l2norm(embed)
+    return dict(state, cluster_size=cluster_size, embed_avg=embed_avg), embed
+
+
+def affine_stats_update(state: dict, xh, embed, *, batch_decay: float,
+                        codebook_decay: float, mask=None):
+    """EMA of the per-head mean and variance of the batch ``xh`` [h, n, d]
+    (the ``mask`` rows) and of the codebook (vq.py:361-411): the first call
+    copies them (``affine_initted`` False), later calls move toward them
+    with their decays.  Returns the new state."""
+    c_mean = embed.mean(1, keepdim=True)
+    c_var = ((embed - c_mean) ** 2).mean(1, keepdim=True)
+    if mask is not None:
+        m = mask.to(xh.dtype)[None, :, None]
+        cnt = torch.clamp(mask.to(xh.dtype).sum(), min=1.0)
+        b_sum = (xh * m).sum(1, keepdim=True)
+    else:
+        cnt = torch.tensor(float(xh.shape[1]), dtype=xh.dtype,
+                           device=xh.device)
+        b_sum = xh.sum(1, keepdim=True)
+    b_mean = b_sum / cnt
+    sq = (xh - b_mean) ** 2
+    if mask is not None:
+        sq = sq * mask.to(sq.dtype)[None, :, None]
+    b_var = sq.sum(1, keepdim=True) / cnt
+    initted = state["affine_initted"]
+
+    def step(name, new, decay):
+        return torch.where(initted, ema(state[name], new, decay), new)
+    return dict(state,
+                codebook_mean=step("codebook_mean", c_mean, codebook_decay),
+                codebook_var=step("codebook_var", c_var, codebook_decay),
+                batch_mean=step("batch_mean", b_mean, batch_decay),
+                batch_var=step("batch_var", b_var, batch_decay),
+                affine_initted=torch.ones_like(initted))
+
+
+def affine_inverse_transform(stats: dict, xh, eps: float = 1e-5):
+    """Map batch vectors into the codebook's distribution for the EMA
+    statistics (vq.py:487): (x - batch_mean) * codebook_std / batch_std +
+    codebook_mean."""
+    c_std = torch.sqrt(torch.clamp(stats["codebook_var"], min=eps))
+    b_std = torch.sqrt(torch.clamp(stats["batch_var"], min=eps))
+    return (xh - stats["batch_mean"]) * (c_std / b_std) + stats["codebook_mean"]
+
+
+def sample_indices(h: int, n: int, num: int, mask=None, generator=None,
+                   device=None):
+    """[h, num] row indices into n rows, uniform with replacement over the
+    rows ``mask`` [n] keeps (all rows without a mask), per codebook
+    (vq.py:106-116; JAX draws the same distribution with ``jax.random``)."""
+    if mask is not None:
+        w = mask.float()
+        return torch.stack([torch.multinomial(w, num, replacement=True,
+                                              generator=generator)
+                            for _ in range(h)])
+    return torch.randint(0, n, (h, num), generator=generator, device=device)
+
+
+def expire_dead_codes(state: dict, embed, xh, *, threshold: float,
+                      reset_cluster_size: float, use_cosine_sim: bool,
+                      mask=None, idx=None, generator=None):
+    """Replace the codes whose EMA cluster size fell below ``threshold`` by
+    batch rows (vq.py:597-621): the rows ``idx`` [h, C] of ``xh``
+    (l2-normalized for the cosine codebook), drawn when None
+    (:func:`sample_indices`).  ``embed_avg`` of a replaced code becomes its
+    row times ``reset_cluster_size`` and its size ``reset_cluster_size``.
+    A no-op when ``threshold <= 0``.  Returns (new state, new embed)."""
+    if threshold <= 0:
+        return state, embed
+    expired = state["cluster_size"] < threshold
+    samples = l2norm(xh) if use_cosine_sim else xh
+    h, n, d = samples.shape
+    if idx is None:
+        idx = sample_indices(h, n, embed.shape[1], mask, generator,
+                             samples.device)
+    sampled = torch.gather(samples, 1,
+                           idx.long()[:, :, None].expand(-1, -1, d))
+    new_embed = torch.where(expired[..., None], sampled, embed)
+    new_avg = torch.where(expired[..., None], sampled * reset_cluster_size,
+                          state["embed_avg"])
+    new_cs = torch.where(expired, torch.full_like(state["cluster_size"],
+                                                  reset_cluster_size),
+                         state["cluster_size"])
+    return dict(state, cluster_size=new_cs, embed_avg=new_avg), new_embed
 
 
 def affine_transform_embed(stats: dict, embed, eps: float = 1e-5):
@@ -71,19 +239,10 @@ def orthogonal_loss(embed, ids=None):
 
 
 def batched_sample_vectors(samples, num: int, mask=None, generator=None):
-    """``num`` rows of each codebook's samples [h, n, d], drawn uniformly
-    with replacement from the rows ``mask`` [n] keeps (all rows without a
-    mask), per codebook (vq.py:106-116; JAX draws the same distribution
-    with ``jax.random``)."""
+    """``num`` rows of each codebook's samples [h, n, d], drawn by
+    :func:`sample_indices`."""
     h, n, d = samples.shape
-    if mask is not None:
-        w = mask.float()
-        idx = torch.stack([torch.multinomial(w, num, replacement=True,
-                                             generator=generator)
-                           for _ in range(h)])
-    else:
-        idx = torch.randint(0, n, (h, num), generator=generator,
-                            device=samples.device)
+    idx = sample_indices(h, n, num, mask, generator, samples.device)
     return torch.gather(samples, 1, idx[:, :, None].expand(-1, -1, d))
 
 

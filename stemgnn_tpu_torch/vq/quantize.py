@@ -1,11 +1,14 @@
-"""Multi-head vector quantization (counterpart of ``vq_apply`` in
-``stemgnn_tpu/vq/quantize.py``, :148-300): eval, training with a frozen
-codebook (finetune) and training with a learnable codebook (pretrain).
+"""Multi-head vector quantization (counterpart of ``vq_apply`` and
+``adopt_ema_embed`` in ``stemgnn_tpu/vq/quantize.py``, :148-310): eval,
+training with a frozen codebook (finetune) and training with a learnable
+or EMA-updated codebook (pretrain).
 
-project_in -> per-head split -> l2norm (cosine) -> affine codebook map
-(when ``affine_param``, euclidean only) -> distances -> argmax -> codebook
-gather -> project_out.  Shapes: z [N, dim]; per-head xh [H, N', d];
-``embed`` [num_codebooks, C, d]; indices [N, H].
+project_in -> per-head split -> l2norm (cosine) -> affine statistics'
+update (training) and codebook map (when ``affine_param``, euclidean only)
+-> distances -> argmax, or Gumbel sampling in training
+(``stochastic_sample_codes``, ``straight_through_gumbel``) -> codebook rows
+-> project_out.  Shapes: z [N, dim]; per-head xh [H, N', d]; ``embed``
+[num_codebooks, C, d]; indices [N, H].
 
 Precision (JAX quantize.py:179-300): the projections run in z's dtype
 (bf16 under a bf16 encoder, whatever the VQ's ``compute_dtype``); the
@@ -25,9 +28,19 @@ the optimizer: the commitment term reaches it through the selected rows and
 the orthogonal term (:func:`~stemgnn_tpu_torch.vq.codebook.
 orthogonal_loss`, over a random subset of ``orthogonal_reg_max_codes``
 codes) through all of them.  A codebook built with ``kmeans_init`` starts
-at zero with ``initted`` False until :func:`vq_kmeans_init` seeds it.  The
-EMA update, dead-code expiry, the affine statistics' update, stochastic or
-gumbel code sampling are not ported and raise.
+at zero with ``initted`` False until :func:`vq_kmeans_init` seeds it.
+
+Buffers (JAX's VQ state) move in a training forward without a frozen
+codebook, as a PyTorch module's buffers do: the affine statistics
+(``affine_param``) before the distances, and with ``ema_update`` the EMA
+cluster sizes and sums from the batch (inverse-mapped by the affine
+statistics), then dead-code expiry (``threshold_ema_dead_code``), the new
+codebook kept in ``embed_target``; :func:`adopt_ema_embed` copies it into
+``embed`` after the optimizer's step, as JAX's steps do.  The Gumbel noise
+and the expiry's sample rows can be handed in (``gumbel=``,
+``expire_idx=``), else they are drawn from ``generator``.
+``sync_codebook`` (the cross-replica statistics) belongs to the multi-GPU
+path and raises.
 """
 
 from __future__ import annotations
@@ -95,22 +108,23 @@ class VectorQuantize(nn.Module):
         return q.reshape(q.shape[1] // cfg.heads, cfg.heads * q.shape[2])
 
     def forward(self, z, mask=None, freeze_codebook: bool = False,
-                with_quantize: bool = True, ortho_ids=None, generator=None):
+                with_quantize: bool = True, ortho_ids=None, generator=None,
+                gumbel=None, expire_idx=None):
         """Quantize z [N, dim]: returns ``quantize`` [N, dim] f32 (None
         unless ``with_quantize``), ``indices`` [N, H], ``codes`` [N, H*d],
         ``distances`` and ``loss`` (in training the weighted commitment
         term, plus the weighted orthogonal term when the codebook learns; 0
-        in eval).  ``mask`` [N] marks the rows the loss covers.
-        ``ortho_ids`` are the codes the orthogonal term samples (drawn
-        from ``generator`` when None)."""
+        in eval).  ``mask`` [N] marks the rows the loss and the statistics
+        cover.  ``ortho_ids`` are the codes the orthogonal term samples,
+        ``gumbel`` [num_codebooks, N', C] the sampling noise and
+        ``expire_idx`` [num_codebooks, C] the rows dead codes take (each
+        drawn from ``generator`` when None and needed)."""
         cfg = self.cfg
         learn = self.training and not freeze_codebook
-        if learn and (cfg.ema_update or cfg.affine_param
-                      or cfg.stochastic_sample_codes
-                      or cfg.straight_through_gumbel):
+        if learn and cfg.sync_codebook:
             raise NotImplementedError(
-                "VQ training with the EMA update, the affine statistics or "
-                "stochastic/gumbel code sampling is not ported")
+                "sync_codebook: the cross-replica codebook statistics belong "
+                "to the multi-GPU path (ROADMAP Queue 1 item 10)")
         dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
               and cfg.use_cosine_sim else torch.float32)
         xp = self.project_in(z) if cfg.requires_projection else z
@@ -120,16 +134,50 @@ class VectorQuantize(nn.Module):
         embed = self.embed
         if freeze_codebook or not cfg.effective_learnable:
             embed = embed.detach()
+        hmask = None
+        if mask is not None:
+            hmask = (mask if cfg.separate_codebook_per_head
+                     else mask.repeat_interleave(cfg.heads))
         if cfg.affine_param:
-            embed = cb.affine_transform_embed(
-                {k: getattr(self, k) for k in _AFFINE}, embed)
+            if learn:
+                with torch.no_grad():
+                    self._set_state(cb.affine_stats_update(
+                        self._state(_AFFINE + ("affine_initted",)), xh,
+                        self.embed.detach(),
+                        batch_decay=cfg.affine_param_batch_decay,
+                        codebook_decay=cfg.affine_param_codebook_decay,
+                        mask=hmask))
+            embed = cb.affine_transform_embed(self._state(_AFFINE), embed)
         dist = (cb.cosine_distances(xh, embed.to(dt)) if cfg.use_cosine_sim
                 else cb.euclidean_distances(xh, embed))
-        ind = dist.argmax(dim=-1)                        # [num_codebooks, N']
-        # batched embedding gather (vq.py:224-228,659), rounded to the
-        # pipeline dtype; training's one-hot product picks the same rows
-        quantize_h = torch.gather(
-            embed, 1, ind[:, :, None].expand(-1, -1, embed.shape[-1])).to(dt)
+        ind = cb.sample_codes(dist, temperature=cfg.sample_codebook_temp,
+                              stochastic=cfg.stochastic_sample_codes,
+                              training=self.training, noise=gumbel,
+                              generator=generator)
+        straight = (self.training and cfg.straight_through_gumbel
+                    and cfg.sample_codebook_temp > 0)
+        # the [h, N', C] one-hot only where it is read (JAX builds it always)
+        one_hot = None
+        if straight or (learn and cfg.ema_update):
+            one_hot = cb.code_one_hot(
+                ind, dist, temperature=cfg.sample_codebook_temp,
+                straight_through=cfg.straight_through_gumbel,
+                training=self.training)
+        if straight:
+            # the one-hot product carries the softmax's gradient (vq.py:
+            # 655-657)
+            quantize_h = torch.einsum("hnc,hcd->hnd", one_hot.to(dt),
+                                      embed.to(dt))
+        else:
+            # batched embedding gather (vq.py:224-228,659), rounded to the
+            # pipeline dtype; training's one-hot product picks the same rows
+            quantize_h = torch.gather(
+                embed, 1,
+                ind[:, :, None].expand(-1, -1, embed.shape[-1])).to(dt)
+        if learn and cfg.ema_update:
+            with torch.no_grad():
+                self._ema_update(xh, one_hot.detach(), hmask, expire_idx,
+                                 generator)
         loss = torch.zeros((), device=z.device)
         if self.training:
             # the commitment term trains a learnable codebook too
@@ -155,6 +203,32 @@ class VectorQuantize(nn.Module):
                    else ind.reshape(-1, cfg.heads))
         return {"quantize": out, "indices": indices, "codes": codes,
                 "distances": dist, "loss": loss}
+
+    def _state(self, names) -> dict:
+        return {k: getattr(self, k) for k in names}
+
+    def _set_state(self, state: dict):
+        for k, v in state.items():
+            getattr(self, k).copy_(v)
+
+    def _ema_update(self, xh, one_hot, hmask, expire_idx, generator):
+        """The EMA statistics from the batch (in the codebook's own
+        distribution under ``affine_param``), dead-code expiry, the new
+        codebook into ``embed_target`` (vq.py:485-506, 597-621, 661-682)."""
+        cfg = self.cfg
+        xh_stats = (cb.affine_inverse_transform(self._state(_AFFINE), xh)
+                    if cfg.affine_param else xh)
+        state, embed = cb.ema_codebook_update(
+            self._state(("cluster_size", "embed_avg")), xh_stats.float(),
+            one_hot, decay=cfg.decay, eps=cfg.eps,
+            use_cosine_sim=cfg.use_cosine_sim, mask=hmask)
+        state, embed = cb.expire_dead_codes(
+            state, embed, xh.float(), threshold=cfg.threshold_ema_dead_code,
+            reset_cluster_size=cfg.threshold_ema_dead_code,
+            use_cosine_sim=cfg.use_cosine_sim, mask=hmask, idx=expire_idx,
+            generator=generator)
+        self._set_state(state)
+        self.embed_target.copy_(embed)
 
     def _commitment(self, q, xh, mask):
         """Mean squared (q - xh) over the ``mask`` rows (vq.py:983-1005)."""
@@ -191,3 +265,13 @@ def vq_kmeans_init(vq: VectorQuantize, z, mask=None, generator=None,
     vq.cluster_size.copy_(bins)
     vq.initted.fill_(True)
     return bins
+
+
+@torch.no_grad()
+def adopt_ema_embed(vq: VectorQuantize) -> None:
+    """Copy the EMA-updated codebook ``embed_target`` into ``embed`` (JAX
+    ``adopt_ema_embed``, the reference's in-place ``embed.data.copy_``,
+    vq.py:504-506).  Call after each training step when ``ema_update``; a
+    no-op for a VQ without the EMA target."""
+    if hasattr(vq, "embed_target"):
+        vq.embed.copy_(vq.embed_target)

@@ -223,7 +223,26 @@ def test_gathered_wrapper_rejects_bad_inputs(bad):
     elif bad == "gate_shape":
         kw["gate"] = torch.ones(128, 4)
     else:
+        # the stray inputs come all four together: one alone is refused,
+        # the whole set (a merged LocSplit's) is accepted and equals the
+        # plain version
         kw["stray_src"] = torch.zeros(512, 8)
-        err = NotImplementedError
+        with pytest.raises(err):
+            sc.gathered_scatter_rows_sorted(**args, **kw)
+        sp = build_edge_layout(rng.integers(0, 100, 300),
+                               rng.integers(0, 100, 300), 128, profile=V5E,
+                               loc_split="on", loc_reach=8,
+                               loc_merge=True).split_r
+        assert sp is not None and int((sp.m_sidx >= 0).sum()) > 0
+        x = torch.randn(128, 8).to(torch.bfloat16)
+        stray = dict(stray_src=x[sp.m_stray_keys.long()],
+                     stray_idx=sp.m_sidx, stray_off=sp.m_soff,
+                     stray_cnt=sp.m_scnt)
+        got = sc.gathered_scatter_rows_sorted(
+            sp.m_keys, sp.m_lrow, sp.m_block_ptr, x, relu=True, **kw | stray)
+        want = sc.gathered_scatter_rows_sorted_ref(
+            sp.m_keys, sp.m_lrow, sp.m_block_ptr, x, relu=True, **kw | stray)
+        assert torch.equal(got, want)
+        return
     with pytest.raises(err):
         sc.gathered_scatter_rows_sorted(**args, **kw)

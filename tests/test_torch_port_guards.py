@@ -36,7 +36,9 @@ def test_port_and_smoke_import_without_jax_or_the_jax_package():
                     "utils.logger", "data.synthetic", "ops.fused_sage",
                     "ops.edge_layout", "data.importers", "data.kg",
                     "train.infer", "data.raw_parsers", "data.text_encoder",
-                    "nn.distilbert", "nn.bert", "nn.llama"):
+                    "nn.distilbert", "nn.bert", "nn.llama", "eval.buckets",
+                    "eval.perturb", "eval.runner", "ops.reorder",
+                    "profile_reorder"):
             assert "stemgnn_tpu_torch." + mod in names, names
         print(len(names))
     """)

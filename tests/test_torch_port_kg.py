@@ -192,16 +192,34 @@ def test_every_jax_option_is_accepted():
     (["--halo_shards", "2"], "item 10"),
     (["--halo_balance"], "item 10"),
     (["--halo_order", "rcm"], "item 10"),
-    (["--reorder", "degree"], "item 3"),
+    pytest.param(["--reorder", "degree"], None, id="flags4-item 3"),
     pytest.param(["--text_encoder", "e5"], None, id="flags5-item 11"),
 ])
 def test_finetune_cli_refuses_naming_the_roadmap_item(flags, needle):
     """``--text_encoder e5``, once refused naming ROADMAP Queue 1 item 11,
     is accepted as in JAX: the default ``cora_synthetic`` is generated
-    whatever the encoder, so its features equal the hash run's."""
+    whatever the encoder, so its features equal the hash run's.
+    ``--reorder degree``, once refused naming item 3, is accepted: on a
+    link dataset the relabel equals JAX's, and the per-edge labels and
+    splits keep their slots."""
     argv = ["--device", "cpu", "--debug", *flags]
     if needle is None:
         assert port_cli.refusals(port_cli.parse(argv)) == []
+        if flags[0] == "--reorder":
+            from stemgnn_tpu.train import graph_setup as jax_setup
+            from stemgnn_tpu_torch.train import graph_setup as port_setup
+            ds = registry.load_dataset("kg_synthetic", feat_dim=8)
+            got = port_setup.reorder_dataset(ds, "degree", "link")
+            want = jax_setup.reorder_dataset(
+                jax_registry.load_dataset("kg_synthetic", feat_dim=8),
+                "degree", "link")
+            for k in ("x", "edge_index", "xe", "labels"):
+                assert np.array_equal(getattr(got, k),
+                                      np.asarray(getattr(want, k))), k
+            assert np.array_equal(got.labels, ds.labels)
+            for a, b in zip(got.splits, ds.splits):
+                assert all(np.array_equal(a[k], b[k]) for k in b)
+            return
         for reg in (registry, jax_registry):
             a = reg.load_dataset("cora_synthetic", feat_dim=8,
                                  text_encoder="e5")

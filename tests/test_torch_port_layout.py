@@ -126,18 +126,33 @@ def test_h100_profile_is_an_uncalibrated_spec_estimate():
 
 
 def test_layout_leaves_unported_gates_off():
-    """The LocSplit gates stay off and the TPU window arrays unset; the
-    in-kernel gather gate opens on the H100 profile (no card here: the
-    default profile) on the layout and on each hub tail that has edges."""
+    """The TPU window arrays stay unset; the in-kernel gather gate opens on
+    the H100 profile (no card here: the default profile) on the layout and
+    on each hub tail that has edges.  The LocSplit, once never built, is
+    built as asked: none by default, none under ``"auto"`` (the gate is
+    open already), and under ``"on"`` on each hub tail, its local edges
+    through the in-kernel gather and its strays through the gather
+    route."""
     rng = np.random.default_rng(3)
     s, r = _power_law(rng, 300, 2000)
-    lay = port_el.build_edge_layout(s, r, 384, hub_size=128, sc_hub_size=128,
-                                    hub_min_coverage=-1.0)
-    for sub in (lay, lay.hub_r.tail, lay.hub_s.tail):
-        assert sub.use_gwin_r == sub.use_gwin_s == bool(sub.mask_r.any())
-        assert sub.split_r is None and sub.split_s is None
-        assert sub.gwin_lo_r is None and sub.gwin_nsub_s is None
-        assert sub.win_lo_s is None and sub.gwin_w == 0
+    for mode in ("off", "auto", "on"):
+        lay = port_el.build_edge_layout(s, r, 384, hub_size=128,
+                                        sc_hub_size=128,
+                                        hub_min_coverage=-1.0,
+                                        loc_split=mode)
+        for sub in (lay, lay.hub_r.tail, lay.hub_s.tail):
+            assert sub.use_gwin_r == sub.use_gwin_s == bool(sub.mask_r.any())
+            assert sub.gwin_lo_r is None and sub.gwin_nsub_s is None
+            assert sub.win_lo_s is None and sub.gwin_w == 0
+        assert lay.split_r is None and lay.split_s is None   # hubs there
+        for order, tail in (("r", lay.hub_r.tail), ("s", lay.hub_s.tail)):
+            sp = getattr(tail, "split_" + order)
+            assert (sp is not None) == (mode == "on"), (mode, order)
+            if sp is not None:
+                assert getattr(sp.loc, "use_gwin_" + order)
+                assert not getattr(sp.stray, "use_gwin_" + order)
+                n_sub = int(sp.loc.mask_r.sum() + sp.stray.mask_r.sum())
+                assert n_sub == int(tail.mask_r.sum())
 
 
 def _locality(rng, n=600, e=2400, reach=40):

@@ -345,15 +345,33 @@ def test_finetune_train_step_matches_jax(route):
     (["--donate"], "--donate"),
     (["--halo_shards", "2"], "--halo_shards"),
     (["--halo_order", "rcm"], "--halo_order"),
-    (["--reorder", "rcm"], "--reorder rcm"),
+    pytest.param(["--reorder", "rcm"], None, id="flags4---reorder rcm"),
 ])
 def test_finetune_cli_refuses_what_the_slice_does_not_cover(flags, needle):
     """``--text_encoder e5`` with ``mol_synthetic``, once refused, is
     accepted as in JAX: the generated molecules ignore the encoder, so the
-    bundle equals the hash run's in both registries."""
+    bundle equals the hash run's in both registries.  ``--reorder rcm``,
+    once refused, is accepted too: the relabel equals JAX's
+    ``reorder_dataset`` on the default dataset."""
     argv = ["--device", "cpu", "--debug", *flags]
     if needle is None:
         assert port_cli.refusals(port_cli.parse(argv)) == []
+        if flags[0] == "--reorder":
+            from stemgnn_tpu.data import registry as jax_registry
+            from stemgnn_tpu.train import graph_setup as jax_setup
+            from stemgnn_tpu_torch.data import registry as port_registry
+            from stemgnn_tpu_torch.train import graph_setup as port_setup
+            assert port_cli.parse(argv).reorder == "rcm"
+            got = port_setup.reorder_dataset(port_registry.load_dataset(
+                "cora_synthetic", feat_dim=8), "rcm", "node")
+            want = jax_setup.reorder_dataset(jax_registry.load_dataset(
+                "cora_synthetic", feat_dim=8), "rcm", "node")
+            for k in ("x", "edge_index", "labels"):
+                assert np.array_equal(getattr(got, k),
+                                      np.asarray(getattr(want, k))), k
+            assert np.array_equal(got.extras["node_perm"],
+                                  want.extras["node_perm"])
+            return
         from stemgnn_tpu.data import registry as jax_registry
         from stemgnn_tpu_torch.data import registry as port_registry
         for reg in (port_registry, jax_registry):
