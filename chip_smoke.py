@@ -47,7 +47,8 @@ announced before it starts and timed when it ends:
                no kernel-1 launch; outputs checked; the same encoder on
                ``gwin="off"`` layouts (2 kernel-1 launches) and through the
                plain versions, ``z`` compared;
-  7. train   — ``stemgnn_tpu_torch.finetune.main``, 2 epochs: 3 kernel-2
+  7. train   — ``stemgnn_tpu_torch.finetune.main``, 2 epochs, dropout 0
+               (phase halo's single-device reference): 3 kernel-2
                launches per training step and 2 per evaluation, finite
                losses, trainable parameters moved and the frozen VQ not,
                one step's gradients against the plain versions and against
@@ -235,7 +236,26 @@ announced before it starts and timed when it ends:
                checked and timed like every kernel case (``time_case``);
                the unsplit kernel 2, the two-launch chain and the merged
                route timed on the same edges;
- 19. text    — bring-your-own data and the text encoders, with the cache
+ 19. halo    — the halo full-graph finetune on ``torch.distributed``:
+               phase train's flags (the arxiv graph, 2 epochs, dropout 0,
+               phase slice's checkpoint) with ``--halo_shards 2`` (two
+               ranks sharing the card over gloo, their processes started
+               at phase backbones) and beside it ``--halo_shards 1`` (this
+               process, NCCL): each epoch's loss within 1e-3 relative of
+               phase train's, each rank's block of the final ``z`` against
+               phase train's final ``z`` (the ``z`` gates), kernel 2 ten
+               times on each rank's local layout (at S = 2 ten times on its
+               remote one too, at S = 1 none on its empty remote layout)
+               and kernels 1 and 3 never (counted on the layouts' row
+               plans);
+               each rank's partition and layout host seconds, R, the bytes
+               exchanged a layer, the exchanges' device ms (CUDA events),
+               epoch, step and evaluation ms and the idle share; rank 1's
+               remote layout rebuilt here beside phase backbones, its
+               kernel-2 launch (layer 1's forward over the exchanged rows)
+               checked against its plain version and timed like every
+               case (``time_case``);
+ 20. text    — bring-your-own data and the text encoders, with the cache
                root in a temporary directory: (a) cora's raw files at its
                size (a PyG ``cora.pt`` of 2,708 texts of 150-250 words
                over a synthetic 30,522-entry WordPiece vocabulary, 10,556
@@ -246,9 +266,9 @@ announced before it starts and timed when it ends:
                --use_params --text_encoder ST``, 2 epochs: the texts
                encoded on the card, kernel 2 twice in the k-means init and
                five times an epoch; 32 texts' embeddings on the card
-               against the CPU's on the same weights; (b) ST on 1,024
+               against the CPU's on the same weights; (b) ST on 512
                generated texts; (c) e5 at e5-large-v2's widths (24 x
-               1,024, 16 heads, FFN 4,096) from a snapshot on 256 texts,
+               1,024, 16 heads, FFN 4,096) from a snapshot on 128 texts,
                card against CPU on 4; (d) Llama-2-7B's widths (32 x 4,096,
                32 heads, FFN 11,008) built on the card from the seed, 16
                rows of about 128 ids, card against CPU on its first 2
@@ -257,8 +277,10 @@ announced before it starts and timed when it ends:
                encoder: texts/s, tokens/s, host tokenizing ms and device ms
                (CUDA events) a batch, the idle share and peak memory.
 
-Each dataset is generated or read once and shared by the phases that load
-it, and so is each full graph (and layout) of such a dataset
+PyTorch's compiler stack, which every optimizer imports when it is built
+(seconds of host time), is imported beside phase build.  Each dataset is
+generated or read once and shared by the phases that load it, and so is
+each full graph (and layout) of such a dataset
 (``shared_datasets``; the entry points change none of their arrays): a
 wall printed for an entry point counts a layout build only where it built
 the graph first (the slice's encode wall is printed with the build of its
@@ -277,6 +299,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import importlib
 import inspect
 import json
 import os
@@ -327,6 +350,7 @@ from stemgnn_tpu_torch.scripts import (degree_shift_ood, homophily_shift_ood,
 from stemgnn_tpu_torch.data.synthetic import (community_power_law_graph,
                                               write_smiles_csv)
 from stemgnn_tpu_torch.ops.reorder import community_order, relabel
+from stemgnn_tpu_torch.parallel import halo, mesh
 from stemgnn_tpu_torch.data.text_encoder import (E5Encoder, LlamaEncoder,
                                                  SentenceEncoder)
 from stemgnn_tpu_torch.nn.bert import BertConfig, BertModel
@@ -2528,9 +2552,9 @@ CORA = dict(nodes=2_708, edges=10_556, classes=7)
 CORA_LABELS = ("Case_Based", "Genetic_Algorithms", "Neural_Networks",
                "Probabilistic_Methods", "Reinforcement_Learning",
                "Rule_Learning", "Theory")
-# texts a run of each encoder (cut by depth from ST 4,096 and e5 512:
-# PERF.md, section 4)
-ST_TEXTS, E5_TEXTS, LLAMA_TEXTS, LLAMA_IDS = 1_024, 256, 16, 128
+# texts a run of each encoder (cut by depth from ST 4,096 and 1,024 and e5
+# 512 and 256: PERF.md, section 4)
+ST_TEXTS, E5_TEXTS, LLAMA_TEXTS, LLAMA_IDS = 512, 128, 16, 128
 # the card against the CPU on the same weights: every embedding entry
 # within this share of the largest
 EMB_RTOL = 1e-4
@@ -3212,6 +3236,157 @@ def locality_run(tmp, dev, paths, prep):
     return locality_split_run(dev, paths, prep)
 
 
+# ------------------------------------------------------------ phase halo
+
+# each epoch's loss of the halo finetune against the single-device one:
+# the same bf16 messages summed in another order, and BatchNorm's moments
+# from the ranks' sums
+HALO_LOSS_RTOL = 1e-3
+HALO_SHARDS = 2
+
+
+def halo_rem_layout(ds, shard, dev):
+    """Rank ``shard``'s remote layout of the 2-rank partition of ``ds``,
+    built here as the ranks build theirs (every shard's layouts, for the
+    decisions across shards; no kernel launches), and layer 1's halo
+    buffer on it: the exchanged feature rows, padded to the layout's node
+    space.  Returns (layout, buffer, edge table, host seconds)."""
+    t0 = time.perf_counter()
+    ei = np.asarray(ds.edge_index)
+    part, nb, R = halo.build_halo_partition(ei[0], ei[1], ds.num_nodes,
+                                            HALO_SHARDS, xe_ids=ds.xe)
+    lay_rem = halo.build_halo_layouts(
+        part, nb, R, HALO_SHARDS, hub_size=FinetuneConfig().hub_size,
+        feat_dim_hint=FEAT_DIM, device=dev)[shard][1]
+    send = part["send_idx"][:, shard]                   # [S(owner), R]
+    rows = (np.arange(HALO_SHARDS)[:, None] * nb + send).reshape(-1)
+    x = np.zeros((lay_rem.num_nodes_padded, FEAT_DIM), np.float32)
+    ok = rows < ds.num_nodes
+    x[:len(rows)][ok] = ds.node_text_feat[np.asarray(ds.x)[rows[ok]]]
+    table = torch.as_tensor(ds.edge_text_feat, dtype=torch.float32,
+                            device=dev)
+    return (lay_rem, torch.from_numpy(x).to(dev), table,
+            time.perf_counter() - t0)
+
+
+def halo_rem_call(lay_rem, x, table):
+    """The kernel-2 launch of ``fused_sage_aggregate`` over the remote
+    layout (layer 1's forward), recorded: (arguments, keywords)."""
+    calls = []
+    real = fused_sage.gathered_scatter_rows_sorted
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    fused_sage.gathered_scatter_rows_sorted = record
+    try:
+        fused_sage.fused_sage_aggregate(x, lay_rem, table, reduce="sum")
+    finally:
+        fused_sage.gathered_scatter_rows_sorted = real
+    if len(calls) != 1:
+        raise AssertionError(f"the remote layout's forward launched kernel "
+                             f"2 {len(calls)} times")
+    return calls[0]
+
+
+def halo_check(tag, res, want_losses, z_want, n, shards):
+    """One halo run's gates: the ranks, each epoch's loss against the
+    single-device run's, each rank's block of ``z`` against the single-
+    device ``z``, kernel 2 on both layouts of each rank (none of kernel 1 or
+    3 at S > 1); prints each rank's measurements."""
+    ranks = res["ranks"]
+    if [r["rank"] for r in ranks] != list(range(shards)):
+        raise AssertionError(f"{tag}: ranks {[r['rank'] for r in ranks]}")
+    for rec in ranks:
+        hist = rec["history"]
+        losses = [h["losses"]["loss"] for h in hist]
+        if len(losses) != len(want_losses) or not all(
+                abs(a - b) <= HALO_LOSS_RTOL * abs(b)
+                for a, b in zip(losses, want_losses)):
+            raise AssertionError(f"{tag} rank {rec['rank']}: losses "
+                                 f"{losses} vs single-device {want_losses}")
+        nb = rec["nb"]
+        lo, hi = rec["rank"] * nb, min((rec["rank"] + 1) * nb, n)
+        check_z(f"{tag} rank {rec['rank']}'s block (rows {lo}..{hi})",
+                torch.from_numpy(rec["z"][:hi - lo]), z_want[lo:hi],
+                hi - lo)
+        ex = [h.get("exchange_ms", 0.0) for h in hist]
+        print(f"  {tag} rank {rec['rank']}: backend {rec['backend']} on "
+              f"{rec['device']}; nb {nb}, R {rec['R']}, remote node space "
+              f"{rec['m_rem']}, edges local {rec['edges_loc']} / remote "
+              f"{rec['edges_rem']}; partition {rec['partition_s']:.2f} s, "
+              f"layouts {rec['layout_s']:.2f} s of host; exchanged "
+              f"{[b / 1e6 for b in rec['exchange_bytes']]} MB a layer each "
+              f"way; per epoch: wall "
+              f"{['%.1f' % h['epoch_ms'] for h in hist]} ms, step "
+              f"{['%.1f' % h.get('step_ms', 0) for h in hist]} ms, "
+              f"evaluation {['%.1f' % h.get('eval_ms', 0) for h in hist]} "
+              f"ms, exchanges {['%.2f' % v for v in ex]} ms (CUDA events), "
+              f"idle share {[h['idle'] for h in hist]}; launches "
+              f"{rec['launches']}, on the local layout "
+              f"{rec['launches_loc']}, on the remote {rec['launches_rem']}",
+              flush=True)
+        want = {"loc": {K1: 0, K2: EPOCHS * (3 + 2), K3: 0},
+                "rem": {K1: 0, K2: EPOCHS * (3 + 2) if shards > 1 else 0,
+                        K3: 0}}
+        for side in ("loc", "rem"):
+            expect_counts(f"{tag} rank {rec['rank']} {side} layout",
+                          {k: rec[f"launches_{side}"].get(k, 0)
+                           for k in (K1, K2, K3)}, want[side])
+        if shards == 1 and rec["edges_rem"]:
+            raise AssertionError(f"{tag}: {rec['edges_rem']} remote edges")
+
+
+def halo_run(dev, paths, ref, rem):
+    """Phase halo (module docstring): the 2-rank shared-card run (its ranks
+    started at phase backbones) and beside it the 1-rank NCCL run of
+    ``finetune.main --halo_shards`` with phase train's flags, held against
+    its run (``ref``: its argv, losses and final ``z``), and rank 1's
+    remote layout case (``rem``: the future of :func:`halo_rem_layout`,
+    built beside phase backbones).  Returns kernel 2's (max_abs_err,
+    times) on that case."""
+    argv, want, z_want = ref
+    n = z_want.shape[0]
+
+    def run(shards):
+        flags = [*argv, "--halo_shards", str(shards), "--debug"]
+        print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(flags)}",
+              flush=True)
+        t0, clock0 = time.perf_counter(), time.time()
+        res = finetune_cli.main(flags, keep_z=True)
+        return res, time.perf_counter() - t0, clock0
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the 1-rank run beside the 2-rank run: its layout build beside
+        # theirs, its 2 epochs beside their first
+        one = pool.submit(run, 1)
+        runs = {HALO_SHARDS: run(HALO_SHARDS), 1: one.result()}
+    for shards, (res, wall, clock0) in runs.items():
+        tag = f"halo S={shards}"
+        spans = [" / ".join("%.2f" % (t - clock0) for t in
+                            [*r.get("start_marks", {}).values(), *r["span"]])
+                 for r in res["ranks"]]
+        print(f"  {tag}: wall {wall:.2f} s; each rank "
+              f"{'(started at phase backbones) imported its modules, '
+                 'joined the group, imported the compiler stack, read the '
+                 'call, ' if shards > 1 else ''}"
+              f"entered its run, began its first epoch and ended training "
+              f"at {spans} s from the call (negative: before it; after "
+              f"training: the final z and the results' return)",
+              flush=True)
+        halo_check(tag, res, want, z_want, n, shards)
+        for rec in res["ranks"]:
+            paths[f"halo{shards}_rank{rec['rank']}"] = {
+                k: rec["launches"].get(k, 0) for k in (K1, K2, K3)}
+    del runs
+    lay_rem, x, table, host_s = rem.result()
+    print(f"  rank 1's remote layout, built here beside phase backbones in "
+          f"{host_s:.2f} s of host: {describe_layout(lay_rem)}", flush=True)
+    return launch_case("kernel 2 on rank 1's remote layout (layer 1 "
+                       "forward)", K2, "halo_rem",
+                       halo_rem_call(lay_rem, x, table))
+
+
 # ------------------------------------------------------------ phase vq
 
 def vq_configs():
@@ -3538,7 +3713,16 @@ def main():
               f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)",
               flush=True)
 
+    # datasets generated on the host beside phases that wait on nvcc or on
+    # the card: the arxiv graph beside the build, the evaluations' graph
+    # beside phase pretrain (both through the shared registry)
+    prefetch = shared.enter_context(concurrent.futures.ThreadPoolExecutor(1))
+    # the compiler stack that the first optimizer (phase train's) imports
+    warm = shared.enter_context(concurrent.futures.ThreadPoolExecutor(1))
+    compiler = warm.submit(importlib.import_module, "torch._dynamo")
     with phase("build"):
+        arxiv = prefetch.submit(load_dataset, DATASET, feat_dim=FEAT_DIM,
+                                seed=SEED)
         t0 = time.perf_counter()
         sc.build(force=True)
         print(f"  {len(sc.KERNELS)} kernels built in "
@@ -3555,7 +3739,7 @@ def main():
 
     with phase("kernel"):
         kernel1_small_cases(dev)
-        ds = load_dataset(DATASET, feat_dim=FEAT_DIM, seed=SEED)
+        ds = arxiv.result()
         cfg = FinetuneConfig()
         t0 = time.perf_counter()
         graph = fused_full_graph(ds, cfg, device=dev)    # shared: see slice
@@ -3645,9 +3829,12 @@ def main():
         del res, z, z_off, g
 
     with phase("train"):
+        compiler.result()
+        # dropout 0: the run is phase halo's single-device reference too
         argv = ["--finetune_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
                 "--pretrain_path", tmp, "--pretrain_model_epoch", "50",
-                "--seed", str(SEED), "--epochs", str(EPOCHS), "--repeat", "1"]
+                "--seed", str(SEED), "--epochs", str(EPOCHS), "--repeat", "1",
+                "--dropout", "0"]
         print(f"  python -m stemgnn_tpu_torch.finetune {' '.join(argv)}",
               flush=True)
         torch.cuda.reset_peak_memory_stats()
@@ -3666,6 +3853,11 @@ def main():
         print(f"  losses {losses}", flush=True)
         if len(losses) != EPOCHS or not np.isfinite(losses).all():
             raise AssertionError(f"losses {losses}")
+        with torch.no_grad():
+            res["model"].eval()
+            halo_ref = (argv, losses, task_encode(
+                res["model"], res["graph"])[:res["graph"].n_node].float()
+                .cpu())
 
         model, gt, y, mask = (res["model"], res["graph"], res["y"],
                               res["train_mask"])
@@ -3718,6 +3910,8 @@ def main():
         torch.cuda.empty_cache()
 
     with phase("pretrain"):
+        ood_ds = prefetch.submit(load_dataset, OOD_DATASET,
+                                 feat_dim=FEAT_DIM, seed=SEED)
         k1_drop_cases = pretrain_run(graph, dev, paths, errs)
 
     with phase("pretrain_mb"):
@@ -3737,6 +3931,7 @@ def main():
         k3_path = typed_run(tmp, dev, paths)
 
     with phase("ood"):
+        ood_ds.result()
         k2_ood = ood_run(tmp, dev, paths)
 
     with phase("kg"):
@@ -3762,8 +3957,11 @@ def main():
     torch.cuda.empty_cache()
 
     with phase("backbones"):
-        # the locality phase's dataset and split layouts: host work beside
-        # this phase's device work
+        # the locality phase's dataset and split layouts, phase halo's
+        # remote layout and its 2 ranks' start-up: host work beside this
+        # phase's device work
+        mesh.prestart(HALO_SHARDS, "cuda")
+        halo_rem = prefetch.submit(halo_rem_layout, ds, 1, dev)
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             split_prep = pool.submit(locality_prepare, dev)
             backbones_run(tmp, graph, dev, paths)
@@ -3772,6 +3970,10 @@ def main():
     with phase("locality"):
         loc_stray, loc_k1, loc_k2 = locality_run(tmp, dev, paths, loc_prep)
         del loc_prep
+
+    with phase("halo"):
+        torch.cuda.empty_cache()
+        k2_halo = halo_run(dev, paths, halo_ref, halo_rem)
     tmp_dir.cleanup()
     del graph
     graphs.clear()
@@ -3811,7 +4013,8 @@ def main():
                          bwd_row_walk_bound_ms=bwd["row_walk_bound_ms"])
             cases = {**k2_ood, "kg_eval": k2_kg,
                      "xe": (typed_errs[K2], typed_times[K2]),
-                     "stray": loc_stray, "locsplit_local": loc_k2}
+                     "stray": loc_stray, "locsplit_local": loc_k2,
+                     "halo_rem": k2_halo}
             entry.update(case_fields(cases))
         line.append(entry)
     for entry in line:

@@ -28,14 +28,24 @@ Runs on CUDA (hub-dense matmuls + the aggregation kernels, forward and
 backward) unless ``--device cpu`` is given; without CUDA and without
 ``--device cpu`` it exits with an error.  Every flag of the JAX CLI is
 accepted; ``--moe`` (with ``--lamda_env``'s environment regularizer) and
-``--backbone gcn|gin|gat`` train as in JAX; values outside the port
-(multi-GPU, buffer donation, node relabelling) are refused with an error
-naming their ROADMAP item.  ``cora``, ``pubmed``, ``arxiv`` and ``wikics``
-load from their cache or raw files (``data/raw_parsers.py``), and
+``--backbone gcn|gin|gat`` train as in JAX; ``--donate`` (buffer
+donation) is refused with an error naming its ROADMAP item.  ``cora``,
+``pubmed``, ``arxiv`` and ``wikics`` load from their cache or raw files
+(``data/raw_parsers.py``), and
 ``--text_encoder ST|e5|llama2_7b|llama2_13b`` encodes texts with a local
 snapshot's language model on ``--device`` (``data/text_encoder.py``);
 ``--feat_dim`` must then be the model's width.  Without a checkpoint
 the codebook is k-means-initialized before training.
+
+``--halo_shards S`` (node task) trains the full graph over S ranks, each
+owning a block of nodes and exchanging the boundary rows a layer
+(``parallel/``): under torchrun (``RANK`` / ``WORLD_SIZE`` set) this
+process is one rank, otherwise S ranks are spawned here (NCCL when each
+has a card of its own, gloo when they share one or run on the CPU).
+``--halo_balance`` / ``--halo_order none|balance|rcm|community`` relabel
+the nodes first and ``--hub_size`` sizes the layouts' hub blocks, as in
+JAX; ``--save_model``, ``--eval_chunked`` and ``--reorder`` are not read
+there, as in JAX.
 
   python -m stemgnn_tpu_torch.finetune --finetune_dataset WN18RR --use_params
   python -m stemgnn_tpu_torch.finetune --finetune_dataset FB15K237 \\
@@ -188,11 +198,8 @@ def refusals(args) -> list:
         (args.donate, "--donate: buffer donation is a JAX mechanism with no "
                       "PyTorch counterpart (ROADMAP, differences kept on "
                       "purpose)"),
-        (args.halo_shards > 0, "--halo_shards: the multi-GPU finetune is "
-                               "not ported (ROADMAP Queue 1 item 10)"),
-        (args.halo_balance or args.halo_order != "none",
-         "--halo_balance / --halo_order: the halo partition's node orders "
-         "are not ported (ROADMAP Queue 1 item 10)"),
+        (args.halo_shards < 0, "--halo_shards must be 0 or a number of "
+                               "ranks"),
     )
     return [msg for bad, msg in checks if bad]
 
@@ -266,10 +273,13 @@ def make_config(args, num_classes: int) -> FinetuneConfig:
         eval_train_auc=bool(args.eval_train_auc))
 
 
-def main(argv=None):
+def main(argv=None, keep_z: bool = False):
     """Run the CLI.  Returns ``run_finetune``'s dict (the Logger and the
     last split's model, graph, step functions and history) for callers that
-    go on working with them, as ``chip_smoke.py`` does."""
+    go on working with them, as ``chip_smoke.py`` does; with
+    ``--halo_shards`` the Logger and every rank's record
+    (``parallel.full_graph.run_finetune_halo_parallel``; ``keep_z`` keeps
+    each rank's final block of ``z``)."""
     args = parse(argv)
     bad = refusals(args)
     if bad:
@@ -282,6 +292,8 @@ def main(argv=None):
     task = dataset2task.get(name)
     if task is None:
         raise KeyError(f"Unknown dataset {name}")
+    if args.halo_shards and task != "node":
+        raise SystemExit("--halo_shards supports the node task")
 
     seed_everything(args.seed)
     ds = load_dataset(name, feat_dim=args.feat_dim, seed=args.seed,
@@ -298,8 +310,21 @@ def main(argv=None):
             {"encoder": enc["state"], "vq": vq["state"]}, cfg)
         pretrained = {"encoder": encoder, "vq": quantizer}
         print("Loaded pretrained encoder and VQ.")
-    res = run_finetune(ds, cfg, pretrained=pretrained, device=device,
-                       verbose=True, save_model_to=args.save_model)
+    if args.halo_shards:
+        from stemgnn_tpu_torch.parallel.full_graph import \
+            launch_halo_finetune
+        try:
+            ranks = launch_halo_finetune(
+                ds, cfg, args.halo_shards, device.type,
+                pretrained=pretrained, verbose=True,
+                balance=args.halo_balance, order=args.halo_order,
+                keep_z=keep_z)
+        except ValueError as ex:
+            raise SystemExit(f"stemgnn_tpu_torch.finetune: {ex}") from ex
+        res = {"logger": ranks[0]["logger"], "ranks": ranks}
+    else:
+        res = run_finetune(ds, cfg, pretrained=pretrained, device=device,
+                           verbose=True, save_model_to=args.save_model)
     best = res["logger"].get_best()
     for k, label in (("train", "train:"), ("val", "val:  "),
                      ("test", "test: ")):

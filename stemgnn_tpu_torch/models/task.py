@@ -106,15 +106,20 @@ def pool_graph(z, g, pool: str = "mean", num_segments: int = None):
     return fn(z, ids, num_segments, mask=keep)
 
 
-def task_logits(model: TaskModel, cfg: FinetuneConfig, z, mask=None):
+def task_logits(model: TaskModel, cfg: FinetuneConfig, z, mask=None,
+                generator=None, reduce=None):
     """get_lin_logits (ft_model.py:90-103) -> ([N, H or 1, C],
-    commitment loss).  ``mask`` [N] marks the rows the VQ loss covers."""
+    commitment loss).  ``mask`` [N] marks the rows the VQ loss covers;
+    ``generator`` draws the VQ's training randomness; ``reduce`` sums its
+    statistics across the ranks of a node-sharded run (JAX's
+    ``axis_name``)."""
     h = cfg.vq.num_codebooks
     n = z.shape[0]
     if cfg.use_vq:
         separate = cfg.separate_decoder_for_each_head
         res = model.vq(z, mask=mask, freeze_codebook=cfg.freeze_vq,
-                       with_quantize=not separate)
+                       with_quantize=not separate, generator=generator,
+                       reduce=reduce)
         if separate:
             pred = model.decoder(res["codes"]).reshape(n, h, cfg.num_classes)
         else:

@@ -91,6 +91,8 @@ class RowPlan:
     # the arrays it was built from, each with its version counter then; the
     # kernel wrappers refuse a plan that other arrays are passed beside
     sources: dict = dataclasses.field(default_factory=dict, repr=False)
+    # launches over this plan by kernel name (the wrappers count them)
+    launches: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def num_items(self) -> int:

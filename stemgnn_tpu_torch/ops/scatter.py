@@ -67,8 +67,9 @@ of columns where D or the arrays' alignment does not allow 8.
 
 Each wrapper runs its CUDA kernel for CUDA tensors and its plain version
 (``*_ref``) for CPU tensors — nothing else; a CPU call ignores the plan —
-and adds one to ``launch_counts[name]`` per launch call (the second pass
-runs inside that call and is not counted apart).  The
+and adds one to ``launch_counts[name]`` and to the plan's
+``RowPlan.launches[name]`` per launch call (the second pass runs inside
+that call and is not counted apart).  The
 kernels are compiled with ``nvcc`` at first use into ``_build/`` beside this
 package, keyed by a hash of the sources, one ``nvcc`` per kernel started
 together (:func:`build`), and loaded with ``ctypes``.
@@ -288,15 +289,16 @@ def _col_mode(d: int, rows: list) -> int:
     return mode
 
 
-def _launch(name, *args):
+def _launch(name, plan, *args):
     """Call ``<name>_launch`` on the current stream of the first tensor's
-    device; raise on a CUDA error; count the launch."""
+    device; raise on a CUDA error; count the launch, here and on ``plan``."""
     lib = load_library(name)
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, f"{name}_launch")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launch_counts[name] += 1
+    plan.launches[name] = plan.launches.get(name, 0) + 1
 
 
 def scatter_rows_sorted(m, local_row, block_ptr, *, num_nodes_padded: int,
@@ -328,7 +330,7 @@ def scatter_rows_sorted(m, local_row, block_ptr, *, num_nodes_padded: int,
                             device=m.device) if plan.num_slots else None)
     mode = _col_mode(d, [m, init, gate, out, partials])
     with torch.cuda.device(m.device):
-        _launch("scatter_rows_sorted", _ptr(m), _ptr(plan.pos),
+        _launch("scatter_rows_sorted", plan, _ptr(m), _ptr(plan.pos),
                 _ptr(plan.item_row), _ptr(plan.item_start),
                 _ptr(plan.item_slot), _ptr(plan.split_row),
                 _ptr(plan.split_ptr), _ptr(init), _ptr(scale), _ptr(gate),
@@ -405,7 +407,7 @@ def gathered_scatter_rows_sorted(keys, local_row, block_ptr, x, table=None,
                             device=x.device) if plan.num_slots else None)
     mode = _col_mode(d, [x, table, stray_src, init, gate, out, partials])
     with torch.cuda.device(x.device):
-        _launch("gathered_scatter_rows_sorted", _ptr(plan.keys),
+        _launch("gathered_scatter_rows_sorted", plan, _ptr(plan.keys),
                 _ptr(None if xe is None else plan.xe),
                 _ptr(None if stray_src is None else plan.stray_idx),
                 _ptr(stray_src), _ptr(plan.item_row),
@@ -492,7 +494,7 @@ def masked_scatter_rows_sorted(m, local_row, senders, block_ptr, x,
                             device=m.device) if plan.num_slots else None)
     mode = _col_mode(d, [m, x, table, out, partials])
     with torch.cuda.device(m.device):
-        _launch("masked_scatter_rows_sorted", _ptr(m), _ptr(plan.pos),
+        _launch("masked_scatter_rows_sorted", plan, _ptr(m), _ptr(plan.pos),
                 _ptr(plan.senders), _ptr(None if xe is None else plan.xe),
                 _ptr(plan.item_row), _ptr(plan.item_start),
                 _ptr(plan.item_slot), _ptr(plan.split_row),

@@ -103,16 +103,21 @@ def ema(old, new, decay: float):
 
 
 def ema_codebook_update(state: dict, xh, one_hot, *, decay: float,
-                        eps: float, use_cosine_sim: bool, mask=None):
+                        eps: float, use_cosine_sim: bool, mask=None,
+                        reduce=None):
     """EMA cluster statistics and the normalized codebook (vq.py:661-682):
     ``cluster_size`` and ``embed_avg`` move toward the batch's bins and
     per-code sums of ``xh`` [h, n, d] (``mask`` [n] drops rows); the new
     codebook is ``embed_avg`` over the Laplace-smoothed sizes (l2-normalized
-    for the cosine codebook).  Returns (new state, new embed)."""
+    for the cosine codebook).  ``reduce`` sums the bins and sums across
+    ranks (JAX's ``axis_name``, the reference's all_reduce, vq.py:666,672).
+    Returns (new state, new embed)."""
     if mask is not None:
         one_hot = one_hot * mask.to(one_hot.dtype)[None, :, None]
     bins = one_hot.sum(1)
     embed_sum = torch.einsum("hnd,hnc->hcd", xh, one_hot)
+    if reduce is not None:
+        bins, embed_sum = reduce(bins), reduce(embed_sum)
     cluster_size = ema(state["cluster_size"], bins, decay)
     embed_avg = ema(state["embed_avg"], embed_sum, decay)
     smoothed = laplace_smoothing(cluster_size, cluster_size.shape[-1], eps) \
@@ -124,11 +129,12 @@ def ema_codebook_update(state: dict, xh, one_hot, *, decay: float,
 
 
 def affine_stats_update(state: dict, xh, embed, *, batch_decay: float,
-                        codebook_decay: float, mask=None):
+                        codebook_decay: float, mask=None, reduce=None):
     """EMA of the per-head mean and variance of the batch ``xh`` [h, n, d]
     (the ``mask`` rows) and of the codebook (vq.py:361-411): the first call
     copies them (``affine_initted`` False), later calls move toward them
-    with their decays.  Returns the new state."""
+    with their decays.  ``reduce`` sums the batch moments across ranks
+    (JAX's ``axis_name``).  Returns the new state."""
     c_mean = embed.mean(1, keepdim=True)
     c_var = ((embed - c_mean) ** 2).mean(1, keepdim=True)
     if mask is not None:
@@ -139,11 +145,16 @@ def affine_stats_update(state: dict, xh, embed, *, batch_decay: float,
         cnt = torch.tensor(float(xh.shape[1]), dtype=xh.dtype,
                            device=xh.device)
         b_sum = xh.sum(1, keepdim=True)
+    if reduce is not None:
+        cnt, b_sum = reduce(cnt), reduce(b_sum)
     b_mean = b_sum / cnt
     sq = (xh - b_mean) ** 2
     if mask is not None:
         sq = sq * mask.to(sq.dtype)[None, :, None]
-    b_var = sq.sum(1, keepdim=True) / cnt
+    v_sum = sq.sum(1, keepdim=True)
+    if reduce is not None:
+        v_sum = reduce(v_sum)
+    b_var = v_sum / cnt
     initted = state["affine_initted"]
 
     def step(name, new, decay):

@@ -39,8 +39,13 @@ codebook kept in ``embed_target``; :func:`adopt_ema_embed` copies it into
 ``embed`` after the optimizer's step, as JAX's steps do.  The Gumbel noise
 and the expiry's sample rows can be handed in (``gumbel=``,
 ``expire_idx=``), else they are drawn from ``generator``.
-``sync_codebook`` (the cross-replica statistics) belongs to the multi-GPU
-path and raises.
+
+Under a node-sharded run (the halo finetune) ``reduce`` sums across ranks,
+with its gradient: the affine batch moments, the EMA bins and sums, and the
+commitment term's numerator and count, which make it a global masked mean
+(JAX's ``axis_name`` and ``commit_psum_axis``, quantize.py:148-300).  As in
+JAX, the config's ``sync_codebook`` is not read: the caller's ``reduce``
+does the syncing.
 """
 
 from __future__ import annotations
@@ -109,7 +114,7 @@ class VectorQuantize(nn.Module):
 
     def forward(self, z, mask=None, freeze_codebook: bool = False,
                 with_quantize: bool = True, ortho_ids=None, generator=None,
-                gumbel=None, expire_idx=None):
+                gumbel=None, expire_idx=None, reduce=None):
         """Quantize z [N, dim]: returns ``quantize`` [N, dim] f32 (None
         unless ``with_quantize``), ``indices`` [N, H], ``codes`` [N, H*d],
         ``distances`` and ``loss`` (in training the weighted commitment
@@ -118,13 +123,10 @@ class VectorQuantize(nn.Module):
         cover.  ``ortho_ids`` are the codes the orthogonal term samples,
         ``gumbel`` [num_codebooks, N', C] the sampling noise and
         ``expire_idx`` [num_codebooks, C] the rows dead codes take (each
-        drawn from ``generator`` when None and needed)."""
+        drawn from ``generator`` when None and needed).  ``reduce`` sums a
+        tensor across ranks (module docstring)."""
         cfg = self.cfg
         learn = self.training and not freeze_codebook
-        if learn and cfg.sync_codebook:
-            raise NotImplementedError(
-                "sync_codebook: the cross-replica codebook statistics belong "
-                "to the multi-GPU path (ROADMAP Queue 1 item 10)")
         dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
               and cfg.use_cosine_sim else torch.float32)
         xp = self.project_in(z) if cfg.requires_projection else z
@@ -146,7 +148,7 @@ class VectorQuantize(nn.Module):
                         self.embed.detach(),
                         batch_decay=cfg.affine_param_batch_decay,
                         codebook_decay=cfg.affine_param_codebook_decay,
-                        mask=hmask))
+                        mask=hmask, reduce=reduce))
             embed = cb.affine_transform_embed(self._state(_AFFINE), embed)
         dist = (cb.cosine_distances(xh, embed.to(dt)) if cfg.use_cosine_sim
                 else cb.euclidean_distances(xh, embed))
@@ -177,7 +179,7 @@ class VectorQuantize(nn.Module):
         if learn and cfg.ema_update:
             with torch.no_grad():
                 self._ema_update(xh, one_hot.detach(), hmask, expire_idx,
-                                 generator)
+                                 generator, reduce)
         loss = torch.zeros((), device=z.device)
         if self.training:
             # the commitment term trains a learnable codebook too
@@ -185,7 +187,8 @@ class VectorQuantize(nn.Module):
                         else quantize_h.detach())
             quantize_h = xh + (quantize_h - xh).detach()   # straight through
             if cfg.commitment_weight > 0:
-                loss = loss + self._commitment(commit_q, xh, mask) \
+                loss = loss + self._commitment(commit_q, xh, mask,
+                                               reduce) \
                     * cfg.commitment_weight
             if learn and cfg.orthogonal_reg_weight > 0:
                 if ortho_ids is None:
@@ -211,7 +214,8 @@ class VectorQuantize(nn.Module):
         for k, v in state.items():
             getattr(self, k).copy_(v)
 
-    def _ema_update(self, xh, one_hot, hmask, expire_idx, generator):
+    def _ema_update(self, xh, one_hot, hmask, expire_idx, generator,
+                    reduce=None):
         """The EMA statistics from the batch (in the codebook's own
         distribution under ``affine_param``), dead-code expiry, the new
         codebook into ``embed_target`` (vq.py:485-506, 597-621, 661-682)."""
@@ -221,7 +225,7 @@ class VectorQuantize(nn.Module):
         state, embed = cb.ema_codebook_update(
             self._state(("cluster_size", "embed_avg")), xh_stats.float(),
             one_hot, decay=cfg.decay, eps=cfg.eps,
-            use_cosine_sim=cfg.use_cosine_sim, mask=hmask)
+            use_cosine_sim=cfg.use_cosine_sim, mask=hmask, reduce=reduce)
         state, embed = cb.expire_dead_codes(
             state, embed, xh.float(), threshold=cfg.threshold_ema_dead_code,
             reset_cluster_size=cfg.threshold_ema_dead_code,
@@ -230,17 +234,24 @@ class VectorQuantize(nn.Module):
         self._set_state(state)
         self.embed_target.copy_(embed)
 
-    def _commitment(self, q, xh, mask):
-        """Mean squared (q - xh) over the ``mask`` rows (vq.py:983-1005)."""
+    def _commitment(self, q, xh, mask, reduce=None):
+        """Mean squared (q - xh) over the ``mask`` rows (vq.py:983-1005),
+        over every rank's rows with ``reduce``."""
         se = (q - xh).float() ** 2
-        if mask is None:
+        if mask is None and reduce is None:
             return se.sum() / se.numel()
+        if mask is None:
+            return reduce(se.sum()) / reduce(torch.tensor(
+                float(se.numel()), device=se.device))
         m = mask.to(se.dtype)
         if not self.cfg.separate_codebook_per_head:
             m = m.repeat_interleave(self.cfg.heads)
         m = m[None, :, None]
+        num = (se * m).sum()
         den = m.sum() * se.shape[0] * se.shape[-1]
-        return (se * m).sum() / torch.clamp(den, min=1.0)
+        if reduce is not None:
+            num, den = reduce(num), reduce(den)
+        return num / torch.clamp(den, min=1.0)
 
 
 @torch.no_grad()

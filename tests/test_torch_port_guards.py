@@ -38,7 +38,8 @@ def test_port_and_smoke_import_without_jax_or_the_jax_package():
                     "train.infer", "data.raw_parsers", "data.text_encoder",
                     "nn.distilbert", "nn.bert", "nn.llama", "eval.buckets",
                     "eval.perturb", "eval.runner", "ops.reorder",
-                    "profile_reorder"):
+                    "profile_reorder", "parallel.mesh", "parallel.halo",
+                    "parallel.full_graph"):
             assert "stemgnn_tpu_torch." + mod in names, names
         print(len(names))
     """)
@@ -396,3 +397,41 @@ def test_backbone_modules_import_without_jax_or_the_jax_package():
     """)
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+
+
+def test_halo_finetune_does_not_slide_to_the_cpu():
+    """``--halo_shards`` without a card and without ``--device cpu`` exits
+    non-zero with the port's message before a rank is spawned, and the
+    halo modules run a world of one rank on the CPU without JAX; a CUDA
+    rank is refused where no card is visible."""
+    proc = _run("""
+        import os, tempfile
+        import torch
+        assert not torch.cuda.is_available()
+        from stemgnn_tpu_torch.parallel import mesh
+        tmp = tempfile.mkdtemp()
+        ranks = mesh.init_ranks(0, 1, "cpu", store=os.path.join(tmp, "s"))
+        assert ranks.backend == "gloo" and ranks.device.type == "cpu"
+        x = torch.arange(6.).reshape(3, 2)
+        from stemgnn_tpu_torch.parallel.halo import halo_exchange
+        got = halo_exchange(x, torch.tensor([[2, 0]]), ranks)
+        assert torch.equal(got, x[[2, 0]])
+        ranks.close()
+        try:
+            mesh.check_world(1, "cuda")
+        except RuntimeError as ex:
+            assert "--device cpu" in str(ex)
+        else:
+            raise AssertionError("a CUDA rank without a card")
+        bad = [m for m in sys.modules
+               if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
+               or (m.startswith("jax") and sys.modules[m] is not None)]
+        assert not bad, bad
+        from stemgnn_tpu_torch.finetune import main
+        main(["--finetune_dataset", "cora_synthetic", "--feat_dim", "8",
+              "--halo_shards", "2"])
+    """)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr, proc.stderr
+    assert "--device cpu" in proc.stderr
+    assert "Halo full-graph finetune" not in proc.stdout

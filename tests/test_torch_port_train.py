@@ -10,6 +10,7 @@ on or off).  The train-step test runs the JAX step as the JAX package runs it
 on the CPU: the f32 gather/segment-sum aggregation.
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -343,8 +344,8 @@ def test_finetune_train_step_matches_jax(route):
     pytest.param(["--finetune_dataset", "mol_synthetic", "--text_encoder",
                   "e5"], None, id="flags0---text_encoder e5"),
     (["--donate"], "--donate"),
-    (["--halo_shards", "2"], "--halo_shards"),
-    (["--halo_order", "rcm"], "--halo_order"),
+    pytest.param(["--halo_shards", "2"], None, id="flags2---halo_shards"),
+    pytest.param(["--halo_order", "rcm"], None, id="flags3---halo_order"),
     pytest.param(["--reorder", "rcm"], None, id="flags4---reorder rcm"),
 ])
 def test_finetune_cli_refuses_what_the_slice_does_not_cover(flags, needle):
@@ -352,10 +353,31 @@ def test_finetune_cli_refuses_what_the_slice_does_not_cover(flags, needle):
     accepted as in JAX: the generated molecules ignore the encoder, so the
     bundle equals the hash run's in both registries.  ``--reorder rcm``,
     once refused, is accepted too: the relabel equals JAX's
-    ``reorder_dataset`` on the default dataset."""
+    ``reorder_dataset`` on the default dataset.  ``--halo_shards`` and
+    ``--halo_order``, once refused naming ROADMAP Queue 1 item 10, are
+    accepted (tests/test_torch_port_halo_train.py runs them against JAX):
+    the namespace equals the repo CLI's, and more ranks than the host holds
+    exit with a message before anything is spawned."""
     argv = ["--device", "cpu", "--debug", *flags]
     if needle is None:
         assert port_cli.refusals(port_cli.parse(argv)) == []
+        if flags[0].startswith("--halo"):
+            got = vars(port_cli.parse(argv)).copy()
+            assert got.pop("device") == "cpu"
+            spec = importlib.util.spec_from_file_location(
+                "repo_finetune", os.path.join(ROOT, "finetune.py"))
+            jax_cli = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(jax_cli)
+            assert got == vars(jax_cli.get_args().parse_args(
+                ["--debug", *flags]))
+            if flags[0] == "--halo_shards":
+                from stemgnn_tpu_torch.parallel.mesh import host_rank_limit
+                too_many = str(host_rank_limit() + 1)
+                with pytest.raises(SystemExit, match="this host can hold"):
+                    port_cli.main([*argv[:-1], too_many, "--feat_dim", "8",
+                                   "--hidden_dim", "8", "--code_dim", "8",
+                                   "--epochs", "1", "--repeat", "1"])
+            return
         if flags[0] == "--reorder":
             from stemgnn_tpu.data import registry as jax_registry
             from stemgnn_tpu.train import graph_setup as jax_setup

@@ -153,11 +153,26 @@ def test_frozen_codebook_keeps_its_state_and_eval_samples_nothing():
 
 
 def test_sync_codebook_names_the_multi_gpu_item():
-    vq = VectorQuantize(pcfg.VQConfig(dim=8, codebook_size=4,
-                                      codebook_dim=8, heads=1,
-                                      sync_codebook=True)).train()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        vq(torch.randn(6, 8))
+    """``sync_codebook`` is read by no JAX code, and now by none of the
+    port's either: the multi-GPU path (ROADMAP Queue 1 item 10) syncs
+    through the ``reduce`` its step hands the VQ.  A VQ built with it trains
+    as one without it, and a ``reduce`` that doubles every statistic doubles
+    the EMA sums it sees."""
+    z = torch.randn(6, 8)
+    out = []
+    for sync in (True, False):
+        vq = VectorQuantize(pcfg.VQConfig(
+            dim=8, codebook_size=4, codebook_dim=8, heads=1,
+            sync_codebook=sync, ema_update=True, decay=0.0),
+            generator=torch.Generator().manual_seed(0)).train()
+        out.append((vq(z), vq.cluster_size.clone()))
+    assert torch.equal(out[0][0]["indices"], out[1][0]["indices"])
+    assert torch.equal(out[0][1], out[1][1])
+    vq = VectorQuantize(pcfg.VQConfig(
+        dim=8, codebook_size=4, codebook_dim=8, heads=1, ema_update=True,
+        decay=0.0), generator=torch.Generator().manual_seed(0)).train()
+    vq(z, reduce=lambda t: 2 * t)
+    torch.testing.assert_close(vq.cluster_size, 2 * out[1][1])
 
 
 @pytest.mark.parametrize("gumbel", [False, True])
