@@ -275,10 +275,39 @@ announced before it starts and timed when it ends:
                layers; (e) a reference PyG cache of cora imported and an
                ``.st`` memmap cache written and read back.  For each
                encoder: texts/s, tokens/s, host tokenizing ms and device ms
-               (CUDA events) a batch, the idle share and peak memory.
+               (CUDA events) a batch, the idle share and peak memory;
+ 21. halo_pretrain — multi-GPU pretraining on ``torch.distributed``:
+               (a) ``pretrain.main --halo_shards 2 --halo_hub 2048`` on the
+               arxiv graph at full width (phase pretrain's configuration,
+               dropout 0), 3 epochs of one step, two ranks sharing the card
+               over gloo (started beside phases halo and text), then step 1
+               alone with ``--halo_shards 1`` in this process (NCCL): every
+               rank's pair-hash keeps over global ids on the card against
+               the CPU's (each layout's edges
+               and count blocks), the parameters bit-equal across ranks after
+               each step, kernel 1 three times and kernel 2 twice a step on
+               each rank's local and remote layout (where its forward tail
+               gathers in the kernel; counted on the layouts' row plans), step
+               1's feat, sem and commit losses at S = 2 within 1e-3 relative
+               of S = 1's and the topo losses finite; each rank's partition
+               and layout host seconds, step and exchange ms (CUDA events),
+               idle share and peak GB; kernel 1 on rank 1's dropped remote
+               hub tail (built here beside the S = 2 run) checked against
+               its plain version and timed; (b) a 2 x 2 grid (four ranks on
+               the card) on an eighth of the arxiv graph's nodes at full
+               width, 2 epochs: the same gates but the S = 1 comparison; (c)
+               ``run_pretrain`` with ``mesh`` (``--data_parallel``) on two
+               ranks at phase pretrain_mb's batches, 4 steps (no layout):
+               the parameters bit-equal across ranks, each rank's kernel
+               launches (counted in the rank, zeroed just before its run)
+               0, device ms a step, wall, idle share and peak GB.  (b) and
+               (c) run in a thread beside phases kg, graph and mp (their
+               ranks are processes of their own, so their launches and the
+               smoke's are counted apart); their gates run here.
 
 PyTorch's compiler stack, which every optimizer imports when it is built
-(seconds of host time), is imported beside phase build.  Each dataset is
+(seconds of host time), is imported beside phase build, and so is the
+process that every rank process is forked from (``parallel.mesh``).  Each dataset is
 generated or read once and shared by the phases that load it, and so is
 each full graph (and layout) of such a dataset
 (``shared_datasets``; the entry points change none of their arrays): a
@@ -351,6 +380,10 @@ from stemgnn_tpu_torch.data.synthetic import (community_power_law_graph,
                                               write_smiles_csv)
 from stemgnn_tpu_torch.ops.reorder import community_order, relabel
 from stemgnn_tpu_torch.parallel import halo, mesh
+from stemgnn_tpu_torch.parallel.data_parallel import launch_dp_pretrain
+from stemgnn_tpu_torch.parallel.halo_pretrain import (halo_pretrain_arrays,
+                                                      launch_halo_pretrain)
+from stemgnn_tpu_torch.train.augment import dropout_edge_seed
 from stemgnn_tpu_torch.data.text_encoder import (E5Encoder, LlamaEncoder,
                                                  SentenceEncoder)
 from stemgnn_tpu_torch.nn.bert import BertConfig, BertModel
@@ -3243,6 +3276,15 @@ def locality_run(tmp, dev, paths, prep):
 # from the ranks' sums
 HALO_LOSS_RTOL = 1e-3
 HALO_SHARDS = 2
+# phase halo_pretrain: the epochs (one step each) and hub blocks of the
+# halo pretrain, the 2 x 2 grid's graph (an eighth of arxiv's nodes) and
+# epochs, the data-parallel ranks and steps; step 1's losses at S = 2 held
+# against S = 1's (the topo losses differ by design: positives and
+# negatives sampled per shard)
+HP_EPOCHS, HP_HUB = 3, 2048
+HP_GRID, HP_GRID_NODES, HP_GRID_EPOCHS = (2, 2), 169_343 // 8, 2
+DP_RANKS, DP_STEPS = 2, 4
+HP_SAME = ("feat_recon_loss", "sem_recon_loss", "commit_loss")
 
 
 def halo_rem_layout(ds, shard, dev):
@@ -3250,7 +3292,9 @@ def halo_rem_layout(ds, shard, dev):
     built here as the ranks build theirs (every shard's layouts, for the
     decisions across shards; no kernel launches), and layer 1's halo
     buffer on it: the exchanged feature rows, padded to the layout's node
-    space.  Returns (layout, buffer, edge table, host seconds)."""
+    space.  Returns a list of one (layout, buffer, edge table, host
+    seconds), which its reader empties: the future that returns it then
+    holds no device memory."""
     t0 = time.perf_counter()
     ei = np.asarray(ds.edge_index)
     part, nb, R = halo.build_halo_partition(ei[0], ei[1], ds.num_nodes,
@@ -3265,8 +3309,8 @@ def halo_rem_layout(ds, shard, dev):
     x[:len(rows)][ok] = ds.node_text_feat[np.asarray(ds.x)[rows[ok]]]
     table = torch.as_tensor(ds.edge_text_feat, dtype=torch.float32,
                             device=dev)
-    return (lay_rem, torch.from_numpy(x).to(dev), table,
-            time.perf_counter() - t0)
+    return [(lay_rem, torch.from_numpy(x).to(dev), table,
+             time.perf_counter() - t0)]
 
 
 def halo_rem_call(lay_rem, x, table):
@@ -3379,12 +3423,291 @@ def halo_run(dev, paths, ref, rem):
             paths[f"halo{shards}_rank{rec['rank']}"] = {
                 k: rec["launches"].get(k, 0) for k in (K1, K2, K3)}
     del runs
-    lay_rem, x, table, host_s = rem.result()
+    lay_rem, x, table, host_s = rem.result().pop()
     print(f"  rank 1's remote layout, built here beside phase backbones in "
           f"{host_s:.2f} s of host: {describe_layout(lay_rem)}", flush=True)
     return launch_case("kernel 2 on rank 1's remote layout (layer 1 "
                        "forward)", K2, "halo_rem",
                        halo_rem_call(lay_rem, x, table))
+
+
+# ------------------------------------------------- phase halo_pretrain
+
+def held_line(top: int = 6):
+    """Print the device memory this process holds (after a collection and
+    with the allocator's cache emptied) and its largest CUDA tensors."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    sizes = {}
+    for obj in gc.get_objects():
+        try:
+            if torch.is_tensor(obj) and obj.is_cuda:
+                sizes[obj.data_ptr()] = (obj.untyped_storage().nbytes(),
+                                         tuple(obj.shape), obj.dtype)
+        except Exception:    # noqa: BLE001 - objects that refuse to answer
+            continue
+    big = sorted(sizes.values(), key=lambda v: -v[0])[:top]
+    print(f"  held by this process before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; largest "
+          f"tensors " + ", ".join(f"{b / 1e9:.2f} GB {list(sh)} "
+                                 f"{str(dt)[6:]}" for b, sh, dt in big),
+          flush=True)
+
+
+def hp_rem_layout(ds, shard, dev):
+    """Rank ``shard``'s remote layout of the halo pretrain's 2-rank
+    partition of ``ds`` (hub and scatter-side blocks of ``HP_HUB``; every
+    shard's layouts, for the decisions across shards), layer 1's halo
+    buffer on it, the edge table and a dropout view over the global ids of
+    its rows.  Returns a list of one (layout, buffer, table, view, host
+    seconds), which its reader empties."""
+    t0 = time.perf_counter()
+    node_feat = ds.node_text_feat[np.asarray(ds.x)]
+    sg, nb, R, part = halo_pretrain_arrays(node_feat, ds.edge_index,
+                                           HALO_SHARDS, ds.xe)
+    lay_rem = halo.build_halo_layouts(
+        part, nb, R, HALO_SHARDS, hub_size=HP_HUB, sc_hub_size=HP_HUB,
+        feat_dim_hint=FEAT_DIM, device=dev)[shard][1]
+    rows = (np.arange(HALO_SHARDS)[:, None] * nb
+            + part["send_idx"][:, shard]).reshape(-1)
+    x = np.zeros((lay_rem.num_nodes_padded, FEAT_DIM), np.float32)
+    x[:len(rows)] = sg["node_feat"].reshape(-1, FEAT_DIM)[rows]
+    table = torch.as_tensor(ds.edge_text_feat, dtype=torch.float32,
+                            device=dev)
+    seed = dropout_edge_seed(torch.Generator(device=dev).manual_seed(SEED),
+                             dev)
+    view = DropView(lay_rem, seed, pretrain_config(FEAT_DIM).edge_p,
+                    ids=(torch.from_numpy(sg["gid_rem_src"][shard]).to(dev),
+                         shard * nb))
+    return [(lay_rem, torch.from_numpy(x).to(dev), table, view,
+             time.perf_counter() - t0)]
+
+
+def hp_rem_call(lay_rem, x, table, view):
+    """The kernel-1 launch of ``fused_sage_aggregate`` under the dropout
+    view over the remote layout (layer 1's forward: its hub tail, or the
+    whole layout without a hub block), recorded: (arguments, keywords)."""
+    calls = []
+    real = fused_sage.scatter_rows_sorted
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    fused_sage.scatter_rows_sorted = record
+    try:
+        fused_sage.fused_sage_aggregate(x, lay_rem, table, reduce="sum",
+                                        drop_hash=view)
+    finally:
+        fused_sage.scatter_rows_sorted = real
+    if len(calls) != 1:
+        raise AssertionError(f"the dropped remote layout's forward launched "
+                             f"kernel 1 {len(calls)} times")
+    return calls[0]
+
+
+def hp_check(tag, recs, shards, num_data, epochs):
+    """One halo pretrain run's gates: the grid of ranks, finite losses, the
+    parameters' digests equal across ranks after every step, every
+    layout's keeps on the card equal to the CPU's, and each epoch's kernel
+    launches on each rank's layouts (kernel 1 three times a layout: the
+    student's two dropped forwards and layer 2's backward; the teacher's
+    two clean forwards through kernel 2 where the forward tail gathers in
+    the kernel, else kernel 1; the remote layout only at S > 1); prints
+    each rank's measurements.  Returns each rank's launches over the run."""
+    grid = [(r["data"], r["edge"]) for r in recs]
+    if grid != [(d, e) for d in range(num_data) for e in range(shards)]:
+        raise AssertionError(f"{tag}: ranks at {grid}")
+    digests = [r["digests"] for r in recs]
+    if len(digests[0]) != epochs or any(d != digests[0] for d in digests):
+        raise AssertionError(f"{tag}: parameters differ across ranks "
+                             f"({digests})")
+    totals = []
+    for rec in recs:
+        who = (f"{tag} rank {rec['rank']} (data {rec['data']}, edge "
+               f"{rec['edge']})")
+        hist = rec["history"]
+        for h in hist:
+            if not all(np.isfinite(v) for v in h["losses"].values()):
+                raise AssertionError(f"{who}: losses {h['losses']}")
+        for side, rep in rec["keeps"].items():
+            if rep["differ"] or rep["hub_differ"] or not rep["edges"]:
+                raise AssertionError(f"{who} {side} keeps: {rep}")
+        total = {K1: 0, K2: 0, K3: 0}
+        for side in ("loc", "rem"):
+            g = rec["gwin"][side]["r"]["gwin"]
+            want = ({K1: 3 + (0 if g else 2), K2: 2 if g else 0, K3: 0}
+                    if side == "loc" or shards > 1
+                    else {K1: 0, K2: 0, K3: 0})
+            for e, h in enumerate(hist):
+                got = {k: h["launches"][side].get(k, 0) for k in want}
+                if got != want:
+                    raise AssertionError(f"{who} {side} layout epoch {e}: "
+                                         f"launches {got}, expected {want}")
+                for k in total:
+                    total[k] += got[k]
+        totals.append(total)
+        print(f"  {who}: backend {rec['backend']} on {rec['device']}; nb "
+              f"{rec['nb']}, R {rec['R']}, remote node space {rec['m_rem']},"
+              f" edges local {rec['edges_loc']} / remote {rec['edges_rem']};"
+              f" partition {rec['partition_s']:.2f} s, layouts "
+              f"{rec['layout_s']:.2f} s of host; forward tails "
+              f"{rec['gwin']}; keeps {rec['keeps']}; per epoch: wall "
+              f"{['%.1f' % h['epoch_ms'] for h in hist]} ms, step "
+              f"{['%.1f' % h.get('step_ms', 0) for h in hist]} ms, "
+              f"exchanges {['%.1f' % h.get('exchange_ms', 0) for h in hist]}"
+              f" ms (CUDA events), idle share "
+              f"{['%.4f' % h['idle'] for h in hist]}, peak "
+              f"{['%.2f' % h['peak_gb'] for h in hist]} GB; launches a step "
+              f"{hist[0]['launches']}", flush=True)
+    for e, h in enumerate(recs[0]["history"]):
+        print(f"  {tag} epoch {e + 1}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(h["losses"].items())),
+            flush=True)
+    return totals
+
+
+def hp_base():
+    """The pretrain CLI's flags of phase halo_pretrain's runs."""
+    return ["--pretrain_dataset", DATASET, "--feat_dim", str(FEAT_DIM),
+            "--seed", str(SEED), "--epochs", str(HP_EPOCHS), "--save_every",
+            str(HP_EPOCHS), "--dropout", "0", "--halo_hub", str(HP_HUB)]
+
+
+def hp_timed(fn):
+    """``fn()``, its wall and the host clock at its start: (result, wall
+    s, clock)."""
+    clock0, t0 = time.time(), time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0, clock0
+
+
+def hp_report(tag, timed, paths, shards, num_data, epochs, where=""):
+    """One halo pretrain run (``timed``, from :func:`hp_timed`): its wall,
+    each rank's start-up marks and its gates (:func:`hp_check`); each
+    rank's launches go into ``paths``.  Returns the records."""
+    recs, wall, clock0 = timed
+    spans = [" / ".join("%.2f" % (t - clock0) for t in
+                        [*r.get("start_marks", {}).values(), *r["span"]])
+             for r in recs]
+    print(f"  {tag}{where}: wall {wall:.2f} s; each rank (imported, joined "
+          f"its group, imported the compiler stack and read the call where "
+          f"it was prestarted) entered its run, began its first epoch and "
+          f"ended at {spans} s from the call", flush=True)
+    key = tag.replace(" ", "_").replace("=", "")
+    for rank, launches in enumerate(hp_check(tag, recs, shards, num_data,
+                                             epochs)):
+        paths[f"{key}_rank{rank}"] = launches
+    return recs
+
+
+def hp_beside(ds):
+    """Phase halo_pretrain's (b) and (c), run in a thread beside phases
+    kg, graph and mp: their ranks are processes of their own, whose
+    launches are counted there.  (b) the 2 x 2 grid on
+    an eighth of the arxiv graph's nodes, (c) data-parallel
+    ``run_pretrain`` at phase pretrain_mb's batches.  Returns each run's
+    :func:`hp_timed` and the grid graph's size; phase halo_pretrain
+    checks and prints them."""
+    nd, shards = HP_GRID
+    small = merge_datasets([registry.load_dataset(
+        DATASET, feat_dim=FEAT_DIM, seed=SEED, num_nodes=HP_GRID_NODES)])
+    cfg = pretrain_cli.make_config(pretrain_cli.parse(
+        [*hp_base(), "--epochs", str(HP_GRID_EPOCHS)]))
+    out = {"grid_edges": int(small["edge_index"].shape[1])}
+    out["grid"] = hp_timed(lambda: launch_halo_pretrain(
+        small, cfg, shards, "cuda", world=nd * shards, weights=[1.0],
+        hub_size=HP_HUB, record=True, verbose=False))
+    del small
+    cfg = dataclasses.replace(pretrain_config(FEAT_DIM), batch_size=MB_BATCH,
+                              fanout=MB_FANOUT)
+    out["dp"] = hp_timed(lambda: launch_dp_pretrain(
+        merge_datasets([ds]), cfg, "cuda", world=DP_RANKS, weights=[1.0],
+        max_steps=DP_STEPS, verbose=False))
+    return out
+
+
+def halo_pretrain_run(dev, paths, rem, beside):
+    """Phase halo_pretrain (module docstring): (a) the pretrain CLI at
+    S = 2 (prestarted ranks) and S = 1, their gates and step 1's losses,
+    and kernel 1 on rank 1's dropped remote hub tail (``rem``: the future
+    of :func:`hp_rem_layout`); (b) the 2 x 2 grid and (c) data-parallel
+    ``run_pretrain`` (``beside``: the future of :func:`hp_beside`).
+    Returns kernel 1's (max_abs_err, times) on that case."""
+    runs = {}
+    # the S = 1 reference runs step 1 alone: the one step compared
+    for shards, epochs in ((HALO_SHARDS, HP_EPOCHS), (1, 1)):
+        argv = [*hp_base(), "--epochs", str(epochs), "--save_every",
+                str(epochs), "--halo_shards", str(shards),
+                "--pretrain_run_id", f"chip_smoke_hp{shards}_{os.getpid()}"]
+        print(f"  python -m stemgnn_tpu_torch.pretrain {' '.join(argv)}",
+              flush=True)
+        torch.cuda.empty_cache()
+        out = {}
+
+        def cli():
+            out["recs"], out["root"] = pretrain_cli.main(argv, record=True)
+            return out["recs"]
+        try:
+            runs[shards] = hp_report(f"halo_pretrain S={shards}",
+                                     hp_timed(cli), paths, shards, 1, epochs)
+        finally:
+            if "root" in out:
+                remove_run_dir(out["root"])
+    step1 = {s: r[0]["history"][0]["losses"] for s, r in runs.items()}
+    for k in HP_SAME:
+        a, b = step1[HALO_SHARDS][k], step1[1][k]
+        if abs(a - b) > HALO_LOSS_RTOL * abs(b):
+            raise AssertionError(f"step 1's {k} at S={HALO_SHARDS} {a} vs "
+                                 f"S=1 {b}")
+    print(f"  step 1 at S={HALO_SHARDS} against S=1: " + ", ".join(
+        f"{k} {step1[HALO_SHARDS][k]:.6f} / {step1[1][k]:.6f}"
+        for k in sorted(step1[1])), flush=True)
+    del runs
+    lay_rem, x, table, view, host_s = rem.result().pop()
+    print(f"  rank 1's remote layout, built here beside the S = "
+          f"{HALO_SHARDS} run in {host_s:.2f} s of host: "
+          f"{describe_layout(lay_rem)}", flush=True)
+    case = launch_case("kernel 1 on rank 1's dropped remote tail (layer 1 "
+                       "forward)", K1, "halo_pretrain_rem",
+                       hp_rem_call(lay_rem, x, table, view))
+    del lay_rem, x, view
+    torch.cuda.empty_cache()
+
+    # (b) the 2 x 2 grid and (c) data-parallel, run beside phases kg,
+    # graph and mp
+    side = beside.result()
+    nd, shards = HP_GRID
+    where = " (run beside phases kg, graph and mp)"
+    print(f"  the {nd} x {shards} grid: {HP_GRID_NODES} nodes, "
+          f"{side['grid_edges']} edges, {HP_GRID_EPOCHS} epochs", flush=True)
+    hp_report("halo_pretrain grid", side["grid"], paths, shards, nd,
+              HP_GRID_EPOCHS, where)
+    recs, wall, _ = side["dp"]
+    if len({r["digest"] for r in recs}) != 1:
+        raise AssertionError("data-parallel parameters differ across ranks")
+    for rec in recs:
+        h = rec["history"][0]
+        mb_check_losses(f"data-parallel rank {rec['rank']}", rec["history"],
+                        DP_STEPS)
+        print(f"  data-parallel rank {rec['rank']}{where}: backend "
+              f"{rec['backend']} on {rec['device']}; device "
+              f"{h['device_ms']:.3f} ms a step (CUDA events), wall "
+              f"{h['epoch_s'] * 1e3 / DP_STEPS:.3f} ms a step, idle share "
+              f"{h['idle']:.4f}, sampler {h['host/sample_ms']:.3f} ms a "
+              f"step, peak {rec['peak_gb']:.2f} GB", flush=True)
+        # no layout on this path (module docstring of
+        # parallel.data_parallel): the rank's counts, zeroed just before
+        # its run, stay 0
+        expect_counts(f"data-parallel rank {rec['rank']}", rec["launches"],
+                      {})
+        paths[f"data_parallel_rank{rec['rank']}"] = {
+            k: rec["launches"].get(k, 0) for k in (K1, K2, K3)}
+    print(f"  data-parallel: {DP_RANKS} ranks x {DP_STEPS} steps in "
+          f"{wall:.2f} s with set-up; parameters bit-equal across ranks",
+          flush=True)
+    return case
 
 
 # ------------------------------------------------------------ phase vq
@@ -3720,6 +4043,8 @@ def main():
     # the compiler stack that the first optimizer (phase train's) imports
     warm = shared.enter_context(concurrent.futures.ThreadPoolExecutor(1))
     compiler = warm.submit(importlib.import_module, "torch._dynamo")
+    # the process every rank is forked from imports the same beside it
+    mesh.warm_up()
     with phase("build"):
         arxiv = prefetch.submit(load_dataset, DATASET, feat_dim=FEAT_DIM,
                                 seed=SEED)
@@ -3760,6 +4085,9 @@ def main():
                 sc.scatter_rows_sorted_ref(**args, **kw), torch.float32)
 
     with phase("kernel2"):
+        # phase slice's gwin=off graph, built beside this phase and kernel3
+        off_graph = prefetch.submit(fused_full_graph, ds, cfg, device=dev,
+                                    gwin="off")
         kernel2_small_cases(dev)
         for direction, (args, kw, plan) in k2_cases.items():
             p = plan["plan"]
@@ -3802,7 +4130,8 @@ def main():
 
         encoder, quantizer, z = res["encoder"], res["quantizer"], res["z"]
         g = res["graph"]
-        graph_off = fused_full_graph(ds, cfg, device=dev, gwin="off")
+        graph_off = off_graph.result()
+        del off_graph           # its result, freed in phase train
         print(f"  gwin=off {describe_layout(graph_off.layout)}", flush=True)
 
         def encode(gr, plain=False):
@@ -3906,7 +4235,10 @@ def main():
         print(f"  training step {step_ms:.3f} ms (gwin=off route "
               f"{step_off_ms:.3f} ms), evaluation {eval_ms:.3f} ms, by CUDA "
               f"events", flush=True)
-        del res, model, gt, graph_off
+        # the steps' closures and the optimizer hold the model and its
+        # graph: nothing of this phase stays on the card
+        del res, model, gt, graph_off, loss_fn, train_step, eval_step, opt
+        del g_kernel, g_off, mask, y, gen
         torch.cuda.empty_cache()
 
     with phase("pretrain"):
@@ -3930,11 +4262,15 @@ def main():
     with phase("typed"):
         k3_path = typed_run(tmp, dev, paths)
 
+    # phase halo_pretrain's grid and data-parallel runs, beside phases kg,
+    # graph and mp
+    beside = shared.enter_context(concurrent.futures.ThreadPoolExecutor(1))
     with phase("ood"):
         ood_ds.result()
         k2_ood = ood_run(tmp, dev, paths)
 
     with phase("kg"):
+        hp_side = beside.submit(hp_beside, ds)
         k2_kg = kg_run(tmp, dev, paths)
         kg_encode_run(tmp, dev, paths)
 
@@ -3966,6 +4302,7 @@ def main():
             split_prep = pool.submit(locality_prepare, dev)
             backbones_run(tmp, graph, dev, paths)
             loc_prep = split_prep.result()
+        del split_prep          # its result: the split layouts
 
     with phase("locality"):
         loc_stray, loc_k1, loc_k2 = locality_run(tmp, dev, paths, loc_prep)
@@ -3973,6 +4310,8 @@ def main():
 
     with phase("halo"):
         torch.cuda.empty_cache()
+        # phase halo_pretrain's 2 ranks start beside this phase and text
+        mesh.prestart(HALO_SHARDS, "cuda")
         k2_halo = halo_run(dev, paths, halo_ref, halo_rem)
     tmp_dir.cleanup()
     del graph
@@ -3981,6 +4320,12 @@ def main():
 
     with phase("text"):
         text_run(dev, paths, card)
+
+    with phase("halo_pretrain"):
+        held_line()
+        # rank 1's remote layout, built beside the S = 2 run
+        hp_rem = prefetch.submit(hp_rem_layout, ds, 1, dev)
+        k1_hp = halo_pretrain_run(dev, paths, hp_rem, hp_side)
     shared.close()
     line = []
     for k in kernels:
@@ -4000,7 +4345,8 @@ def main():
             "bwd_plain_ms": bwd["plain_ms"], "bwd_bound_ms": bwd["bound_ms"],
             "bwd_library_ms": bwd["library_ms"]}
         if name == K1:
-            entry.update(case_fields({"locsplit_stray": loc_k1}))
+            entry.update(case_fields({"locsplit_stray": loc_k1,
+                                      "halo_pretrain_rem": k1_hp}))
             for direction in ("drop_fwd", "drop_bwd"):
                 entry.update({f"{direction}_max_abs_err":
                               errs[(name, direction)]})

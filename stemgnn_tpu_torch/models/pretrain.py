@@ -138,7 +138,7 @@ def _l2n(t):
 def pretrain_forward(model: PretrainModel, teacher: Encoder,
                      cfg: PretrainConfig, aug_g, orig_g, *, bs: int,
                      draws: dict, drop_seed=None, generator=None,
-                     plain: bool = False):
+                     plain: bool = False, reduce=None):
     """The training-mode pretrain forward (JAX ``pretrain_forward``,
     pt_model.py:116-142): ``(total_loss, losses, vq result)``.
 
@@ -153,6 +153,10 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
     of the teacher (``teacher_gumbel``), one [N, K] tensor a layer;
     ``generator`` feeds the encoders' dropout and any Gumbel noise not
     handed in.  ``plain`` runs the aggregation kernels' plain versions.
+    ``reduce`` (a differentiable sum across ranks: the data-parallel step)
+    sums BatchNorm's moments, the student's and the teacher's, and the
+    VQ's statistics across ranks; the losses stay this rank's (JAX's
+    ``axis_name``).
     The third value is the aux: the VQ's result (``vq``) and the student's
     MoE router statistics (``moe_stats``)."""
     model.train()
@@ -167,11 +171,11 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
         node_mask=aug_g.node_mask, layout=aug_g.layout,
         edge_table=aug_g.edge_table, plain=plain, generator=generator,
         drop_hash=(drop_seed, cfg.edge_p) if use_hash else None,
-        gumbel=draws.get("gumbel"), return_aux=True)
+        gumbel=draws.get("gumbel"), return_aux=True, reduce=reduce)
     vq_res = model.vq(z, mask=aug_g.node_mask,
                       ortho_ids=draws.get("ortho_ids"), generator=generator,
                       gumbel=draws.get("vq_gumbel"),
-                      expire_idx=draws.get("vq_expire"))
+                      expire_idx=draws.get("vq_expire"), reduce=reduce)
     query = vq_res["quantize"]
     seed_mask = orig_g.node_mask[:bs].float()
     # loss_bf16: the decoders read a bf16 copy of the query
@@ -215,7 +219,8 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
                      generator=generator,
                      compute_dtype=("bfloat16" if cfg.teacher_bf16
                                     else None),
-                     gumbel=draws.get("teacher_gumbel")).float()
+                     gumbel=draws.get("teacher_gumbel"),
+                     reduce=reduce).float()
     hproj = model.sem_projector(query_l).float()
     cos = 1.0 - (_l2n(tz[:bs]) * _l2n(hproj[:bs])).sum(-1)
     sem = (cos * seed_mask).sum() / torch.clamp(seed_mask.sum(), min=1.0)

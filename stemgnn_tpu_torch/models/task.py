@@ -119,7 +119,7 @@ def task_logits(model: TaskModel, cfg: FinetuneConfig, z, mask=None,
         separate = cfg.separate_decoder_for_each_head
         res = model.vq(z, mask=mask, freeze_codebook=cfg.freeze_vq,
                        with_quantize=not separate, generator=generator,
-                       reduce=reduce)
+                       reduce=reduce, commit_reduce=reduce)
         if separate:
             pred = model.decoder(res["codes"]).reshape(n, h, cfg.num_classes)
         else:

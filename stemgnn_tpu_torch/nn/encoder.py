@@ -92,7 +92,8 @@ class Encoder(nn.Module):
     def forward(self, x, senders, receivers, edge_feat=None, edge_mask=None,
                 node_mask=None, layout=None, edge_table=None,
                 plain: bool = False, generator=None, drop_hash=None,
-                compute_dtype=None, gumbel=None, return_aux: bool = False):
+                compute_dtype=None, gumbel=None, return_aux: bool = False,
+                reduce=None):
         """Forward pass (encoder.py:283-323): ``z``, or ``(z, aux)`` with
         ``return_aux``.  ``plain`` makes the fused path run its kernels'
         plain versions (see ops.fused_sage).  ``drop_hash=(seed, p)`` drops
@@ -104,7 +105,9 @@ class Encoder(nn.Module):
         parameters (the EMA teacher under ``teacher_bf16``, the graph
         task's evaluation under ``eval_bf16``).  ``gumbel`` hands the MoE
         layers their training noise, one [N, K] tensor a layer (drawn from
-        ``generator`` when None)."""
+        ``generator`` when None).  ``reduce`` sums BatchNorm's batch
+        moments across ranks (the data-parallel step; JAX's
+        ``axis_name``)."""
         cfg = self.cfg
         bf16 = (compute_dtype or cfg.compute_dtype) == "bfloat16"
         if bf16 and cfg.backbone != "sage":
@@ -145,7 +148,7 @@ class Encoder(nn.Module):
             else:
                 z = layer(z, senders, receivers, edge_mask=edge_mask)
             if cfg.normalize != "none":
-                z = self.norms[i](z, mask=node_mask)
+                z = self.norms[i](z, mask=node_mask, reduce=reduce)
             if i < cfg.num_layers - 1:
                 z = dropout(self._act(z), cfg.dropout, training=self.training,
                             generator=generator)

@@ -46,7 +46,11 @@ class BatchNorm(nn.Module):
     (padding excluded) and updates the buffers in place with torch's
     momentum convention: ``running <- (1 - m) * running + m * batch``, the
     unbiased variance in the running buffer, ``count`` + 1.  Eval uses the
-    running statistics."""
+    running statistics.  ``reduce`` (a sum across ranks whose backward sums
+    again) makes the batch moments global: the raw sums ``mean * n`` and
+    ``(var + mean^2) * n`` of every rank's rows combine (JAX
+    ``batchnorm_apply(axis_name=...)``, nn/layers.py:56-87); a rank without
+    valid rows adds nothing."""
 
     momentum = 0.1               # torch BatchNorm1d's default
 
@@ -59,20 +63,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(dim))
         self.register_buffer("count", torch.zeros((), dtype=torch.int32))
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, reduce=None):
         xf = x.float()               # statistics and normalization in f32
         if not self.training:
             y = (xf - self.mean) * torch.rsqrt(self.var + self.eps)
             return (y * self.scale + self.bias).to(x.dtype)
         if mask is None:
-            n = torch.tensor(float(x.shape[0]), device=x.device)
+            n = n_raw = torch.tensor(float(x.shape[0]), device=x.device)
             mean = xf.mean(0)
             var = ((xf - mean) ** 2).mean(0)
         else:
             m = mask.to(xf.dtype)[:, None]
-            n = torch.clamp(m.sum(), min=1.0)
+            n_raw = m.sum()
+            n = torch.clamp(n_raw, min=1.0)
             mean = (xf * m).sum(0) / n
             var = (((xf - mean) ** 2) * m).sum(0) / n
+        if reduce is not None:
+            # the count and both raw sums in one collective
+            d = mean.shape[0]
+            sums = reduce(torch.cat([n_raw.detach().reshape(1), mean * n_raw,
+                                     (var + mean ** 2) * n_raw]))
+            n = torch.clamp(sums[0], min=1.0)
+            mean = sums[1:d + 1] / n
+            var = torch.clamp(sums[d + 1:] / n - mean ** 2, min=0.0)
         with torch.no_grad():
             unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
             mo = self.momentum

@@ -68,10 +68,21 @@ JAX ``_make``'s drop helpers, fused_sage.py:72-134, 299-301, 354-404,
     hub) pairs zeroed (:func:`masked_hub_blocks`), the tail messages
     gathered, multiplied by their keep and summed by ``scatter_rows_sorted``
     (kernel 1) over the tail's row plan, even where the tail's gather gate
-    is open, as JAX does; 1/deg is the kept in-degree (:func:`drop_inv_deg`);
+    is open, as JAX does; 1/deg is the kept in-degree (:func:`drop_kept_deg`);
   * without hubs (or with f32 messages): the whole direction's messages
     times their keep through kernel 1;
   * the backward is the same decomposition by sender.
+
+A :class:`DropView` made with ``ids=(src_ids, dst_ids)`` hashes global
+node ids instead of the layout's rows (the halo pretrain's per-rank
+layouts: JAX ``ids``): each is None (the rows themselves), an offset (a
+rank's contiguous block) or a table of the layout's rows (the halo slots),
+so every rank, and a single device, keep the same pairs.  JAX bakes the keeps into a copy of the layout on that
+path (``drop_mask_layout``, :692-784: masked count blocks, tail masks and
+kept degrees, the in-kernel gather turned off); the port's
+:class:`DropView` carries the same keeps and degrees without a copy, and
+its tails go through kernel 1 with their keep whatever their gather gate
+says, so no masked tail skips its keep.
 
 JAX evaluates the keep on the whole dense (node, hub) grid in every call.
 A zero count stays zero whatever its keep, so the port hashes only the
@@ -81,9 +92,13 @@ blocks' nonzero pairs, which the layout records (``HubDense.cnt_nz``/
 the kept degrees once, at first use, and the encoder's layers and their
 backward share it (the seed and the layout do not change inside a step).
 
-``relu=False`` and ``edge_keep`` (the runtime-mask route) are not ported
-and raise; ``drop_mask_layout`` (the halo path's hoisted form) belongs to
-the multi-GPU halo pretrain and is not ported.
+**Runtime edge mask** (``edge_keep``, a 0/1 keep per edge in the layout's
+original edge order; JAX ``keep``, fused_sage.py:151-193, 786-854): the
+halo pretrain's route for typed tables.  It takes no hub block, no split
+and no in-kernel gather: the messages times their keep through kernel 1,
+the mean over the kept in-degree; the backward's edge gradients carry the
+keep too (kernel 3 on the typed bf16 route).  ``relu=False`` is not
+ported and raises.
 """
 
 from __future__ import annotations
@@ -177,15 +192,36 @@ def hub_partials(src, hub: HubDense, t0, relu: bool = True, blocks=None,
     return _mm(cnt, f(src.index_select(0, hub.hub_ids))).to(out_dtype)
 
 
-def direction_keep(lay: EdgeLayout, seed, p: float, order: str):
+def global_ids(dom, idx):
+    """A layout's row indices ``idx`` as the pair hash's node ids: ``dom``
+    None (the rows themselves), an offset (an int or a 0-dim tensor: a
+    rank's contiguous block) or a table over the rows (clipped, as JAX's
+    ``mode="clip"`` take)."""
+    if dom is None:
+        return idx
+    if isinstance(dom, int) or dom.dim() == 0:
+        return idx.long() + dom
+    return dom.index_select(0, idx.long().clamp(max=dom.shape[0] - 1))
+
+
+def _doms(ids, order: str):
+    """(scatter-side, gather-side) id maps of a direction (JAX
+    ``_id_doms``): the forward scatters by receiver and gathers senders."""
+    src, dst = (None, None) if ids is None else ids
+    return (dst, src) if order == "r" else (src, dst)
+
+
+def direction_keep(lay: EdgeLayout, seed, p: float, order: str, ids=None):
     """[E_pad] bool pair-hash keep of one direction's edges in layout order
-    (JAX ``_keep_edges_dir`` with identity ids: sentinel endpoints clipped to
-    the last row; padded slots are masked wherever the keep is used)."""
+    (JAX ``_keep_edges_dir``: sentinel endpoints clipped to the last row;
+    padded slots are masked wherever the keep is used), over the node ids
+    ``ids=(src_ids, dst_ids)`` maps the rows to (:func:`global_ids`)."""
     _, _, gather, _, _, _ = _direction(lay, order)
     scatter = lay.receivers_r if order == "r" else lay.senders_s
     last = lay.num_nodes_padded - 1
-    return pair_hash_keep(seed, gather.clamp(max=last),
-                          scatter.clamp(max=last), p)
+    row_dom, col_dom = _doms(ids, order)
+    return pair_hash_keep(seed, global_ids(col_dom, gather.clamp(max=last)),
+                          global_ids(row_dom, scatter.clamp(max=last)), p)
 
 
 def _masked_block(blk, nz, seed, p, rows_id, cols_id):
@@ -199,23 +235,30 @@ def _masked_block(blk, nz, seed, p, rows_id, cols_id):
     return blk.clone().index_put_((r, c), kept), kept.float()
 
 
-def masked_hub_blocks(hub: HubDense, seed, p: float):
+def masked_hub_blocks(hub: HubDense, seed, p: float, ids=None,
+                      order: str = "r"):
     """``(cnt, sc_cnt, deg)``: the count blocks with the dropped (node, hub)
     pairs zeroed (JAX ``_masked_hub_mats``: the gather-side block's rows are
     nodes and its columns ``hub_ids``, the scatter-side block's rows are
     ``sc_ids`` and its columns nodes), and the kept count each output row
     gets from them (``cnt`` summed over hubs, ``sc_cnt`` over nodes added at
     ``sc_ids``; f32, exact integers).  Only the recorded nonzero pairs are
-    hashed; every other entry is zero and stays so."""
-    cnt, kept = _masked_block(hub.cnt, hub.cnt_nz, seed, p, lambda r: r,
-                              lambda c: hub.hub_ids[c])
+    hashed; every other entry is zero and stays so.  ``ids`` maps the rows
+    to node ids as in :func:`direction_keep` for the direction ``order``
+    whose block ``hub`` is."""
+    row_dom, col_dom = _doms(ids, order)
+    cnt, kept = _masked_block(
+        hub.cnt, hub.cnt_nz, seed, p, lambda r: global_ids(row_dom, r),
+        lambda c: global_ids(col_dom, hub.hub_ids[c]))
     n_pad = hub.cnt.shape[0]
     deg = torch.zeros(n_pad, dtype=torch.float32, device=cnt.device)
     deg.index_add_(0, hub.cnt_nz[0], kept)
     sc_cnt = hub.sc_cnt
     if sc_cnt is not None:
-        sc_cnt, kept = _masked_block(sc_cnt, hub.sc_nz, seed, p,
-                                     lambda r: hub.sc_ids[r], lambda c: c)
+        sc_cnt, kept = _masked_block(
+            sc_cnt, hub.sc_nz, seed, p,
+            lambda r: global_ids(row_dom, hub.sc_ids[r]),
+            lambda c: global_ids(col_dom, c))
         deg.index_add_(0, hub.sc_ids[hub.sc_nz[0]], kept)
     return cnt, sc_cnt, deg
 
@@ -236,14 +279,13 @@ def masked_hub_blocks_dense(hub: HubDense, seed, p: float):
     return cnt, sc_cnt
 
 
-class DropView:
-    """The pair-hash dropout ``(seed, p)`` of one step over one layout: each
-    direction's masked hub blocks, each (sub)layout direction's edge keeps
-    and the kept in-degrees, computed at first use and then shared by every
-    aggregation over the layout in the step and by their backward."""
+class _StepMasks:
+    """What a step's edge masks over one layout compute once and share: a
+    memo of named results (each computed inside a profiler range of its
+    kind), and 1 / the kept in-degree from the subclass's ``kept_deg``."""
 
-    def __init__(self, layout: EdgeLayout, seed, p: float):
-        self.layout, self.seed, self.p = layout, seed, float(p)
+    def __init__(self, layout: EdgeLayout):
+        self.layout = layout
         self._memo = {}
 
     def _get(self, key, fn):
@@ -255,40 +297,94 @@ class DropView:
                 self._memo[key] = fn()
         return self._memo[key]
 
-    def hub(self, hub: HubDense):
-        """(cnt, sc_cnt, kept hub degrees) of ``hub``, masked."""
+    def inv_deg(self):
+        """[N_pad, 1] f32 1 / kept in-degree (JAX ``_drop_inv_deg`` /
+        ``_dyn_inv_deg``)."""
+        return (1.0 / torch.clamp(self.kept_deg(), min=1.0))[:, None]
+
+
+class DropView(_StepMasks):
+    """The pair-hash dropout ``(seed, p)`` of one step over one layout: each
+    direction's masked hub blocks, each (sub)layout direction's edge keeps
+    and the kept in-degrees, computed at first use and then shared by every
+    aggregation over the layout in the step and by their backward.  ``ids``
+    (``(src_ids, dst_ids)``, see :func:`global_ids`) hashes global node
+    ids."""
+
+    def __init__(self, layout: EdgeLayout, seed, p: float, ids=None):
+        super().__init__(layout)
+        self.seed, self.p, self.ids = seed, float(p), ids
+
+    def hub(self, hub: HubDense, order: str = "r"):
+        """(cnt, sc_cnt, kept hub degrees) of ``hub``, the block of
+        direction ``order``, masked."""
         return self._get(("hub", id(hub)),
-                         lambda: masked_hub_blocks(hub, self.seed, self.p))
+                         lambda: masked_hub_blocks(hub, self.seed, self.p,
+                                                   self.ids, order))
 
     def keep(self, lay: EdgeLayout, order: str):
         """[E_pad] bool keep of ``lay``'s edges in ``order``."""
         return self._get(("keep", id(lay), order),
                          lambda: direction_keep(lay, self.seed, self.p,
-                                                order))
+                                                order, self.ids))
 
-    def inv_deg(self):
-        """[N_pad, 1] f32 1 / kept in-degree (JAX ``_drop_inv_deg``)."""
-        return self._get("inv_deg", lambda: drop_inv_deg(self))
+    def kept_deg(self):
+        """[N_pad] f32 kept in-degree (:func:`drop_kept_deg`)."""
+        return self._get("kept_deg", lambda: drop_kept_deg(self))
 
 
-def drop_inv_deg(view: DropView):
-    """1 / (kept in-edges per receiver) under the dropout, assembled from
-    the decomposition the forward runs: the masked hub blocks plus the kept
-    tail edges, or the kept edges of the whole direction without a hub
-    block.  Not ``in_degree``: dropped edges do not count."""
+def drop_kept_deg(view: DropView):
+    """The kept in-edges per receiver under the dropout, assembled from the
+    decomposition the forward runs: the masked hub blocks plus the kept tail
+    edges, or the kept edges of the whole direction without a hub block.
+    Not ``in_degree``: dropped edges do not count."""
     lay = view.layout
     n_pad = lay.num_nodes_padded
     hub = lay.hub_r
     if hub is not None and hub.hub_xe is None:
-        deg = view.hub(hub)[2].clone()
+        deg = view.hub(hub, "r")[2].clone()
         sub = hub.tail
     else:
         deg = torch.zeros(n_pad, dtype=torch.float32,
                           device=lay.in_degree.device)
         sub = lay
     kept = (sub.mask_r & view.keep(sub, "r")).float()
-    deg.index_add_(0, sub.receivers_r.clamp(max=n_pad - 1).long(), kept)
-    return (1.0 / torch.clamp(deg, min=1.0))[:, None]
+    return deg.index_add_(0, sub.receivers_r.clamp(max=n_pad - 1).long(),
+                          kept)
+
+
+class EdgeKeep(_StepMasks):
+    """A runtime 0/1 keep per edge of ``layout``, in its original edge
+    order (JAX ``edge_keep``): each direction's keeps through the layout's
+    ``perm_*2o`` and the kept in-degree, computed at first use and shared
+    as :class:`DropView`'s are."""
+
+    def __init__(self, layout: EdgeLayout, edge_keep):
+        if edge_keep.dim() != 1 or edge_keep.shape[0] == 0:
+            raise ValueError(f"edge_keep must be a [E] keep per edge, got "
+                             f"{tuple(edge_keep.shape)}")
+        super().__init__(layout)
+        self.edge_keep = edge_keep.bool()
+
+    def keep(self, lay: EdgeLayout, order: str):
+        """[E_pad] bool keep of the layout's edges in ``order`` (padded
+        slots read the last edge's; they are masked wherever it is used)."""
+        if lay is not self.layout:
+            raise ValueError("an edge_keep covers its own layout only")
+        perm = lay.perm_r2o if order == "r" else lay.perm_s2o
+        return self._get(("keep", order), lambda: self.edge_keep.index_select(
+            0, perm.long().clamp(max=self.edge_keep.shape[0] - 1)))
+
+    def kept_deg(self):
+        """[N_pad] f32 kept in-edges per receiver (JAX ``_dyn_inv_deg``)."""
+        def deg():
+            lay = self.layout
+            n_pad = lay.num_nodes_padded
+            kept = (lay.mask_r & self.keep(lay, "r")).float()
+            return torch.zeros(n_pad, dtype=torch.float32,
+                               device=kept.device).index_add_(
+                0, lay.receivers_r.clamp(max=n_pad - 1).long(), kept)
+        return self._get("kept_deg", deg)
 
 
 def _tail(src, lay: EdgeLayout, order: str, num_nodes_padded: int, *,
@@ -356,7 +452,7 @@ def _hub_split(src, hub: HubDense, order: str, layout: EdgeLayout, *,
     their keep."""
     blocks = keep = None
     if drop is not None:
-        blocks = drop.hub(hub)[:2]
+        blocks = drop.hub(hub, order)[:2]
         keep = drop.keep(hub.tail, order)
     init = hub_partials(src, hub, t0, relu, blocks, out_dtype)
     sp = _direction_split(hub.tail, order)
@@ -383,13 +479,14 @@ def typed_messages(src, tb, lay: EdgeLayout, order: str):
 
 
 def _typed_tail(src, tb, lay: EdgeLayout, num_nodes_padded: int, *,
-                init=None, scale=None, out_dtype, plain: bool):
+                init=None, scale=None, out_dtype, plain: bool, keep=None):
     """Receiver-order relu'd typed sums of ``lay``: kernel 2's ``xe`` mode
-    when the gather gate is open and the messages are bf16, else the
-    messages through kernel 1."""
+    when the gather gate is open, the messages are bf16 and no per-edge
+    ``keep`` applies, else the messages (times ``keep``) through kernel
+    1."""
     kw = dict(num_nodes_padded=num_nodes_padded, relu=True, init=init,
               scale=scale, out_dtype=out_dtype)
-    if lay.use_gwin_r and src.dtype == torch.bfloat16:
+    if lay.use_gwin_r and src.dtype == torch.bfloat16 and keep is None:
         gathered = _row_walk(gathered_scatter_rows_sorted,
                              gathered_scatter_rows_sorted_ref, plain,
                              lay.plan_r)
@@ -397,18 +494,21 @@ def _typed_tail(src, tb, lay: EdgeLayout, num_nodes_padded: int, *,
                         src, tb, lay.xe_r[None, :], **kw)
     scatter = _row_walk(scatter_rows_sorted, scatter_rows_sorted_ref, plain,
                         lay.plan_r)
-    return scatter(typed_messages(src, tb, lay, "r"), lay.lrow_r,
-                   lay.block_ptr_r, **kw)
+    m = typed_messages(src, tb, lay, "r")
+    if keep is not None:
+        m = m * keep.to(m.dtype)[:, None]
+    return scatter(m, lay.lrow_r, lay.block_ptr_r, **kw)
 
 
-def _typed_forward(x, layout, table, reduce, mdtype, plain):
-    """The non-factored forward (JAX ``fwd_impl``, :449-537)."""
+def _typed_forward(x, layout, table, reduce, mdtype, plain, keep=None):
+    """The non-factored forward (JAX ``fwd_impl``, :449-537); ``keep`` an
+    :class:`EdgeKeep` (no hub block, the kept in-degree)."""
     out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     n_pad = layout.num_nodes_padded
     src, tb = x.to(mdtype), table.to(mdtype)
     hub = layout.hub_r
     if hub is not None and hub.hub_xe is not None \
-            and mdtype == torch.bfloat16:
+            and mdtype == torch.bfloat16 and keep is None:
         xh = torch.relu(src.index_select(0, hub.hub_ids)
                         + tb.index_select(0, hub.hub_xe))
         # bf16 partials under a bf16 output, as JAX's hub_bf16_acc
@@ -418,23 +518,26 @@ def _typed_forward(x, layout, table, reduce, mdtype, plain):
                            else None, out_dtype=out_dtype, plain=plain)
     # no epilogue: the f32 sums, then the mean, then the cast
     sums = _typed_tail(src, tb, layout, n_pad, out_dtype=torch.float32,
-                       plain=plain)
+                       plain=plain,
+                       keep=None if keep is None else keep.keep(layout, "r"))
     if reduce == "mean":
-        sums = sums * inv_deg(layout)
+        sums = sums * _mean_scale(layout, reduce, keep)
     return sums.to(out_dtype)
 
 
-def _typed_backward(g, x, lay, table, reduce, mdtype, plain):
+def _typed_backward(g, x, lay, table, reduce, mdtype, plain, keep=None):
     """dx of the non-factored aggregation (JAX ``f_bwd``, :625-667): the
-    per-edge gradient ``g / deg`` in sender order, gated by the recomputed
-    relu mask."""
+    per-edge gradient ``g / deg`` in sender order (times ``keep``'s), gated
+    by the recomputed relu mask."""
     if reduce == "mean":
-        g = g.float() * inv_deg(lay)
+        g = g.float() * _mean_scale(lay, reduce, keep)
     src, tb = x.to(mdtype), table.to(mdtype)
     zero = torch.zeros((), dtype=mdtype, device=g.device)
     dm = g.to(mdtype).index_select(
         0, lay.receivers_s.clamp(max=g.shape[0] - 1).long())
     dm = torch.where(lay.mask_s[:, None], dm, zero)
+    if keep is not None:
+        dm = dm * keep.keep(lay, "s").to(mdtype)[:, None]
     kw = dict(num_nodes_padded=lay.num_nodes_padded)
     if mdtype == torch.bfloat16:
         masked = _row_walk(masked_scatter_rows_sorted,
@@ -461,7 +564,11 @@ def _mean_scale(layout, reduce, drop):
 def _factored_direction(src, layout, order, mdtype, drop, merged, **kw):
     """One direction of the factored aggregation: the hub split, the
     local/stray split or the whole direction's tail (JAX ``fwd_impl`` /
-    ``f_bwd``'s order of routes)."""
+    ``f_bwd``'s order of routes); an :class:`EdgeKeep` takes the whole
+    direction's tail with its keep."""
+    if isinstance(drop, EdgeKeep):
+        return _tail(src, layout, order, layout.num_nodes_padded,
+                     keep=drop.keep(layout, order), **kw)
     hub = layout.hub_r if order == "r" else layout.hub_s
     if hub is not None and mdtype == torch.bfloat16:
         return _hub_split(src, hub, order, layout, drop=drop, merged=merged,
@@ -478,7 +585,8 @@ def _factored_direction(src, layout, order, mdtype, drop, merged, **kw):
 def _forward(x, layout, edge_table, reduce, mdtype, plain, drop=None,
              merged=False):
     if _typed(edge_table):
-        return _typed_forward(x, layout, edge_table, reduce, mdtype, plain)
+        return _typed_forward(x, layout, edge_table, reduce, mdtype, plain,
+                              drop)
     out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     return _factored_direction(
         x.to(mdtype), layout, "r", mdtype, drop, merged, relu=True,
@@ -494,7 +602,7 @@ def _backward(g, x, layout, edge_table, reduce, mdtype, plain, drop=None,
     the relu gate ``x (+ t0) > 0`` in the kernels' epilogue."""
     if _typed(edge_table):
         return _typed_backward(g, x, layout, edge_table, reduce, mdtype,
-                               plain)
+                               plain, drop)
     gp = g.float()
     if reduce == "mean":
         gp = gp * _mean_scale(layout, reduce, drop)
@@ -545,11 +653,14 @@ def fused_sage_aggregate(x, layout: EdgeLayout, edge_table=None, *,
     ``x``.  ``edge_table`` is None, a single-row [1, D] type table, or a
     [T, D] table whose rows the layout's ``xe`` ids pick per edge.
     ``plain`` runs the kernels' plain versions on the same device (to check
-    the kernels against).  ``drop_hash`` is ``(seed, p)`` or a
-    :class:`DropView` of this layout: the pair-hash edge dropout (module
-    docstring); factored aggregations only.  ``loc_merged`` runs a local/
-    stray split that carries the merged metadata in one launch (JAX's
-    ``loc_merged``, off by default as there)."""
+    the kernels against).  ``drop_hash`` is ``(seed, p)``, the pair-hash
+    edge dropout (module docstring; factored aggregations only), or a
+    step's masks of this layout made once for several calls: a
+    :class:`DropView` of the pair hash or an :class:`EdgeKeep`.
+    ``edge_keep`` is a [E] keep per edge in the layout's original order:
+    the runtime mask route.  ``loc_merged`` runs a local/stray split that
+    carries the merged metadata in one launch (JAX's ``loc_merged``, off by
+    default as there)."""
     if x.shape[0] != layout.num_nodes_padded:
         raise ValueError(f"x has {x.shape[0]} rows, the layout "
                          f"{layout.num_nodes_padded}")
@@ -561,21 +672,22 @@ def fused_sage_aggregate(x, layout: EdgeLayout, edge_table=None, *,
         raise ValueError("a typed table needs a layout built with xe_ids")
     if not relu:
         raise NotImplementedError("relu=False messages are not ported")
-    if edge_keep is not None:
-        raise NotImplementedError("the runtime edge mask route (edge_keep) "
-                                  "is not ported; use drop_hash")
     if reduce not in ("mean", "sum"):
         raise ValueError(f"unsupported reduce: {reduce}")
+    if edge_keep is not None and drop_hash is not None:
+        raise ValueError("edge_keep and drop_hash are exclusive")
     drop = drop_hash
+    if edge_keep is not None:
+        drop = EdgeKeep(layout, edge_keep)
+    elif drop is not None and not isinstance(drop, _StepMasks):
+        drop = DropView(layout, *drop)
     if drop is not None:
-        if _typed(edge_table):
+        if drop.layout is not layout:
+            raise ValueError("the edge masks were made for another layout")
+        if isinstance(drop, DropView) and _typed(edge_table):
             # JAX refuses it too (an assert): typed messages do not factor
             raise NotImplementedError("drop_hash needs the factored (relu, "
                                       "T <= 1) aggregation")
-        if not isinstance(drop, DropView):
-            drop = DropView(layout, *drop)
-        elif drop.layout is not layout:
-            raise ValueError("the DropView was made for another layout")
     mdtype = torch.bfloat16 if bf16_messages else torch.float32
     return _FusedSage.apply(x, edge_table, layout, reduce, mdtype, plain,
                             drop, loc_merged)

@@ -52,9 +52,10 @@ from stemgnn_tpu_torch.core.config import FinetuneConfig
 from stemgnn_tpu_torch.models.task import (decoder_jacobian_penalty,
                                            task_logits, task_model_init)
 from stemgnn_tpu_torch.parallel.halo import (all_reduce_sum,
+                                             broadcast_module,
                                              build_halo_layouts,
                                              build_halo_partition,
-                                             halo_encoder_apply,
+                                             halo_encoder_apply, mean_across,
                                              part_to_device,
                                              relabel_dataset_balanced,
                                              remote_nodes, shard_of)
@@ -172,7 +173,7 @@ def layout_launches(lay) -> dict:
     return out
 
 
-class _Timer:
+class SpanTimer:
     """CUDA-event spans of named regions on one device (nothing on the
     CPU), read at :meth:`take`."""
 
@@ -213,17 +214,6 @@ def _encode(model, hg: HaloGraph, ranks, generator=None):
         edge_table=hg.edge_table, generator=generator)
 
 
-def _mean_across(tensors, ranks):
-    """Replace each tensor by its mean over the ranks (one all_reduce)."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    ranks.all_reduce(flat)
-    flat /= ranks.world
-    off = 0
-    for t in tensors:
-        t.copy_(flat[off:off + t.numel()].view_as(t))
-        off += t.numel()
-
-
 def make_halo_steps(cfg: FinetuneConfig, hg: HaloGraph, ranks, y):
     """``(train_step, eval_probs, metrics_step)`` over this rank's block
     (JAX ``make_halo_steps``, :186-332).  ``y`` [nb] this block's labels."""
@@ -254,10 +244,9 @@ def make_halo_steps(cfg: FinetuneConfig, hg: HaloGraph, ranks, y):
                 p.grad = torch.zeros_like(p)
         if ranks.world > 1:
             # the ranks' gradients sum to S times the single-device one
-            _mean_across([p.grad for p in params], ranks)
-            bufs = [b for b in model.buffers() if b.is_floating_point()]
-            if bufs:
-                _mean_across(bufs, ranks)
+            mean_across([p.grad for p in params], ranks)
+            mean_across([b for b in model.buffers()
+                         if b.is_floating_point()], ranks)
         opt.step()
         if cfg.use_vq and not cfg.freeze_vq and cfg.vq.ema_update:
             adopt_ema_embed(model.vq)
@@ -309,14 +298,7 @@ def _kmeans_init(model, cfg, hg, ranks, idx):
     if ranks.rank == 0:
         gen = torch.Generator(device=z.device).manual_seed(idx)
         vq_kmeans_init(model.vq, z, mask=mask > 0, generator=gen)
-    for t in list(model.vq.parameters()) + list(model.vq.buffers()):
-        with torch.no_grad():
-            if t.dtype == torch.bool:
-                flag = t.to(torch.float32)
-                ranks.broadcast(flag)
-                t.copy_(flag > 0)
-            else:
-                ranks.broadcast(t.data)
+    broadcast_module(model.vq, ranks)
 
 
 def run_finetune_halo_parallel(ds, cfg: FinetuneConfig, ranks,
@@ -370,7 +352,7 @@ def run_finetune_halo_parallel(ds, cfg: FinetuneConfig, ranks,
         return out
 
     y = torch.from_numpy(block(ds.labels).astype(np.int64)).to(device)
-    timer = _Timer(device)
+    timer = SpanTimer(device)
     timed = dataclasses.replace(ranks, timer=timer, owns_group=False)
     train_step, _, metrics_step = make_halo_steps(cfg, hg, timed, y)
     d_in = hg.x.shape[1]
@@ -492,26 +474,8 @@ def launch_halo_finetune(ds, cfg: FinetuneConfig, num_ranks: int,
                          f"of {env['world']}")
     mesh.check_world(num_ranks if env is None else env["local_world"],
                      device_type)
-    count = torch.cuda.device_count() if device_type == "cuda" else 0
-    local_world = num_ranks if env is None else env["local_world"]
-    backend = mesh.backend_for(device_type, local_world, count)
-    devices = [("cpu" if device_type == "cpu" else f"cuda:{r % count}")
-               for r in range(local_world)]
-    shared = (" (ranks share a card)" if backend == "gloo"
-              and device_type == "cuda" else "")
     if env is None or env["rank"] == 0:
-        print(f"Halo full-graph finetune: backend {backend}{shared}, world "
-              f"{num_ranks}, devices "
-              + ", ".join(f"rank {r} {d}" for r, d in enumerate(devices)),
-              flush=True)
-    if env is None:
-        return mesh.spawn(_halo_rank, num_ranks, device_type, ds, cfg,
-                          pretrained, kw)
-    ranks = mesh.init_ranks(env["rank"], env["world"], device_type,
-                            local_rank=env["local_rank"],
-                            local_world=env["local_world"])
-    try:
-        return [run_finetune_halo_parallel(ds, cfg, ranks,
-                                           pretrained=pretrained, **kw)]
-    finally:
-        ranks.close()
+        print(f"Halo full-graph finetune: "
+              f"{mesh.describe_world(num_ranks, device_type)}", flush=True)
+    return mesh.launch(_halo_rank, num_ranks, device_type, ds, cfg,
+                       pretrained, kw)

@@ -30,9 +30,15 @@ every rank back-propagates the same replicated loss, so a parameter's
 gradients summed over the ranks are ``S`` times the single-device gradient
 and the step averages them (JAX's ``pmean``, full_graph.py:244-250).
 
-The halo pretrain's runtime edge masks (``keep_loc`` / ``keep_rem``) and
-its pair-hash dropout over global ids (``drop_hash`` / ``gids``,
-``build_halo_drop_gids``) are not ported (ROADMAP Queue 1 item 10).
+The halo pretrain's edge dropout (JAX halo.py:389-503, 658-800): the
+pair-hash dropout over global node ids (``drop_hash`` with ``gids``, the
+tables :func:`build_halo_drop_gids` builds; on the fused route a
+:class:`~stemgnn_tpu_torch.ops.fused_sage.DropView` a layout, shared by the
+layers), or runtime keeps per partition edge (``keep_loc`` / ``keep_rem``:
+the fused route's ``edge_keep``, folded into the partition masks on the
+plain route).  Either way the mean divides by the kept in-degree.  The
+pretrain's statistics run over a larger set of ranks than the exchange
+(its data x edge grid): ``stat_ranks``.
 """
 
 from __future__ import annotations
@@ -45,12 +51,9 @@ import torch
 from stemgnn_tpu_torch.nn.layers import dropout
 from stemgnn_tpu_torch.ops import segment
 from stemgnn_tpu_torch.ops.edge_layout import build_edge_layout
-from stemgnn_tpu_torch.ops.fused_sage import fused_sage_aggregate
+from stemgnn_tpu_torch.ops.fused_sage import (DropView, EdgeKeep,
+                                              fused_sage_aggregate)
 from stemgnn_tpu_torch.ops.spmm import gather_segment_sum
-
-_PRETRAIN_ONLY = ("keep_loc / keep_rem and drop_hash / gids belong to the "
-                  "halo pretrain, which is not ported (ROADMAP Queue 1 item "
-                  "10)")
 
 
 def _round_up(v: int, m: int) -> int:
@@ -218,7 +221,8 @@ def _stats(lays_family, masks):
     """One row a shard of what :func:`build_halo_layouts`' cross-shard
     decisions read: for each hub side its presence, coverage times valid
     edges and the gather gates of its tail; then the valid edges and the
-    layout's gather gates."""
+    layout's gather gates; then each hub side's scatter-side block rows
+    (0 without one)."""
     rows = []
     for lay, m in zip(lays_family, masks):
         e = float(np.asarray(m).sum())
@@ -230,6 +234,10 @@ def _stats(lays_family, masks):
             row += ([float(h.tail.use_gwin_r), float(h.tail.use_gwin_s)]
                     if h is not None else [0.0, 0.0])
         row += [e, float(lay.use_gwin_r), float(lay.use_gwin_s)]
+        for side in _HUBS:
+            h = getattr(lay, side)
+            row.append(0.0 if h is None or h.sc_cnt is None
+                       else float(h.sc_cnt.shape[0]))
         rows.append(row)
     return np.asarray(rows, np.float64)
 
@@ -249,12 +257,15 @@ def _gathered(rows_mine, shard_ids, num_shards, ranks):
 def build_halo_layouts(part, nb: int, R: int, num_shards: int, *,
                        ranks=None, node_block: int = 128,
                        edge_chunk: int = 512, hub_size: int = 0,
-                       hub_min_coverage: float = 0.1,
+                       hub_min_coverage: float = 0.1, sc_hub_size: int = 0,
                        feat_dim_hint: int = 768, num_edge_types: int = 1,
                        device="cpu"):
     """Every shard's ``(lay_loc, lay_rem)`` (JAX ``build_halo_layouts``,
-    halo.py:228-386, as the finetune calls it: no scatter-side hub block),
-    or with ``ranks`` this rank's shard's alone, as a list.
+    halo.py:228-386), or with ``ranks`` this rank's shard's alone, as a
+    list.  ``sc_hub_size`` (the halo pretrain's, single-type tables only)
+    adds the hubs' scatter-side blocks; where the shards of a family do not
+    all build the same block, the family is rebuilt without it, as in JAX
+    (:287-300: the two forms carry different tails).
 
     ``lay_loc`` covers the local-source edges over the owned block
     ``[0, nb)``; ``lay_rem`` the remote-source edges, senders in the halo
@@ -278,17 +289,26 @@ def build_halo_layouts(part, nb: int, R: int, num_shards: int, *,
     shards = [ranks.rank] if ranks is not None else list(range(S))
     m_rem = remote_nodes(nb, R, S, node_block)
 
+    sc_size = sc_hub_size if hub_size and num_edge_types <= 1 else 0
+
     def family(pre, n_pad):
         xes = part.get(f"xe_{pre}")
-        lays = [build_edge_layout(
-            part[f"s_{pre}"][i], part[f"r_{pre}"][i], n_pad,
-            xe_ids=None if xes is None else xes[i],
-            edge_mask=part[f"m_{pre}"][i], node_block=node_block,
-            edge_chunk=edge_chunk, hub_size=hub_size, hub_min_coverage=-1.0,
-            feat_dim_hint=feat_dim_hint, num_edge_types=num_edge_types,
-            device=device) for i in shards]
-        st = _gathered(_stats(lays, [part[f"m_{pre}"][i] for i in shards]),
-                       shards, S, ranks)
+        masks = [part[f"m_{pre}"][i] for i in shards]
+
+        def build(sc):
+            return [build_edge_layout(
+                part[f"s_{pre}"][i], part[f"r_{pre}"][i], n_pad,
+                xe_ids=None if xes is None else xes[i],
+                edge_mask=part[f"m_{pre}"][i], node_block=node_block,
+                edge_chunk=edge_chunk, hub_size=hub_size,
+                hub_min_coverage=-1.0, sc_hub_size=sc,
+                feat_dim_hint=feat_dim_hint, num_edge_types=num_edge_types,
+                device=device) for i in shards]
+        lays = build(sc_size)
+        st = _gathered(_stats(lays, masks), shards, S, ranks)
+        if sc_size and any(len(np.unique(st[:, c])) > 1 for c in (11, 12)):
+            lays = build(0)
+            st = _gathered(_stats(lays, masks), shards, S, ranks)
         keep = {}
         for k, side in enumerate(_HUBS):
             cov = st[:, 4 * k + 1].sum() / max(st[:, 8].sum(), 1.0)
@@ -311,6 +331,28 @@ def build_halo_layouts(part, nb: int, R: int, num_shards: int, *,
     loc = family("loc", nb)
     rem = family("rem", m_rem)
     return list(zip(loc, rem))
+
+
+def build_halo_drop_gids(part, nb: int, R: int, num_shards: int,
+                         m_rem: int):
+    """Global node ids of the layouts' rows, per shard, for the pair-hash
+    dropout (JAX ``build_halo_drop_gids``, halo.py:389-418): ``gid_loc``
+    [S, nb] (shard ``i``'s block, ``i * nb + row``), ``gid_rem_src`` [S,
+    m_rem] (halo slot ``j * R + k`` of shard ``me``: owner ``j``'s
+    ``send_idx[j, me, k]``) and ``gid_rem_dst`` [S, m_rem] (the owned
+    block), both padded with the sentinel ``S * nb``.  int32 numpy."""
+    S = num_shards
+    sentinel = np.int32(S * nb)
+    gid_loc = (np.arange(S, dtype=np.int64)[:, None] * nb
+               + np.arange(nb, dtype=np.int64)[None, :]).astype(np.int32)
+    send_idx = np.asarray(part["send_idx"])
+    gid_rem_src = np.full((S, m_rem), sentinel, np.int32)
+    gid_rem_dst = np.full((S, m_rem), sentinel, np.int32)
+    for me in range(S):
+        for j in range(S):
+            gid_rem_src[me, j * R:(j + 1) * R] = j * nb + send_idx[j, me]
+        gid_rem_dst[me, :nb] = gid_loc[me]
+    return gid_loc, gid_rem_src, gid_rem_dst
 
 
 def part_to_device(shard: dict, device) -> dict:
@@ -432,35 +474,60 @@ def halo_sage_aggregate(x_local, part, ranks, *, reduce: str = "mean",
     return agg / torch.clamp(deg, min=1.0).to(agg.dtype)[:, None]
 
 
+def halo_drop_views(lay_loc, lay_rem, drop_hash=None, gids=None,
+                    keep_loc=None, keep_rem=None):
+    """The dropout of one step over both layouts, as a pair (local, remote)
+    of the masks ``fused_sage_aggregate`` takes: the :class:`DropView` of
+    the pair hash ``drop_hash=(seed, p)`` over the global ids ``gids=((src,
+    dst)_loc, (src, dst)_rem)`` a layout, or the :class:`EdgeKeep` of
+    ``keep_loc`` / ``keep_rem``; None without either."""
+    if (keep_loc is None) != (keep_rem is None):
+        raise ValueError("runtime edge masks must cover both edge shards: "
+                         "pass keep_loc AND keep_rem")
+    if keep_loc is not None:
+        if drop_hash is not None:
+            raise ValueError("drop_hash and keep_* are exclusive")
+        return EdgeKeep(lay_loc, keep_loc), EdgeKeep(lay_rem, keep_rem)
+    if drop_hash is None:
+        return None
+    if gids is None:
+        raise ValueError("drop_hash in halo mode needs gids")
+    seed, p = drop_hash
+    return (DropView(lay_loc, seed, p, ids=gids[0]),
+            DropView(lay_rem, seed, p, ids=gids[1]))
+
+
 def halo_sage_aggregate_fused(x_local, part, lay_loc, lay_rem,
                               edge_table=None, ranks=None, *,
                               reduce: str = "mean", relu: bool = True,
-                              bf16_messages: bool = True, keep_loc=None,
-                              keep_rem=None, drop_hash=None, gids=None):
+                              bf16_messages: bool = True, drop=None):
     """The aggregation on the fused kernels (JAX
     ``halo_sage_aggregate_fused``, halo.py:427-503): two
     ``fused_sage_aggregate(reduce="sum")`` calls, one over ``x_local`` with
     ``lay_loc``, one over the halo buffer padded to ``lay_rem``'s node
-    space, added in f32 and divided by the combined in-degree.  The fused
-    backward of the remote call returns the halo rows' gradient, which the
-    exchange's backward ships home.  A single rank has no remote edge and
-    skips the remote call (JAX runs it over its empty layout)."""
-    if keep_loc is not None or keep_rem is not None or \
-            drop_hash is not None or gids is not None:
-        raise NotImplementedError(_PRETRAIN_ONLY)
+    space, added in f32 and divided by the combined (kept) in-degree.  The
+    fused backward of the remote call returns the halo rows' gradient,
+    which the exchange's backward ships home.  A single rank has no remote
+    edge and skips the remote call (JAX runs it over its empty layout).
+    ``drop`` is the step's dropout, the pair of masks of
+    :func:`halo_drop_views`, or None."""
+    views = (None, None) if drop is None else drop
     nb = x_local.shape[0]
     kw = dict(reduce="sum", relu=relu, bf16_messages=bf16_messages)
-    agg = fused_sage_aggregate(x_local, lay_loc, edge_table, **kw).float()
+
+    def call(x, lay, view):
+        return fused_sage_aggregate(x, lay, edge_table, drop_hash=view, **kw)
+    agg = call(x_local, lay_loc, views[0]).float()
     if ranks is not None and ranks.world > 1:
         halo = halo_exchange(x_local, part["send_idx"], ranks)
         m_rem = lay_rem.num_nodes_padded
         halo_p = torch.cat([halo, halo.new_zeros((m_rem - halo.shape[0],
                                                   halo.shape[1]))])
-        sum_rem = fused_sage_aggregate(halo_p, lay_rem, edge_table, **kw)
-        agg = agg + sum_rem[:nb].float()
+        agg = agg + call(halo_p, lay_rem, views[1])[:nb].float()
     if reduce == "sum":
         return agg
-    deg = lay_loc.in_degree[:nb] + lay_rem.in_degree[:nb]
+    deg = sum((lay.in_degree if v is None else v.kept_deg())[:nb]
+              for lay, v in zip((lay_loc, lay_rem), views))
     return agg / torch.clamp(deg, min=1.0)[:, None]
 
 
@@ -553,41 +620,36 @@ def halo_gat_apply(conv, z_local, part, ranks):
     return out + conv.bias
 
 
-def halo_batchnorm(bn, x, mask, ranks):
-    """BatchNorm with the batch moments summed across ranks (JAX
-    ``batchnorm_apply(axis_name=...)``, nn/layers.py:56-87): the raw sums
-    ``mean * n`` and ``(var + mean^2) * n`` of every rank's ``mask`` rows
-    combine into the global mean and variance, with their gradient (a rank
-    without valid rows adds nothing).  The running buffers move as
-    ``BatchNorm``'s do, equally on every rank.  Evaluation reads them."""
-    xf = x.float()
-    if not bn.training:
-        y = (xf - bn.mean) * torch.rsqrt(bn.var + bn.eps)
-        return (y * bn.scale + bn.bias).to(x.dtype)
-    if mask is None:
-        n_raw = torch.tensor(float(x.shape[0]), device=x.device)
-        mean = xf.mean(0)
-        var = ((xf - mean) ** 2).mean(0)
-    else:
-        m = mask.to(xf.dtype)[:, None]
-        n_raw = m.sum()
-        n = torch.clamp(n_raw, min=1.0)
-        mean = (xf * m).sum(0) / n
-        var = (((xf - mean) ** 2) * m).sum(0) / n
-    cnt = torch.clamp(ranks.all_reduce(n_raw.detach().clone())
-                      if ranks is not None else n_raw, min=1.0)
-    g_mean = all_reduce_sum(mean * n_raw, ranks) / cnt
-    sq_sum = all_reduce_sum((var + mean ** 2) * n_raw, ranks)
-    var = torch.clamp(sq_sum / cnt - g_mean ** 2, min=0.0)
-    mean, n = g_mean, cnt
-    with torch.no_grad():
-        unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-        mo = bn.momentum
-        bn.mean.mul_(1 - mo).add_(mo * mean)
-        bn.var.mul_(1 - mo).add_(mo * unbiased)
-        bn.count.add_(1)
-    y = (xf - mean) * torch.rsqrt(var + bn.eps)
-    return (y * bn.scale + bn.bias).to(x.dtype)
+def rank_sum(ranks):
+    """The differentiable sum across ``ranks`` as a function of a tensor
+    (what BatchNorm's and the VQ's ``reduce`` take)."""
+    return lambda t: all_reduce_sum(t, ranks)
+
+
+def mean_across(tensors, ranks):
+    """Replace each tensor by its mean over the ranks (one all_reduce)."""
+    if not tensors or ranks.world == 1:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    ranks.all_reduce(flat)
+    flat /= ranks.world
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+
+
+@torch.no_grad()
+def broadcast_module(module, ranks, src: int = 0):
+    """Every parameter and buffer of ``module`` from rank ``src``, in place
+    (a bool buffer through a float copy)."""
+    for t in list(module.parameters()) + list(module.buffers()):
+        if t.dtype == torch.bool:
+            flag = t.to(torch.float32)
+            ranks.broadcast(flag, src)
+            t.copy_(flag > 0)
+        else:
+            ranks.broadcast(t.data, src)
 
 
 def _router_stats(layer, w, node_mask, ranks):
@@ -612,8 +674,10 @@ def _router_stats(layer, w, node_mask, ranks):
 
 def halo_encoder_apply(encoder, x_local, part, ranks=None, *,
                        node_mask=None, part_rev=None, lay_loc=None,
-                       lay_rem=None, edge_table=None, generator=None, gumbel=None, keep_loc=None,
-                       keep_rem=None, drop_hash=None, gids=None):
+                       lay_rem=None, edge_table=None, generator=None,
+                       gumbel=None, keep_loc=None, keep_rem=None,
+                       drop_hash=None, gids=None, stat_ranks=None,
+                       compute_dtype=None):
     """The encoder's forward over this rank's node block (JAX
     ``halo_encoder_apply``, halo.py:658-815), training or evaluation by
     the module's mode: a halo exchange of the activations in every layer,
@@ -627,11 +691,16 @@ def halo_encoder_apply(encoder, x_local, part, ranks=None, *,
     layouts), else on the plain route (``ef_*`` of ``part``); gcn, gin and
     gat take their plain halo forms; MoE layers need ``part_rev``, the
     partition of the reversed edges.  bf16 compute (sage only) makes bf16
-    exchanges.  Dropout and the Gumbel draws come from ``generator``, or
-    ``gumbel`` (one [Nb, K] tensor an MoE layer)."""
-    if keep_loc is not None or keep_rem is not None or \
-            drop_hash is not None or gids is not None:
-        raise NotImplementedError(_PRETRAIN_ONLY)
+    exchanges; ``compute_dtype`` overrides the config's (the EMA teacher
+    under ``teacher_bf16``).  Dropout and the Gumbel draws come from
+    ``generator``, or ``gumbel`` (one [Nb, K] tensor an MoE layer).
+
+    The edge dropout of the sage layers (module docstring): ``drop_hash=
+    (seed, p)`` with ``gids`` on the fused route (one :class:`DropView` a
+    layout for every layer), or ``keep_loc`` / ``keep_rem``, on the fused
+    route or folded into the partition's masks on the plain one.
+    ``stat_ranks`` (default ``ranks``) are the ranks BatchNorm's moments
+    and the MoE terms are summed over."""
     cfg = encoder.cfg
     flags = list(encoder.flags)
     if cfg.backbone != "sage":
@@ -639,7 +708,18 @@ def halo_encoder_apply(encoder, x_local, part, ranks=None, *,
     if any(flags) and part_rev is None:
         raise ValueError("MoE layers in halo mode need part_rev (a halo "
                          "partition of the reversed edge list)")
-    bf16 = cfg.compute_dtype == "bfloat16"
+    if drop_hash is not None and lay_loc is None:
+        raise ValueError("drop_hash needs the fused halo layouts; use "
+                         "keep_loc/keep_rem on the plain halo path")
+    drop = None
+    if lay_loc is not None:
+        drop = halo_drop_views(lay_loc, lay_rem, drop_hash, gids, keep_loc,
+                               keep_rem)
+    elif keep_loc is not None:
+        part = dict(part, m_loc=part["m_loc"] & keep_loc.bool(),
+                    m_rem=part["m_rem"] & keep_rem.bool())
+    stat_ranks = ranks if stat_ranks is None else stat_ranks
+    bf16 = (compute_dtype or cfg.compute_dtype) == "bfloat16"
     if bf16 and cfg.backbone != "sage":
         raise ValueError("compute_dtype=bfloat16 supports the sage backbone")
     z = x_local.to(torch.bfloat16 if bf16 else torch.float32)
@@ -651,11 +731,13 @@ def halo_encoder_apply(encoder, x_local, part, ranks=None, *,
                 j, z, None if gumbel is None else gumbel[j], generator)
             if training:
                 log_pi = torch.log_softmax(logits, dim=-1)
-                num = all_reduce_sum((w * log_pi).sum(-1).sum(), ranks)
-                rows = z.shape[0] * (1 if ranks is None else ranks.world)
+                num = all_reduce_sum((w * log_pi).sum(-1).sum(), stat_ranks)
+                rows = z.shape[0] * (1 if stat_ranks is None
+                                     else stat_ranks.world)
                 term = num / rows
                 env_reg = term if env_reg is None else env_reg + term
-            stats.append(_router_stats(i, w.detach(), node_mask, ranks))
+            stats.append(_router_stats(i, w.detach(), node_mask,
+                                       stat_ranks))
             z = halo_moe_sage_aggregate(z, part_rev, layer, w, ranks)
             j += 1
         elif cfg.backbone == "gcn":
@@ -672,13 +754,14 @@ def halo_encoder_apply(encoder, x_local, part, ranks=None, *,
             if lay_loc is not None:
                 agg = halo_sage_aggregate_fused(
                     z, part, lay_loc, lay_rem, edge_table, ranks,
-                    bf16_messages=cfg.fused_bf16_messages or bf16
-                ).to(z.dtype)
+                    bf16_messages=cfg.fused_bf16_messages or bf16,
+                    drop=drop).to(z.dtype)
             else:
                 agg = halo_sage_aggregate(z, part, ranks)
             z = layer.lin_l(agg) + layer.lin_r(z)
         if cfg.normalize != "none":
-            z = halo_batchnorm(encoder.norms[i], z, node_mask, ranks)
+            # the batch moments summed across ranks (JAX's axis_name)
+            z = encoder.norms[i](z, node_mask, reduce=rank_sum(stat_ranks))
         if i < cfg.num_layers - 1:
             z = dropout(encoder._act(z), cfg.dropout, training=training,
                         generator=generator)

@@ -20,14 +20,23 @@ bf16; ``--mixed_precision`` (``--mp``) also the VQ's per-head pipeline, the
 EMA teacher's pass and the loss decoders (JAX pretrain.py:154-173), and the
 resident feature tables are bf16 under either.  ``--moe`` (with
 ``--moe_layers``, ``--moe_experts``, ``--moe_tau`` and ``--lamda_env``)
-and ``--backbone gcn|gin|gat`` train as in JAX.  Flag values outside the
-port (data parallelism, halo sharding, buffer donation) are refused with
-an error naming the ROADMAP item.  The neural text encoders run on
-``--device`` from a local snapshot (``data/text_encoder.py``).
+and ``--backbone gcn|gin|gat`` train as in JAX.  ``--donate`` (a JAX
+mechanism) is refused.  The neural text encoders run on ``--device`` from
+a local snapshot (``data/text_encoder.py``).
+
+``--halo_shards S`` (with ``--halo_hub H``) runs the full-graph halo
+pretrain (``parallel.halo_pretrain``) on a data x edge grid of ranks:
+torchrun's world when its environment is set, else ``num_data * S`` ranks
+spawned here, ``num_data = max(cards // S, 1)`` on CUDA and 1 on the CPU
+(gloo; ranks that share a card use gloo too).  ``--data_parallel`` runs
+``run_pretrain`` on a data axis of ranks (``parallel.data_parallel``):
+torchrun's world, else a rank a card (1 on the CPU).
 
   python -m stemgnn_tpu_torch.pretrain --pretrain_dataset arxiv_synthetic_pl
   python -m stemgnn_tpu_torch.pretrain --pretrain_dataset arxiv_synthetic_pl \\
       --resume --epochs 2
+  python -m stemgnn_tpu_torch.pretrain --pretrain_dataset cora_synthetic \\
+      --halo_shards 2 --device cpu
 """
 
 from __future__ import annotations
@@ -126,10 +135,6 @@ def refusals(args) -> list:
     """What the port does not cover among the given flag values, each with
     its ROADMAP item."""
     checks = (
-        (args.data_parallel, "--data_parallel: data-parallel pretraining "
-                             "is not ported (ROADMAP Queue 1 item 10)"),
-        (args.halo_shards > 0, "--halo_shards: the halo pretrain is not "
-                               "ported (ROADMAP Queue 1 item 10)"),
         (args.donate, "--donate: buffer donation is a JAX mechanism with no "
                       "PyTorch counterpart (ROADMAP, differences kept on "
                       "purpose)"),
@@ -208,10 +213,14 @@ def write_config(save_root: str, cfg: cfglib.PretrainConfig):
                   f, indent=2, default=str)
 
 
-def main(argv=None):
+def main(argv=None, record: bool = False):
     """Run the CLI.  Returns ``run_pretrain``'s ``(model, teacher,
     history)`` and the checkpoint directory, for callers that go on
-    working with them, as ``chip_smoke.py`` does."""
+    working with them, as ``chip_smoke.py`` does; under ``--halo_shards``
+    or ``--data_parallel`` the ranks' records (rank 0's with the model and
+    the teacher) and the checkpoint directory.  ``record`` has the halo
+    ranks record their parameters' digests and keeps
+    (``run_pretrain_halo``)."""
     args = parse(argv)
     bad = refusals(args)
     if bad:
@@ -236,9 +245,24 @@ def main(argv=None):
     save_root = osp.join(ROOT, "ckpts", "pretrain_model", run_id)
     os.makedirs(save_root, exist_ok=True)
     write_config(save_root, cfg)
-    out = run_pretrain(merged, cfg, weights=weights, save_root=save_root,
-                       max_steps=args.max_steps, resume=args.resume,
-                       device=device)
+    if args.halo_shards:
+        from stemgnn_tpu_torch.parallel.halo_pretrain import \
+            launch_halo_pretrain
+        out = (launch_halo_pretrain(merged, cfg, args.halo_shards,
+                                    device.type, weights=weights,
+                                    save_root=save_root,
+                                    hub_size=args.halo_hub, record=record),)
+    elif args.data_parallel:
+        from stemgnn_tpu_torch.parallel.data_parallel import \
+            launch_dp_pretrain
+        out = (launch_dp_pretrain(merged, cfg, device.type, weights=weights,
+                                  save_root=save_root,
+                                  max_steps=args.max_steps,
+                                  resume=args.resume),)
+    else:
+        out = run_pretrain(merged, cfg, weights=weights, save_root=save_root,
+                           max_steps=args.max_steps, resume=args.resume,
+                           device=device)
     print(f"Checkpoints saved under {save_root}", flush=True)
     return out + (save_root,)
 

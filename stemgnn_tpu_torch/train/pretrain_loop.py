@@ -21,7 +21,9 @@ student's dropout tails run ``scatter_rows_sorted`` and the teacher's clean
 pass ``gathered_scatter_rows_sorted``; ``"auto"`` resolves to off, as in
 JAX, and the step gathers and scatters with ``index_select``/``index_add_``.
 The host never waits for the device inside an epoch: batches reach the card
-through pinned buffers with non-blocking copies.
+through pinned buffers with non-blocking copies.  With ``mesh`` (the ranks
+of ``--data_parallel``) each rank takes its own batch of each group of
+``world`` and runs ``parallel.data_parallel``'s step.
 """
 
 from __future__ import annotations
@@ -256,8 +258,13 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
 
     ``model``/``teacher`` replace the initial weights (else drawn from
     ``cfg.seed``); ``draw_fn(graph)`` replaces each step's random draws
-    (the parity tests hand it JAX's).  Data parallelism (``mesh``) is not
-    ported.  Returns ``(model, teacher, history)``: per epoch the mean
+    (the parity tests hand it JAX's).  ``mesh`` (a ``parallel.mesh.Ranks``
+    of the data axis) trains data-parallel (JAX's ``mesh``): batch ``i`` of
+    each group of ``world`` goes to rank ``i``, a partial last group is
+    dropped, a step is ``parallel.data_parallel.make_dp_pretrain_step``'s
+    (its metrics averaged across the ranks), no batch gets a layout, the
+    k-means init runs on rank 0 and is broadcast, and rank 0 alone prints
+    and saves.  Returns ``(model, teacher, history)``: per epoch the mean
     losses, each step's total loss (``step_losses``), the epoch's wall
     seconds (``epoch_s``, ending in the epoch's one readback), the
     throughput rates and the host milliseconds a batch of sampling,
@@ -267,13 +274,14 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
     the steps' summed event time over ``epoch_s``; the batch copies and
     the feature gather between steps count as idle, a wait inside a step
     as busy)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel pretraining is not ported: ROADMAP Queue 1 item "
-            "10 (multi-GPU)")
+    if mesh is not None and not hasattr(mesh, "all_reduce"):
+        raise TypeError(f"mesh must be the ranks of parallel.mesh, got "
+                        f"{type(mesh).__name__}")
+    world, me = (1, 0) if mesh is None else (mesh.world, mesh.rank)
     device = torch.device(device)
     timed = device.type == "cuda"
-    with_layout = batch_layouts_on(cfg)
+    with_layout = batch_layouts_on(cfg) and mesh is None
+    verbose = verbose and me == 0
     etf = merged.get("edge_text_feat")
     if with_layout and etf is not None and np.asarray(etf).shape[0] > 1:
         raise NotImplementedError(
@@ -288,7 +296,8 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
         teacher = make_teacher(model)
     model.to(device)
     teacher.to(device)
-    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    gen = torch.Generator(device=device).manual_seed(
+        cfg.seed if mesh is None else cfg.seed * 65_536 + me)
     csc = CSCGraph.from_edge_index(np.asarray(merged["edge_index"]),
                                    merged["x"].shape[0])
     opt = make_pretrain_optimizer(model, cfg)
@@ -303,10 +312,21 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
                 print(f"[pretrain] resumed from epoch {saved_epoch}",
                       flush=True)
     node_table, edge_table = _tables(merged, device, table_dtype(cfg))
-    maybe_kmeans_seed_vq(model, cfg, merged, weights, node_table, edge_table,
-                         csc=csc, generator=torch.Generator(
-                             device=device).manual_seed(cfg.seed))
-    step = make_pretrain_step(cfg, bs=cfg.batch_size, generator=gen)
+    kmeans = cfg.vq.kmeans_init and not bool(model.vq.initted)
+    if me == 0:
+        maybe_kmeans_seed_vq(model, cfg, merged, weights, node_table,
+                             edge_table, csc=csc, generator=torch.Generator(
+                                 device=device).manual_seed(cfg.seed))
+    if mesh is None:
+        step = make_pretrain_step(cfg, bs=cfg.batch_size, generator=gen)
+    else:
+        from stemgnn_tpu_torch.parallel.data_parallel import \
+            make_dp_pretrain_step
+        from stemgnn_tpu_torch.parallel.halo import broadcast_module
+        if kmeans:
+            broadcast_module(model.vq, mesh)
+        step = make_dp_pretrain_step(cfg, cfg.batch_size, mesh,
+                                     generator=gen)
     ptr = np.asarray(merged["ptr"])
 
     preempt = PreemptionHandler()
@@ -328,11 +348,11 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
             spans = []                  # (start, end) CUDA events a step
             while True:
                 ts = time.perf_counter()
-                item = next(batches, None)
+                group = [next(batches, None) for _ in range(world)]
                 host["sample"] += time.perf_counter() - ts
-                if item is None:
+                if group[-1] is None:
                     break
-                ig = item[0]
+                ig = group[me][0]
                 graph = batch_graph(ig, node_table, edge_table, device,
                                     with_layout, host)
                 if timed:
@@ -348,11 +368,17 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
                     k: sums[k] + v for k, v in losses.items()}
                 totals.append(losses["loss"])
                 steps_epoch += 1
-                meter.update(ig.num_edges_padded, ig.num_nodes_padded)
+                meter.update(sum(g[0].num_edges_padded for g in group),
+                             sum(g[0].num_nodes_padded for g in group))
                 total_steps += 1
                 if (max_steps is not None and total_steps >= max_steps) \
                         or preempt.should_stop:
                     break
+            if steps_epoch == 0 and world > 1 and verbose:
+                print(f"[pretrain] WARNING: epoch produced 0 steps — fewer "
+                      f"than {world} seed batches per epoch (leftover "
+                      f"batches are dropped in data-parallel mode); reduce "
+                      f"batch_size or raise dataset weights", flush=True)
             mean = {}
             if steps_epoch:
                 keys = list(sums)
@@ -377,7 +403,7 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
                 print(f"[pretrain] epoch {epoch}/{cfg.epochs} "
                       f"({mean['epoch_s']:.1f}s, {steps_epoch} steps) "
                       f"{msg}", flush=True)
-            saved = save_root is not None and (
+            saved = save_root is not None and me == 0 and (
                 epoch % max(cfg.save_every, 1) == 0 or epoch == cfg.epochs)
             if saved:
                 save_checkpoint(save_root, epoch, model, teacher, opt, gen)

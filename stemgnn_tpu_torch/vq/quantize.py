@@ -40,10 +40,11 @@ codebook kept in ``embed_target``; :func:`adopt_ema_embed` copies it into
 and the expiry's sample rows can be handed in (``gumbel=``,
 ``expire_idx=``), else they are drawn from ``generator``.
 
-Under a node-sharded run (the halo finetune) ``reduce`` sums across ranks,
-with its gradient: the affine batch moments, the EMA bins and sums, and the
-commitment term's numerator and count, which make it a global masked mean
-(JAX's ``axis_name`` and ``commit_psum_axis``, quantize.py:148-300).  As in
+Across ranks ``reduce`` sums the affine batch moments and the EMA bins and
+sums (JAX's ``axis_name``: the data-parallel step), and ``commit_reduce``
+the commitment term's numerator and count, with its gradient, which makes
+it a global masked mean (JAX's ``commit_psum_axis``: a node-sharded run,
+the halo finetune and pretrain pass both; quantize.py:148-300).  As in
 JAX, the config's ``sync_codebook`` is not read: the caller's ``reduce``
 does the syncing.
 """
@@ -114,7 +115,8 @@ class VectorQuantize(nn.Module):
 
     def forward(self, z, mask=None, freeze_codebook: bool = False,
                 with_quantize: bool = True, ortho_ids=None, generator=None,
-                gumbel=None, expire_idx=None, reduce=None):
+                gumbel=None, expire_idx=None, reduce=None,
+                commit_reduce=None):
         """Quantize z [N, dim]: returns ``quantize`` [N, dim] f32 (None
         unless ``with_quantize``), ``indices`` [N, H], ``codes`` [N, H*d],
         ``distances`` and ``loss`` (in training the weighted commitment
@@ -123,8 +125,8 @@ class VectorQuantize(nn.Module):
         cover.  ``ortho_ids`` are the codes the orthogonal term samples,
         ``gumbel`` [num_codebooks, N', C] the sampling noise and
         ``expire_idx`` [num_codebooks, C] the rows dead codes take (each
-        drawn from ``generator`` when None and needed).  ``reduce`` sums a
-        tensor across ranks (module docstring)."""
+        drawn from ``generator`` when None and needed).  ``reduce`` and
+        ``commit_reduce`` sum a tensor across ranks (module docstring)."""
         cfg = self.cfg
         learn = self.training and not freeze_codebook
         dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -188,7 +190,7 @@ class VectorQuantize(nn.Module):
             quantize_h = xh + (quantize_h - xh).detach()   # straight through
             if cfg.commitment_weight > 0:
                 loss = loss + self._commitment(commit_q, xh, mask,
-                                               reduce) \
+                                               commit_reduce) \
                     * cfg.commitment_weight
             if learn and cfg.orthogonal_reg_weight > 0:
                 if ortho_ids is None:
@@ -241,16 +243,18 @@ class VectorQuantize(nn.Module):
         if mask is None and reduce is None:
             return se.sum() / se.numel()
         if mask is None:
-            return reduce(se.sum()) / reduce(torch.tensor(
-                float(se.numel()), device=se.device))
-        m = mask.to(se.dtype)
-        if not self.cfg.separate_codebook_per_head:
-            m = m.repeat_interleave(self.cfg.heads)
-        m = m[None, :, None]
-        num = (se * m).sum()
-        den = m.sum() * se.shape[0] * se.shape[-1]
+            num = se.sum()
+            den = torch.tensor(float(se.numel()), device=se.device)
+        else:
+            m = mask.to(se.dtype)
+            if not self.cfg.separate_codebook_per_head:
+                m = m.repeat_interleave(self.cfg.heads)
+            m = m[None, :, None]
+            num = (se * m).sum()
+            den = m.sum() * se.shape[0] * se.shape[-1]
         if reduce is not None:
-            num, den = reduce(num), reduce(den)
+            # both sums in one collective
+            num, den = reduce(torch.stack([num, den])).unbind()
         return num / torch.clamp(den, min=1.0)
 
 

@@ -120,3 +120,117 @@ def train_checks(ranks, inp):
     params, state = task_model_to_jax(model)
     return {"loss": float(parts["loss"]), "params": params, "state": state,
             "accs": metrics_step(model, masks3).numpy()}
+
+
+def _draws(d):
+    """A rank's draws from numpy (JAX's, handed over by the test)."""
+    t = torch.from_numpy
+    return dict(feat_keep=t(d["feat_keep"]), drop_seed=t(d["drop_seed"]),
+                slots=t(d["slots"]).long(),
+                neg=(t(d["neg_u"]).long(), t(d["neg_v"]).long()),
+                ortho_ids=t(d["ortho_ids"]).long())
+
+
+def _grad_tree(model, teacher, grads):
+    """``grads`` (by parameter name) in JAX's parameter tree."""
+    import copy
+    from stemgnn_tpu_torch.utils.convert import pretrain_to_jax
+    gm = copy.deepcopy(model)
+    with torch.no_grad():
+        for k, p in gm.named_parameters():
+            p.copy_(grads[k])
+    return pretrain_to_jax(gm, teacher)[0]
+
+
+def halo_pretrain_step_checks(ranks, inp):
+    """One ``halo_pretrain_step`` on this rank of the grid from JAX's
+    initial trees and with JAX's draws (module docstring of
+    tests/test_torch_port_halo_pretrain.py): the losses, the averaged
+    gradients before the clip, the parameters after the step and their
+    digest."""
+    from stemgnn_tpu_torch.parallel import halo_pretrain as php
+    from stemgnn_tpu_torch.parallel import mesh as pm
+    from stemgnn_tpu_torch.train.pretrain_loop import make_pretrain_optimizer
+    from stemgnn_tpu_torch.utils.convert import (pretrain_from_jax,
+                                                 pretrain_to_jax)
+    cfg, S = inp["cfg"], inp["S"]
+    edge, data, _ = pm.grid(ranks, S)
+    model, teacher = pretrain_from_jax(*inp["init"], cfg)
+    hg = php.prepare_halo_pretrain_graph(
+        inp["x"], inp["ei"], edge, xe_ids=inp["xe"], edge_table=inp["table"],
+        pad_multiple=128, node_block=128, edge_chunk=128,
+        hub_size=inp["hub"])
+    nb = hg.nb
+    seed_w = torch.from_numpy(
+        inp["seed_w"][data][edge.rank * nb:(edge.rank + 1) * nb])
+    opt = make_pretrain_optimizer(model, cfg)
+    grads = {}
+    losses = php.halo_pretrain_step(
+        model, teacher, opt, cfg, hg, seed_w,
+        _draws(inp["draws"][data][edge.rank]), edge, ranks, grads_out=grads)
+    return {"losses": {k: float(v) for k, v in losses.items()},
+            "grads": _grad_tree(model, teacher, grads),
+            "params": pretrain_to_jax(model, teacher),
+            "digest": php.params_digest(model, teacher),
+            "grid": (data, edge.rank)}
+
+
+def halo_pretrain_run(ranks, inp):
+    """``run_pretrain_halo`` on this rank with ``inp``'s keywords; the
+    draws of each epoch handed over where ``inp`` has them."""
+    from stemgnn_tpu_torch.parallel import halo_pretrain as php
+    from stemgnn_tpu_torch.utils.convert import pretrain_from_jax
+    kw = dict(inp["kw"])
+    if "init" in inp:
+        kw["model"], kw["teacher"] = pretrain_from_jax(*inp["init"],
+                                                       inp["cfg"])
+    if "draws" in inp:
+        epochs = iter(inp["draws"])
+        kw["draw_fn"] = lambda hg, d, e: _draws(next(epochs)[d][e])
+    rec = php.run_pretrain_halo(inp["merged"], inp["cfg"], ranks,
+                                inp["S"], **kw)
+    if "model" in rec:
+        from stemgnn_tpu_torch.utils.convert import pretrain_to_jax
+        rec["trees"] = pretrain_to_jax(rec.pop("model"), rec.pop("teacher"))
+    return rec
+
+
+def dp_step_checks(ranks, inp):
+    """One ``make_dp_pretrain_step`` on this rank's batch with SGD at lr 1
+    (so the parameters move by minus the averaged gradient) from the
+    given initial trees and draws: the metrics, the gradients as JAX's
+    tree and the parameters' digest."""
+    from stemgnn_tpu_torch.parallel.data_parallel import make_dp_pretrain_step
+    from stemgnn_tpu_torch.parallel.halo_pretrain import params_digest
+    from stemgnn_tpu_torch.train.pretrain_loop import batch_graph
+    from stemgnn_tpu_torch.utils.convert import pretrain_from_jax
+    cfg = inp["cfg"]
+    model, teacher = pretrain_from_jax(*inp["init"], cfg)
+    graph = batch_graph(inp["batches"][ranks.rank], *inp["tables"], "cpu",
+                        with_layout=False)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    step = make_dp_pretrain_step(cfg, inp["bs"], ranks)
+    metrics = step(model, teacher, torch.optim.SGD(model.parameters(),
+                                                   lr=1.0), graph,
+                   inp["draws"][ranks.rank])
+    grads = {k: before[k] - p.detach() for k, p in model.named_parameters()}
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _grad_tree(model, teacher, grads),
+            "digest": params_digest(model, teacher)}
+
+
+def dp_run(ranks, inp):
+    """``run_pretrain(..., mesh=ranks)`` from the given initial trees with
+    this rank's draws of each step handed over: the history and rank 0's
+    trees after the run."""
+    from stemgnn_tpu_torch.train.pretrain_loop import run_pretrain
+    from stemgnn_tpu_torch.utils.convert import (pretrain_from_jax,
+                                                 pretrain_to_jax)
+    cfg = inp["cfg"]
+    model, teacher = pretrain_from_jax(*inp["init"], cfg)
+    draws = iter(inp["draws"][ranks.rank])
+    model, teacher, hist = run_pretrain(
+        inp["merged"], cfg, weights=[1.0], device="cpu", mesh=ranks,
+        model=model, teacher=teacher, draw_fn=lambda g: next(draws),
+        verbose=False)
+    return {"history": hist, "trees": pretrain_to_jax(model, teacher)}

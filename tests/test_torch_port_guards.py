@@ -8,6 +8,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -39,7 +41,8 @@ def test_port_and_smoke_import_without_jax_or_the_jax_package():
                     "nn.distilbert", "nn.bert", "nn.llama", "eval.buckets",
                     "eval.perturb", "eval.runner", "ops.reorder",
                     "profile_reorder", "parallel.mesh", "parallel.halo",
-                    "parallel.full_graph"):
+                    "parallel.full_graph", "parallel.halo_pretrain",
+                    "parallel.data_parallel", "profile_parallel"):
             assert "stemgnn_tpu_torch." + mod in names, names
         print(len(names))
     """)
@@ -175,6 +178,17 @@ def test_profile_pretrain_without_cuda_exits_nonzero_with_a_clear_message():
     """, "--feat_dim", "8")
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
+
+
+def test_profile_parallel_without_cuda_exits_nonzero_with_a_clear_message():
+    proc = _run("""
+        import torch
+        assert not torch.cuda.is_available()
+        from stemgnn_tpu_torch.profile_parallel import main
+        main(sys.argv[1:])
+    """, "--only", "dp")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
 
 
 def test_minibatch_modules_import_without_jax_or_the_jax_package():
@@ -435,3 +449,21 @@ def test_halo_finetune_does_not_slide_to_the_cpu():
     assert "CUDA is not available" in proc.stderr, proc.stderr
     assert "--device cpu" in proc.stderr
     assert "Halo full-graph finetune" not in proc.stdout
+
+
+@pytest.mark.parametrize("flags", [["--halo_shards", "2"],
+                                   ["--data_parallel"]])
+def test_multi_gpu_pretrain_does_not_slide_to_the_cpu(flags):
+    """``pretrain --halo_shards`` / ``--data_parallel`` without a card and
+    without ``--device cpu`` exit non-zero with the port's message before
+    a rank is spawned or a dataset is loaded."""
+    proc = _run("""
+        import torch
+        assert not torch.cuda.is_available()
+        from stemgnn_tpu_torch.pretrain import main
+        main(sys.argv[1:])
+    """, "--pretrain_dataset", "cora_synthetic", "--feat_dim", "8", *flags)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr, proc.stderr
+    assert "--device cpu" in proc.stderr
+    assert "Pre-training on" not in proc.stdout

@@ -225,6 +225,24 @@ def test_prestarted_ranks_serve_the_spawn(world):
             <= marks["compiler_imported"] <= marks["call_read"]
 
 
+def test_prestarted_worlds_are_taken_oldest_first(monkeypatch):
+    """Each prestart starts one more world of its size; spawns take them
+    oldest first, and a size with none left has no entry."""
+    started = []
+
+    def start(world, device_type):
+        started.append((world, device_type))
+        return f"world{len(started)}", []
+    monkeypatch.setattr(mesh, "_start", start)
+    mesh.prestart(2, "cpu")
+    mesh.prestart(2, "cpu")
+    assert started == [(2, "cpu"), (2, "cpu")]
+    assert mesh._take_ready(2, "cpu") == ("world1", [])
+    assert mesh._take_ready(2, "cpu") == ("world2", [])
+    assert mesh._take_ready(2, "cpu") is None
+    assert (2, "cpu") not in mesh._READY
+
+
 def _cat(w, key):
     return np.concatenate([o[key] for o in w["outs"]])
 
@@ -355,6 +373,19 @@ def test_encoder_in_training_matches_jax(world, name):
 
 
 def test_pretrain_only_inputs_are_refused():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ph.halo_sage_aggregate_fused(torch.zeros(8, D), {}, None, None,
-                                     keep_loc=torch.ones(8))
+    """The halo pretrain's dropout inputs (ported since) are refused where
+    JAX refuses them: one shard's keeps without the other's, the keeps
+    with the pair hash, the hash without the global ids and the hash on
+    the plain route."""
+    x = torch.zeros(8, D)
+    with pytest.raises(ValueError, match="keep_loc AND keep_rem"):
+        ph.halo_drop_views(None, None, keep_loc=torch.ones(8))
+    with pytest.raises(ValueError, match="exclusive"):
+        ph.halo_drop_views(None, None, keep_loc=torch.ones(8),
+                           keep_rem=torch.ones(8), drop_hash=(1, 0.2))
+    with pytest.raises(ValueError, match="needs gids"):
+        ph.halo_drop_views(None, None, drop_hash=(1, 0.2))
+    enc = Encoder(pcfg.EncoderConfig(input_dim=D, hidden_dim=D,
+                                     num_layers=2))
+    with pytest.raises(ValueError, match="fused halo layouts"):
+        ph.halo_encoder_apply(enc, x, {}, drop_hash=(1, 0.2))

@@ -253,8 +253,9 @@ def test_fused_sage_f32_messages_match_jax():
 
 def test_fused_sage_rejects_typed_tables():
     """What the typed aggregation does not take: a typed table on a layout
-    without per-edge type ids, a table of another width, and (not ported
-    yet) relu=False messages and runtime edge masks."""
+    without per-edge type ids, a table of another width, a runtime edge
+    mask that is not one keep per edge, the pair-hash dropout (JAX asserts
+    the factored branch) and (not ported) relu=False messages."""
     rng = np.random.default_rng(10)
     s, r, x = _graph(rng, 100, 300, 128, 8, power_law=False)
     x = torch.from_numpy(x)
@@ -265,8 +266,10 @@ def test_fused_sage_rejects_typed_tables():
                             profile=V5E)
     with pytest.raises(ValueError):
         fused_sage_aggregate(x, lay, torch.randn(3, 4))
-    for kw in (dict(relu=False), dict(edge_keep=torch.ones(300)),
-               dict(drop_hash=(0, 0.1))):
+    with pytest.raises(ValueError):
+        fused_sage_aggregate(x, lay, torch.randn(3, 8),
+                             edge_keep=torch.ones(300, 2))
+    for kw in (dict(relu=False), dict(drop_hash=(0, 0.1))):
         with pytest.raises(NotImplementedError):
             fused_sage_aggregate(x, lay, torch.randn(3, 8), **kw)
 

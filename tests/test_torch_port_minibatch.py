@@ -753,9 +753,13 @@ def test_resume_restores_every_state_bit_for_bit(tmp_path):
 
 
 def test_run_pretrain_refuses_what_is_not_ported():
+    """``mesh`` (data parallelism, ported since) must be the ranks of
+    ``parallel.mesh`` (tests/test_torch_port_data_parallel.py runs it);
+    a typed table on ``fused_minibatch="on"`` and an unknown route are
+    refused."""
     merged = port_merge([_node_ds(port_synthetic)])
     pc = _port_cfg(_jax_cfg())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(TypeError, match="parallel.mesh"):
         port_loop.run_pretrain(merged, pc, weights=[1.0], device="cpu",
                                mesh=object())
     typed = _merged(port_synthetic, port_merge)
@@ -826,15 +830,24 @@ def test_pretrain_cli_runs_on_the_cpu():
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--data_parallel"], "item 10"), (["--halo_shards", "2"], "item 10"),
+    pytest.param(["--data_parallel"], None, id="flags0-item 10"),
+    pytest.param(["--halo_shards", "2"], None, id="flags1-item 10"),
     (["--donate"], "--donate"),
     pytest.param(["--text_encoder", "e5"], None, id="flags3-item 11"),
 ])
 def test_pretrain_cli_refuses_what_the_port_does_not_cover(flags, needle):
     """``--text_encoder e5``, once refused naming ROADMAP Queue 1 item 11,
     is accepted as in JAX: the default mix (``synthetic``) is generated
-    whatever the encoder, in both registries."""
+    whatever the encoder, in both registries.  ``--data_parallel`` and
+    ``--halo_shards``, once refused naming item 10, are accepted (their
+    runs: tests/test_torch_port_data_parallel.py and
+    tests/test_torch_port_halo_pretrain_run.py)."""
     argv = ["--device", "cpu", *flags]
+    if needle is None and flags[0] != "--text_encoder":
+        args = port_cli.parse(argv)
+        assert port_cli.refusals(args) == []
+        assert args.data_parallel or args.halo_shards == 2
+        return
     if needle is None:
         args = port_cli.parse(argv)
         assert port_cli.refusals(args) == [] and args.text_encoder == "e5"

@@ -248,8 +248,10 @@ def test_drop_hash_refuses_typed_tables_and_edge_keep():
     x = torch.randn(128, 8)
     with pytest.raises(NotImplementedError, match="factored"):
         fused_sage_aggregate(x, lay, torch.randn(3, 8), drop_hash=(1, 0.2))
-    with pytest.raises(NotImplementedError, match="edge_keep"):
-        fused_sage_aggregate(x, lay, edge_keep=torch.ones(400, dtype=bool))
+    # the runtime mask route is ported; it does not combine with the hash
+    with pytest.raises(ValueError, match="edge_keep and drop_hash"):
+        fused_sage_aggregate(x, lay, edge_keep=torch.ones(400, dtype=bool),
+                             drop_hash=(1, 0.2))
 
 
 def test_orthogonal_loss_matches_jax():
