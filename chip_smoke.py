@@ -305,6 +305,33 @@ announced before it starts and timed when it ends:
                ranks are processes of their own, so their launches and the
                smoke's are counted apart); their gates run here.
 
+ 22. ofa     — the OFA in-context and few-shot path (``ofa/*``, ``zoo/*``;
+               no kernel, as in JAX) at full width (D = 768, 2 layers,
+               batches of 16 prompted graphs, JAX's buckets), one epoch
+               each from initial weights drawn on the CPU: (a)
+               ``ofa_train_eval`` on ``SubgraphNodeDataset`` over the arxiv
+               graph's valid split (the task constructor's; 2 hops of at
+               most 100 nodes, hierarchical prompt), 128 train and 64
+               eval targets, gine; (b) the prompted KG task
+               (``TaskConstructor.make_link_dataset``) on ``kg_synthetic``
+               at WN18RR's size, 128 / 64 triples, rgcn then rgat (8 heads
+               of 96); (c) ``fewshot_train_eval``, 3-way 2-shot on arxiv's
+               low-resource class split, 32 / 16 episodes in batches of 8;
+               (d) ``task="multi"`` on ``GraphListHierDataset`` over
+               ``mol_synthetic`` (NaN labels excluded), 256 / 128; (e) 4
+               AdamW steps of ``BinGraphHead`` with attention pooling and
+               RWPE (walks of 16) on batches of (a)'s dataset.  For each:
+               samples/s, host ms a batch (sample, prompt, collate, copy),
+               device ms a step and an evaluation batch (CUDA events), the
+               idle share, peak memory, first and last loss and the
+               metric (in [0, 1]); kernel launches gated at 0; a batch of
+               4 prompted graphs (2 episodes) of the same dataset, from
+               the same initial weights: its loss on the card within 1e-4
+               relative of the CPU's and its gradients within 2% of the
+               largest (the CPU's side in a thread beside the card's
+               run).  The datasets and their adjacencies are built beside
+               phase halo_pretrain; every sample is drawn in this phase.
+
 PyTorch's compiler stack, which every optimizer imports when it is built
 (seconds of host time), is imported beside phase build, and so is the
 process that every rank process is forked from (``parallel.mesh``).  Each dataset is
@@ -379,6 +406,14 @@ from stemgnn_tpu_torch.scripts import (degree_shift_ood, homophily_shift_ood,
 from stemgnn_tpu_torch.data.synthetic import (community_power_law_graph,
                                               write_smiles_csv)
 from stemgnn_tpu_torch.ops.reorder import community_order, relabel
+from stemgnn_tpu_torch.core.graph import graph_to_device, round_up
+from stemgnn_tpu_torch.ofa import datasets as ofa_datasets
+from stemgnn_tpu_torch.ofa import fewshot as ofa_fewshot
+from stemgnn_tpu_torch.ofa import heads as ofa_heads
+from stemgnn_tpu_torch.ofa import prompt as ofa_prompt
+from stemgnn_tpu_torch.ofa import tasks as ofa_tasks
+from stemgnn_tpu_torch.ofa import train as ofa_train
+from stemgnn_tpu_torch.train.optim import Optimizer
 from stemgnn_tpu_torch.parallel import halo, mesh
 from stemgnn_tpu_torch.parallel.data_parallel import launch_dp_pretrain
 from stemgnn_tpu_torch.parallel.halo_pretrain import (halo_pretrain_arrays,
@@ -464,6 +499,20 @@ VQ_STEPS, VQ_BATCH, VQ_CHECK_BATCH = 4, 128, 32
 VQ_STATE_RTOL = 1e-4
 # WN18RR's entity and triple counts (the generator keeps its 11 relations)
 WN18RR_ENTITIES, WN18RR_TRIPLES = 40_943, 93_003
+# phase ofa: (train, eval) targets of the node, KG and molecule tasks, the
+# few-shot (n_way, k_shot, train, eval episodes) and its batch, the
+# prompted graphs a batch (JAX's default), the bin-graph head's steps and
+# its random walks' length.  The node task and the few-shot run half the
+# targets and episodes they first ran (256 / 128, 64 / 32): the numpy
+# sampler takes ~9 ms of host a graph, and with them the smoke went 13 s
+# over its 4 minutes (PERF.md, section 4)
+OFA_NODE, OFA_KG, OFA_MOL = (128, 64), (128, 64), (256, 128)
+OFA_FS, OFA_FS_BATCH = (3, 2, 32, 16), 8
+OFA_BATCH, OFA_HEAD_STEPS, OFA_WALK = 16, 4, 16
+# the card-against-CPU gates' batches: prompted graphs, few-shot episodes
+# (the CPU's side of a full batch at D = 768 took its cores from the
+# sampler beside it)
+OFA_GATE, OFA_FS_GATE = 4, 2
 # the graph phase's indexed bundle with PCBA's 128 tasks: 3,000 molecules
 # of MoleculeNet HIV's 41,127 (the reference's chemhiv); the host work of
 # 41,127, then of 20,000, took the whole smoke past its 4 minutes with the
@@ -1554,7 +1603,7 @@ def shared_datasets():
     where it is asked for.  Yields the graphs' cache (clear it to free
     their device memory)."""
     mods = (sys.modules[__name__], finetune_cli, infer_cli, pretrain_cli,
-            scripts_common)
+            scripts_common, ofa_tasks)
     real = registry.load_dataset
     sig = inspect.signature(real)
     loaded = {}
@@ -3710,6 +3759,272 @@ def halo_pretrain_run(dev, paths, rem, beside):
     return case
 
 
+# ------------------------------------------------------------ phase ofa
+
+def ofa_report(tag, st, paths, path):
+    """One OFA part's lines from ``ofa_train_eval``'s stats: samples/s,
+    host ms a batch, device ms a step, idle share, peak GB, first and last
+    loss; its kernel launches read into ``paths[path]`` and gated at 0."""
+    paths[path] = read_counts()
+    expect_counts(tag, paths[path], {})
+    host = st["host_ms"] + st["eval_host_ms"]
+    busy_ms = sum(st["step_ms"]) + sum(st["eval_ms"])
+    losses = st["losses"]
+    print(f"  {tag}: {st['samples'] / st['wall_s']:.1f} samples/s "
+          f"({st['samples']} in {st['wall_s']:.2f} s); host "
+          f"{np.mean(host):.2f} ms a batch of {len(host)} (sample, prompt, "
+          f"collate, copy); device {np.mean(st['step_ms']):.3f} ms a step "
+          f"of {len(st['step_ms'])}, {np.mean(st['eval_ms']):.3f} ms an "
+          f"evaluation batch (CUDA events); idle share "
+          f"{1.0 - busy_ms / (st['wall_s'] * 1e3):.4f}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}", flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: losses {losses}")
+
+
+def ofa_check_metric(tag, name, value):
+    print(f"  {tag}: {name} {value:.6f}", flush=True)
+    if not 0.0 <= value <= 1.0:
+        raise AssertionError(f"{tag}: {name} {value}")
+
+
+def ofa_grads(model, loss_fn):
+    model.train()
+    loss = loss_fn(model)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().float().cpu()
+                                  for n, p in model.named_parameters()
+                                  if p.grad is not None}
+
+
+def ofa_gate(tag, model0, loss_fn, batch_cpu, batch_card, pool):
+    """The card against the CPU on one batch (``batch_cpu`` and its copy
+    on the card) from the same initial weights, drawn on the CPU: the loss
+    within 1e-4 relative and every gradient within 2% of the largest.  The
+    CPU's side runs in ``pool``, beside the card's run; returns a callable
+    that checks."""
+    cpu_side = pool.submit(ofa_grads, copy.deepcopy(model0),
+                           lambda m: loss_fn(m, batch_cpu))
+    dev = (batch_card.g if hasattr(batch_card, "g")
+           else batch_card[0]).node_feat.device
+    card_loss, card_g = ofa_grads(copy.deepcopy(model0).to(dev),
+                                  lambda m: loss_fn(m, batch_card))
+
+    def check():
+        cpu_loss, cpu_g = cpu_side.result()
+        err = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-30)
+        print(f"  {tag}: a batch's loss on the card {card_loss:.7f}, on the "
+              f"CPU {cpu_loss:.7f} (relative {err:.2e}, gate 1e-4)",
+              flush=True)
+        if err > 1e-4 or not np.isfinite(card_loss):
+            raise AssertionError(f"{tag}: the card's loss disagrees")
+        check_grads(f"{tag} (card against CPU)", card_g, cpu_g)
+    return check
+
+
+def ofa_batch_to(b, dev):
+    """An ``ofa.train.Batch`` with its tensors on ``dev``."""
+    return b._replace(g=graph_to_device(b.g, dev),
+                      valid=b.valid.to(dev), labels=b.labels.to(dev),
+                      true_mask=b.true_mask.to(dev))
+
+
+def ofa_bce(model, b):
+    return ofa_train.bce_loss(model(b.g), b.valid, b.labels)
+
+
+def ofa_part(tag, path, dataset, train_idx, eval_idx, kind, dev, paths,
+             pool, task="single", batch_size=OFA_BATCH):
+    """``ofa_train_eval`` at full width for one epoch from initial weights
+    drawn on the CPU, with the card-against-CPU gate on a batch of
+    ``OFA_GATE`` samples of the same dataset; returns the gate's check."""
+    model0 = ofa_train.OFAModel(kind, 2, FEAT_DIM,
+                                generator=torch.Generator().manual_seed(SEED))
+    gate_batch = ofa_train.make_batches(
+        dataset, np.asarray(train_idx[:OFA_GATE]), OFA_GATE)[0]
+    check = ofa_gate(tag, model0, ofa_bce, gate_batch,
+                     ofa_batch_to(gate_batch, dev), pool)
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    reset_counts()
+    loss, metric = ofa_train.ofa_train_eval(
+        dataset, train_idx, eval_idx, dim=FEAT_DIM, kind=kind, epochs=1,
+        batch_size=batch_size, seed=SEED, task=task, device=dev,
+        model=copy.deepcopy(model0), stats=st)
+    ofa_report(tag, st, paths, path)
+    ofa_check_metric(tag, "AUC" if task == "multi" else "accuracy", metric)
+    return check
+
+
+def ofa_head_batch(chunk):
+    """A collated batch of prompted samples with each sample's RWPE
+    (walks of ``OFA_WALK``) stacked below one another: (graph, aux, pe,
+    labels), on the host."""
+    tot_n = sum(len(s["node_feat"]) for s in chunk)
+    tot_e = sum(len(s["senders"]) for s in chunk)
+    g, aux = ofa_prompt.collate_prompted(
+        chunk, node_pad_to=round_up(tot_n + 1, 1024),
+        edge_pad_to=round_up(tot_e, 4096))
+    pe = np.zeros((g.num_nodes_padded, OFA_WALK), np.float32)
+    pe[:tot_n] = np.concatenate([ofa_heads.random_walk_pe(
+        s["senders"], s["receivers"], len(s["node_feat"]), OFA_WALK)
+        for s in chunk])
+    return g, aux, torch.from_numpy(pe), np.asarray([s["y"] for s in chunk])
+
+
+def ofa_head_loss(head, b):
+    g, aux, pe, _ = b
+    s = ofa_heads.bin_graph_apply(head, g, aux, rwpe=pe)
+    valid = torch.as_tensor(aux["bin_valid"], device=s.device)
+    s = torch.where(valid, s, torch.zeros((), device=s.device))
+    return ofa_train.bce_loss(s, valid, torch.as_tensor(
+        aux["bin_labels"], device=s.device))
+
+
+def ofa_head_run(dataset, dev, paths, pool):
+    """(e): ``BinGraphHead`` with attention pooling and RWPE,
+    ``OFA_HEAD_STEPS`` AdamW steps on batches of the node task, then its
+    accuracy on them in evaluation."""
+    tag = "ofa (e) head (att_pool, RWPE)"
+    host_ms, chunks, batches = [], [], []
+    for i in range(OFA_HEAD_STEPS):
+        t0 = time.perf_counter()
+        chunks.append([dataset[j] for j in range(i * OFA_BATCH,
+                                                 (i + 1) * OFA_BATCH)])
+        g, aux, pe, ys = ofa_head_batch(chunks[-1])
+        batches.append((graph_to_device(g, dev), aux, pe.to(dev), ys))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    head0 = ofa_heads.BinGraphHead(
+        "gine", 2, FEAT_DIM, FEAT_DIM, att_pool=True, walk_length=OFA_WALK,
+        generator=torch.Generator().manual_seed(SEED))
+    g, aux, pe, ys = ofa_head_batch(chunks[0][:OFA_GATE])
+    check = ofa_gate(tag, head0, ofa_head_loss, (g, aux, pe, ys),
+                     (graph_to_device(g, dev), aux, pe.to(dev), ys), pool)
+    head = copy.deepcopy(head0).to(dev).train()
+    opt = Optimizer(head.parameters(), 1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    events, losses = [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.zero_grad()
+        loss = ofa_head_loss(head, b)
+        loss.backward()
+        opt.step()
+        stop.record()
+        events.append((start, stop))
+        losses.append(loss.detach())
+    head.eval()
+    correct = total = 0
+    with torch.no_grad():
+        for g, aux, pe, ys in batches:
+            s = ofa_heads.bin_graph_apply(head, g, aux, rwpe=pe).cpu().numpy()
+            gid = g.node_graph_id.cpu().numpy()
+            for i, y in enumerate(ys):
+                rows = np.nonzero((gid == i) & aux["true_nodes_mask"])[0]
+                correct += int(np.argmax(s[rows]) == y)
+                total += 1
+    torch.cuda.synchronize()
+    st = {"losses": [float(x) for x in losses], "host_ms": host_ms,
+          "eval_host_ms": [], "step_ms": [a.elapsed_time(b)
+                                          for a, b in events],
+          "eval_ms": [0.0],
+          "wall_s": time.perf_counter() - t0 + sum(host_ms) / 1e3,
+          "samples": OFA_HEAD_STEPS * OFA_BATCH}
+    ofa_report(tag, st, paths, "ofa_head")
+    ofa_check_metric(tag, "accuracy on its batches", correct / total)
+    return check
+
+
+def ofa_prepare():
+    """Phase ofa's datasets (the CSR adjacencies of the arxiv graph and the
+    WN18RR-size KG, the molecules), built beside phase halo_pretrain: no
+    sample is drawn here."""
+    t0 = time.perf_counter()
+    tc = ofa_tasks.TaskConstructor(
+        feat_dim=FEAT_DIM, seed=SEED, load_kw={KG: dict(
+            num_entities=WN18RR_ENTITIES, num_edges=WN18RR_TRIPLES)})
+    node = tc.make_subgraph_dataset(DATASET, "valid")
+    ds = tc.get_dataset(DATASET)
+    base = ofa_datasets.SubgraphNodeDataset(
+        ds, node.class_emb, node.prompt_edge_emb, np.arange(ds.num_nodes),
+        seed=SEED)
+    kg = tc.make_link_dataset(KG, "train")
+    graphs, labels, _ = load_dataset("mol_synthetic", feat_dim=FEAT_DIM,
+                                     seed=SEED)
+    mols = ofa_datasets.GraphListHierDataset(
+        graphs, labels, np.eye(labels.shape[1], FEAT_DIM, dtype=np.float32),
+        node.prompt_edge_emb, np.arange(len(graphs)))
+    return {"node": node, "base": base, "kg": kg, "mols": mols,
+            "labels": np.asarray(ds.labels), "seconds":
+            time.perf_counter() - t0}
+
+
+def ofa_run(dev, paths, prep):
+    """Phase ofa (module docstring): the OFA in-context and few-shot path
+    at full width, no kernel, on the datasets of :func:`ofa_prepare`.
+    Raises on a failed gate."""
+    print(f"  datasets and their adjacencies built in {prep['seconds']:.2f} "
+          f"s of host beside phase halo_pretrain", flush=True)
+    node, kg = prep["node"], prep["kg"]
+    checks = []
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # (a) the node task, in context
+        n_tr, n_ev = OFA_NODE
+        checks.append(ofa_part(
+            "ofa (a) node", "ofa_node", node, np.arange(n_tr),
+            np.arange(n_tr, n_tr + n_ev), "gine", dev, paths, pool))
+        # (b) the KG task at WN18RR's size, rgcn then rgat
+        n_tr, n_ev = OFA_KG
+        for kind in ("rgcn", "rgat"):
+            checks.append(ofa_part(
+                f"ofa (b) KG {kind}", f"ofa_kg_{kind}", kg, np.arange(n_tr),
+                np.arange(n_tr, n_tr + n_ev), kind, dev, paths, pool))
+        # (c) few-shot on arxiv's low-resource class split
+        base, labels = prep["base"], prep["labels"]
+        lr_split = ofa_tasks.low_resource_class_split("arxiv")
+        split = {"train": lr_split["train"], "test": lr_split["test"]}
+        n_way, k_shot, n_tr, n_ev = OFA_FS
+        tag = f"ofa (c) few-shot {n_way}-way {k_shot}-shot"
+        model0 = ofa_train.OFAModel(
+            "gine", 2, FEAT_DIM, generator=torch.Generator().manual_seed(SEED))
+        pools = ofa_tasks.fewshot_class_pools(labels, split)["train"]
+        episodes = ofa_fewshot.FewShotDataset(
+            ofa_fewshot.SimpleFSManager(*pools, k_shot=k_shot, q_query=1,
+                                        n_way=n_way, seed=SEED + 7),
+            base, base, np.stack([np.zeros(FEAT_DIM, np.float32),
+                                  np.ones(FEAT_DIM, np.float32)]),
+            sample_size=OFA_FS_GATE, seed=SEED + 7)
+        gate_batch = ofa_train.make_batches(
+            episodes, np.arange(OFA_FS_GATE), OFA_FS_GATE)[0]
+        checks.append(ofa_gate(tag, model0, ofa_bce, gate_batch,
+                               ofa_batch_to(gate_batch, dev), pool))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stats = {}
+        out = ofa_train.fewshot_train_eval(
+            base, labels, split, dim=FEAT_DIM, n_way=n_way, k_shot=k_shot,
+            train_episodes=n_tr, eval_episodes=n_ev, epochs=1,
+            batch_size=OFA_FS_BATCH, seed=SEED, device=dev, model=model0,
+            stats=stats)
+        ofa_report(tag, stats["test"], paths, "ofa_fewshot")
+        ofa_check_metric(tag, "test accuracy", out["test_acc"])
+        # (d) the chem multitask on molecules, NaN labels excluded
+        n_tr, n_ev = OFA_MOL
+        checks.append(ofa_part(
+            "ofa (d) chem multitask", "ofa_chem", prep["mols"],
+            np.arange(n_tr), np.arange(n_tr, n_tr + n_ev), "gine", dev,
+            paths, pool, task="multi"))
+        # (e) the bin-graph head
+        checks.append(ofa_head_run(node, dev, paths, pool))
+        for check in checks:
+            check()
+
+
 # ------------------------------------------------------------ phase vq
 
 def vq_configs():
@@ -4325,7 +4640,12 @@ def main():
         held_line()
         # rank 1's remote layout, built beside the S = 2 run
         hp_rem = prefetch.submit(hp_rem_layout, ds, 1, dev)
+        ofa_prep = prefetch.submit(ofa_prepare)
         k1_hp = halo_pretrain_run(dev, paths, hp_rem, hp_side)
+
+    with phase("ofa"):
+        ofa_run(dev, paths, ofa_prep.result())
+        del ofa_prep
     shared.close()
     line = []
     for k in kernels:

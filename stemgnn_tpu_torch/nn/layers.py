@@ -50,7 +50,9 @@ class BatchNorm(nn.Module):
     again) makes the batch moments global: the raw sums ``mean * n`` and
     ``(var + mean^2) * n`` of every rank's rows combine (JAX
     ``batchnorm_apply(axis_name=...)``, nn/layers.py:56-87); a rank without
-    valid rows adds nothing."""
+    valid rows adds nothing.  ``update=False`` normalizes with the batch
+    statistics and leaves the buffers as they were (JAX callers that drop
+    the new state: the zoo's virtual-node MLP)."""
 
     momentum = 0.1               # torch BatchNorm1d's default
 
@@ -63,7 +65,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(dim))
         self.register_buffer("count", torch.zeros((), dtype=torch.int32))
 
-    def forward(self, x, mask=None, reduce=None):
+    def forward(self, x, mask=None, reduce=None, update: bool = True):
         xf = x.float()               # statistics and normalization in f32
         if not self.training:
             y = (xf - self.mean) * torch.rsqrt(self.var + self.eps)
@@ -86,12 +88,13 @@ class BatchNorm(nn.Module):
             n = torch.clamp(sums[0], min=1.0)
             mean = sums[1:d + 1] / n
             var = torch.clamp(sums[d + 1:] / n - mean ** 2, min=0.0)
-        with torch.no_grad():
-            unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-            mo = self.momentum
-            self.mean.mul_(1 - mo).add_(mo * mean)
-            self.var.mul_(1 - mo).add_(mo * unbiased)
-            self.count.add_(1)
+        if update:
+            with torch.no_grad():
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                mo = self.momentum
+                self.mean.mul_(1 - mo).add_(mo * mean)
+                self.var.mul_(1 - mo).add_(mo * unbiased)
+                self.count.add_(1)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale + self.bias).to(x.dtype)
 

@@ -18,6 +18,11 @@ the JAX state's ``sem_encoder``.  The VQ's buffers are JAX's VQ state
 the parameters.  The language models of the text
 encoders (``nn/{distilbert,bert,llama}.py``) name theirs after the JAX
 pytrees too (``layers.0.q.w``, ``[in, out]``): :func:`language_model_from_jax`.
+The OFA zoo's modules (``zoo/*``, ``ofa/heads.py``, ``ofa/train.py``)
+keep the trees of ``gnn_stack_init``, ``mlp_init``, ``attention_pool_init``,
+``graph_predictor_init``, ``bin_graph_init`` and ``ofa_train_eval``'s
+``{"enc", "head"}``; their shapes give every constructor argument, so each
+``*_from_jax`` needs the trees alone.
 """
 
 from __future__ import annotations
@@ -32,7 +37,13 @@ from stemgnn_tpu_torch.nn.distilbert import (DistilBertConfig,
                                              DistilBertModel, load_into)
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.llama import LlamaConfig, LlamaModel
+from stemgnn_tpu_torch.ofa.heads import BinGraphHead
+from stemgnn_tpu_torch.ofa.train import OFAModel
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
+from stemgnn_tpu_torch.zoo.mlp import MLP
+from stemgnn_tpu_torch.zoo.pooling import AttentionPool
+from stemgnn_tpu_torch.zoo.predictors import Predictor
+from stemgnn_tpu_torch.zoo.stack import GNNStack
 
 
 def _flat_names(tree, prefix=""):
@@ -172,3 +183,86 @@ def language_model_from_jax(params_np: dict, cfg, device=None):
     return load_into(model, {k: torch.from_numpy(np.array(v, np.float32))
                              for k, v in _flat_names(params_np).items()},
                      device)
+
+
+def _stack_args(params: dict) -> dict:
+    """GNNStack's constructor arguments, read off a JAX stack tree: the
+    conv kind from its keys (``mlp``: gine, ``att``: rgat, else rgcn), the
+    width, relations and heads from its shapes."""
+    conv = params["convs"][0]
+    args = {"num_layers": len(params["convs"]),
+            "batch_norm": bool(params["norms"]),
+            "virtual_node": "vn_embed" in params}
+    if "mlp" in conv:
+        return dict(args, kind="gine",
+                    dim=np.shape(conv["mlp"]["layers"][0]["w"])[0])
+    num_rel, dim = np.shape(conv["weight"])[:2]
+    if "att" in conv:
+        return dict(args, kind="rgat", dim=dim, num_relations=num_rel,
+                    heads=np.shape(conv["att"])[1])
+    return dict(args, kind="rgcn", dim=dim, num_relations=num_rel)
+
+
+def _mlp_dims(params: dict) -> list:
+    layers = params["layers"]
+    return [np.shape(layers[0]["w"])[0]] + [np.shape(p["w"])[1]
+                                            for p in layers]
+
+
+def gnn_stack_from_jax(params: dict, state: dict) -> GNNStack:
+    """A :class:`GNNStack` on the CPU from JAX's ``gnn_stack_init`` trees
+    (every kind; BatchNorm statistics; the virtual node and its MLP)."""
+    return _load(GNNStack(**_stack_args(params)), params, state)
+
+
+def mlp_from_jax(params: dict, state: dict) -> MLP:
+    return _load(MLP(_mlp_dims(params), batch_norm=bool(params["norms"])),
+                 params, state)
+
+
+def attention_pool_from_jax(params: dict) -> AttentionPool:
+    return _load(AttentionPool(np.shape(params["proj"]["w"])[0]), params,
+                 {})
+
+
+def predictor_from_jax(params: dict, state: dict) -> Predictor:
+    """A :class:`~stemgnn_tpu_torch.zoo.predictors.Predictor` from JAX's
+    ``graph_predictor_init`` trees ``{"encoder", "head"}``."""
+    a = _stack_args(params["encoder"])
+    model = Predictor(a["kind"], a["num_layers"], a["dim"],
+                      _mlp_dims(params["head"])[-1],
+                      num_relations=a.get("num_relations", 1),
+                      virtual_node=a["virtual_node"])
+    return _load(model, params, state)
+
+
+def bin_graph_from_jax(params: dict, state: dict) -> BinGraphHead:
+    """A :class:`~stemgnn_tpu_torch.ofa.heads.BinGraphHead` from JAX's
+    ``bin_graph_init`` trees (attention pooling and RWPE as present)."""
+    a = _stack_args(params["enc"])
+    in_dim, out_dim = np.shape(params["in_proj"]["w"])
+    walk = np.shape(params["edge_rwpe_prior"])[1] \
+        if "edge_rwpe_prior" in params else None
+    head = BinGraphHead(a["kind"], a["num_layers"], in_dim, out_dim,
+                        task_dim=_mlp_dims(params["mlp"])[-1],
+                        num_relations=a.get("num_relations", 1),
+                        att_pool="att" in params, walk_length=walk)
+    return _load(head, params, state)
+
+
+def ofa_model_from_jax(params: dict, state: dict) -> OFAModel:
+    """``ofa_train_eval``'s model from its JAX trees ``{"enc", "head"}``."""
+    a = _stack_args(params["enc"])
+    return _load(OFAModel(a["kind"], a["num_layers"], a["dim"]), params,
+                 state)
+
+
+def gnn_stack_to_jax(stack: GNNStack):
+    """``(params, state)`` of a stack as nested numpy trees in JAX's form
+    (empty lists, which hold no leaf, left out)."""
+    return _module_trees(stack)
+
+
+def bin_graph_to_jax(head: BinGraphHead):
+    """``(params, state)`` of a bin-graph head in JAX's form."""
+    return _module_trees(head)

@@ -42,7 +42,12 @@ def test_port_and_smoke_import_without_jax_or_the_jax_package():
                     "eval.perturb", "eval.runner", "ops.reorder",
                     "profile_reorder", "parallel.mesh", "parallel.halo",
                     "parallel.full_graph", "parallel.halo_pretrain",
-                    "parallel.data_parallel", "profile_parallel"):
+                    "parallel.data_parallel", "profile_parallel",
+                    "utils.splits", "ofa.subgraph", "ofa.prompt",
+                    "ofa.datasets", "ofa.fewshot", "ofa.multi", "ofa.tasks",
+                    "ofa.heads", "ofa.train", "zoo.resolver", "zoo.mlp",
+                    "zoo.convs_rel", "zoo.stack", "zoo.pooling",
+                    "zoo.predictors", "zoo.losses"):
             assert "stemgnn_tpu_torch." + mod in names, names
         print(len(names))
     """)
@@ -83,6 +88,48 @@ def test_finetune_without_cuda_exits_nonzero_with_a_clear_message():
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert "--device cpu" in proc.stderr
+
+
+def test_ofa_train_eval_without_cuda_raises_instead_of_using_the_cpu():
+    """``ofa_train_eval`` and ``fewshot_train_eval`` with ``device=None``
+    (the card) raise on a machine without CUDA before any step, and
+    neither JAX nor the JAX package is imported on the way."""
+    proc = _run("""
+        import numpy as np
+        import torch
+        assert not torch.cuda.is_available()
+        from stemgnn_tpu_torch.data.synthetic import synthetic_node_dataset
+        from stemgnn_tpu_torch.ofa.datasets import SubgraphNodeDataset
+        from stemgnn_tpu_torch.ofa.train import (fewshot_train_eval,
+                                                 ofa_train_eval)
+        ds = synthetic_node_dataset(num_nodes=60, num_classes=3, feat_dim=8,
+                                    num_splits=1, train_per_split=10,
+                                    val_per_split=10)
+        data = SubgraphNodeDataset(ds, np.eye(3, 8), np.ones((5, 8)),
+                                   np.arange(20))
+        calls = (
+            lambda: ofa_train_eval(data, np.arange(8), np.arange(8, 12),
+                                   dim=8, epochs=1),
+            lambda: fewshot_train_eval(data, np.asarray(ds.labels),
+                                       {"train": [0, 1], "test": [2]},
+                                       dim=8, n_way=2, k_shot=1,
+                                       train_episodes=2, eval_episodes=2,
+                                       epochs=1))
+        for call in calls:
+            try:
+                call()
+            except RuntimeError as ex:
+                assert "CUDA is not available" in str(ex), ex
+                print("raised:", ex)
+            else:
+                raise SystemExit("ran without CUDA")
+        bad = [m for m in sys.modules
+               if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
+               or (m.startswith("jax") and sys.modules[m] is not None)]
+        assert not bad, bad
+    """)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("raised:") == 2
 
 
 def test_chip_smoke_without_cuda_exits_nonzero_with_no_result():
