@@ -331,6 +331,27 @@ announced before it starts and timed when it ends:
                largest (the CPU's side in a thread beside the card's
                run).  The datasets and their adjacencies are built beside
                phase halo_pretrain; every sample is drawn in this phase.
+ 23. edge_parallel — the v1 edge-partitioned full-graph finetune
+               (``parallel.full_graph.launch_edge_parallel_finetune``) on
+               the arxiv graph at full width (D = 768, 2-layer sage, the
+               4-head VQ not initted, dropout 0, 2 epochs, 1 split): S = 2
+               (two ranks sharing the card over gloo, started at phase
+               ofa and run beside it), then S = 1 in this process (NCCL);
+               each epoch's loss at S = 2 within 1e-3 relative of S = 1's,
+               the ranks' parameters bit-equal after training, kernel 2
+               twice on rank 0 (its k-means init's encode of the fused
+               full graph) and never on rank 1, twice at S = 1, kernels 1
+               and 3 never (counted in each rank, zeroed just before its
+               run, and on the k-means graph's row plans); the S = 1
+               init's two kernel-2 launches recorded, checked against the
+               plain version and timed (``launch_case``); the two shards'
+               ``sharded_sage_aggregate`` summed against the
+               single-device ``gather_scatter_aggregate`` on the card
+               (sum and mean, 1e-4 relative); one training step stamped
+               by ``utils.timer.DeviceTimer`` against its CUDA events.
+               Per rank: the shard build's host seconds, step and
+               evaluation ms, the all-reduces a step and their ms (CUDA
+               events), the idle share and peak GB.
 
 PyTorch's compiler stack, which every optimizer imports when it is built
 (seconds of host time), is imported beside phase build, and so is the
@@ -416,6 +437,13 @@ from stemgnn_tpu_torch.ofa import train as ofa_train
 from stemgnn_tpu_torch.train.optim import Optimizer
 from stemgnn_tpu_torch.parallel import halo, mesh
 from stemgnn_tpu_torch.parallel.data_parallel import launch_dp_pretrain
+from stemgnn_tpu_torch.parallel.edge_partition import (
+    partition_edges_by_destination, sharded_sage_aggregate)
+from stemgnn_tpu_torch.parallel.full_graph import (
+    launch_edge_parallel_finetune, make_edge_parallel_steps,
+    prepare_sharded_graph)
+from stemgnn_tpu_torch.ops.spmm import gather_scatter_aggregate
+from stemgnn_tpu_torch.utils.timer import DeviceTimer
 from stemgnn_tpu_torch.parallel.halo_pretrain import (halo_pretrain_arrays,
                                                       launch_halo_pretrain)
 from stemgnn_tpu_torch.train.augment import dropout_edge_seed
@@ -4025,6 +4053,209 @@ def ofa_run(dev, paths, prep):
             check()
 
 
+# ---------------------------------------------------- phase edge_parallel
+
+# the v1 edge-partitioned finetune: its ranks, epochs and split, its loss
+# gate between S = 2 and S = 1 (phase halo's), and the f32 gate of the
+# shards' summed aggregation against the single-device one
+EP_SHARDS, EP_EPOCHS = 2, 2
+EP_LOSS_RTOL = 1e-3
+EP_AGG_RTOL, EP_AGG_ATOL = 1e-4, 1e-5
+
+
+def ep_config():
+    """Phase edge_parallel's configuration: the reference's finetune
+    widths (D = 768, 2-layer sage, a 4-head VQ of 128 codes that is not
+    initted, so that rank 0 k-means-initializes it), dropout 0, one
+    split."""
+    base = FinetuneConfig()
+    return dataclasses.replace(
+        base, encoder=dataclasses.replace(base.encoder, dropout=0.0),
+        epochs=EP_EPOCHS, repeat=1, num_classes=NUM_CLASSES)
+
+
+def ep_report(tag, rec):
+    """One rank's measurements of a run of the v1 finetune."""
+    hist = rec["history"]
+    km = "; ".join(f"k-means init {k['host_s']:.2f} s (the full graph and "
+                   f"its layout built first), launches on its layout "
+                   f"{k['launches']}" for k in rec["kmeans"]) or \
+        "no k-means init (rank 0 runs it and broadcasts the codebook)"
+    print(f"  {tag} rank {rec['rank']}: backend {rec['backend']} on "
+          f"{rec['device']}; its shard {rec['edges']} edges in "
+          f"{rec['edges_shard']} slots, N_pad {rec['n_pad']}; shard build "
+          f"{rec['build_s']:.2f} s of host; {km}; per epoch: wall "
+          f"{['%.1f' % h['epoch_ms'] for h in hist]} ms, step "
+          f"{['%.1f' % h.get('step_ms', 0) for h in hist]} ms, evaluation "
+          f"{['%.1f' % h.get('eval_ms', 0) for h in hist]} ms, "
+          f"all-reduces a step {[h['step_allreduces'] for h in hist]} "
+          f"taking {['%.1f' % h['step_allreduce_ms'] for h in hist]} ms, "
+          f"an evaluation {[h['eval_allreduces'] for h in hist]} taking "
+          f"{['%.1f' % h['eval_allreduce_ms'] for h in hist]} ms (CUDA "
+          f"events), idle share {[h['idle'] for h in hist]}; peak "
+          f"{rec['peak_gb']:.2f} GB; losses "
+          f"{[h['losses']['loss'] for h in hist]}; accuracies "
+          f"{[h['accs'] for h in hist]}; launches {rec['launches']}",
+          flush=True)
+
+
+def ep_gates(ds, cfg, dev):
+    """In this process, at S = 1 on the card: the two shards' sums of
+    ``sharded_sage_aggregate`` (summed here, not over ranks) against
+    the single-device ``gather_scatter_aggregate``, sum and mean; then
+    one training step of ``make_edge_parallel_steps`` stamped by a
+    ``DeviceTimer`` against its CUDA events (the stamp waits for the
+    step)."""
+    one = mesh.Ranks(rank=0, world=1, device=dev, backend="none")
+    sg = prepare_sharded_graph(ds, one)
+    n_pad = sg.n_pad
+    ei = np.asarray(ds.edge_index)
+    parts = partition_edges_by_destination(
+        ei[0].astype(np.int32), ei[1].astype(np.int32), EP_SHARDS)
+    with torch.no_grad():
+        total = deg = 0.0
+        for i in range(EP_SHARDS):
+            s, r, m = (torch.from_numpy(parts[k][i]).to(dev) for k in (
+                "senders", "receivers", "edge_mask"))
+            total = total + sharded_sage_aggregate(
+                sg.node_feat, s.long(), r.long(), m, sg.edge_feat,
+                ranks=None, reduce="sum")
+            deg = deg + torch.zeros(n_pad, device=dev).index_add_(
+                0, r.long(), m.float())
+        got = {"sum": total, "mean": total / deg.clamp(min=1.0)[:, None]}
+        del total
+        for reduce in ("sum", "mean"):
+            want = gather_scatter_aggregate(
+                sg.node_feat, sg.senders, sg.receivers,
+                edge_feat=sg.edge_feat, edge_mask=sg.edge_mask,
+                reduce=reduce)
+            check_close(f"{EP_SHARDS} shards' summed sharded_sage_aggregate "
+                        f"({reduce}) vs the single-device "
+                        f"gather_scatter_aggregate, E={ds.num_edges} "
+                        f"D={FEAT_DIM}", got[reduce], want, EP_AGG_RTOL,
+                        EP_AGG_ATOL, what="the sharded aggregation")
+            del want
+        del got
+    model = finetune_loop.task_model_init(
+        cfg, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    model.vq.initted.fill_(True)        # a random codebook: no k-means
+    y = torch.zeros(n_pad, dtype=torch.long, device=dev)
+    y[:ds.num_nodes] = torch.from_numpy(np.asarray(ds.labels)).to(dev)
+    train_mask = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    train_mask[:ds.num_nodes] = torch.from_numpy(
+        np.asarray(ds.splits[0]["train"])).to(dev)
+    train_step, _ = make_edge_parallel_steps(cfg, sg, one, y)
+    trainable, _ = finetune_loop._split_params(model, cfg)
+    opt = finetune_loop.make_optimizer(trainable, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    train_step(model, opt, train_mask, gen)             # the lazy state
+    torch.cuda.synchronize()
+    timer = DeviceTimer(verbose=False)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    timer.record()
+    a.record()
+    parts = train_step(model, opt, train_mask, gen)
+    b.record()
+    stamp_ms = timer.cal_and_update("step", value=parts) * 1e3
+    torch.cuda.synchronize()
+    event_ms = a.elapsed_time(b)
+    print(f"  one S = 1 training step: DeviceTimer {stamp_ms:.1f} ms, CUDA "
+          f"events {event_ms:.1f} ms", flush=True)
+    if stamp_ms < 0.9 * event_ms:
+        raise AssertionError(f"the DeviceTimer stamp ({stamp_ms:.1f} ms) "
+                             f"did not wait for the step ({event_ms:.1f} "
+                             f"ms)")
+
+
+def ep_launch(ds, shards):
+    """``launch_edge_parallel_finetune`` of phase edge_parallel's
+    configuration on ``shards`` ranks: (records, wall s, host clock at the
+    call)."""
+    t0, clock0 = time.perf_counter(), time.time()
+    recs = launch_edge_parallel_finetune(ds, ep_config(), shards, "cuda")
+    return recs, time.perf_counter() - t0, clock0
+
+
+def ep_check_run(shards, run, paths):
+    """One run's reports and launch gates: kernel 2 twice on rank 0 (its
+    k-means init) and never on another rank, kernels 1 and 3 never."""
+    recs, wall, clock0 = run
+    if [r["rank"] for r in recs] != list(range(shards)):
+        raise AssertionError(f"S={shards}: ranks {[r['rank'] for r in recs]}")
+    spans = [" / ".join("%.2f" % (t - clock0) for t in
+                        [*r.get("start_marks", {}).values(), *r["span"]])
+             for r in recs]
+    print(f"  S = {shards}: wall {wall:.2f} s; each rank "
+          f"{'(started at phase ofa) imported its modules, joined the '
+             'group, imported the compiler stack, read the call, '
+             if shards > 1 else ''}entered its run, began its first epoch "
+          f"and ended training at {spans} s from the call", flush=True)
+    for rec in recs:
+        ep_report(f"edge-parallel S={shards}", rec)
+        key = f"edge_parallel{shards}_rank{rec['rank']}"
+        paths[key] = {k: rec["launches"].get(k, 0) for k in (K1, K2, K3)}
+        want = {K2: 2 if rec["rank"] == 0 else 0}
+        expect_counts(f"S={shards} rank {rec['rank']} (kernel 2 in rank "
+                      f"0's k-means init)", paths[key], want)
+        if rec["kmeans"]:
+            expect_counts(f"S={shards} rank 0's k-means layout",
+                          {k: rec["kmeans"][0]["launches"].get(k, 0)
+                           for k in (K1, K2, K3)}, want)
+
+
+def edge_parallel_run(ds, dev, paths, two):
+    """Phase edge_parallel (module docstring): the S = 2 run of
+    ``launch_edge_parallel_finetune`` (``two``: the future of
+    :func:`ep_launch`, run beside phase ofa with its ranks started there)
+    and the S = 1 run in this process with kernel 2's launches recorded,
+    the gates, then :func:`ep_gates`.  Returns kernel 2's (max_abs_err,
+    times) on each of the S = 1 k-means init's launches."""
+    ep_check_run(EP_SHARDS, two.result(), paths)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    calls = []
+    real = fused_sage.gathered_scatter_rows_sorted
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    fused_sage.gathered_scatter_rows_sorted = record
+    try:
+        one = ep_launch(ds, 1)
+    finally:
+        fused_sage.gathered_scatter_rows_sorted = real
+    here = read_counts()
+    ep_check_run(1, one, paths)
+    expect_counts("S=1, counted in this process", here, {K2: 2})
+    recs = two.result()[0]
+    if len({r["digest"] for r in recs}) != 1:
+        raise AssertionError(f"the ranks' parameters differ: "
+                             f"{[r['digest'] for r in recs]}")
+    print(f"  the {EP_SHARDS} ranks' parameters bit-equal after training "
+          f"(digest {recs[0]['digest'][:16]})", flush=True)
+    want = [h["losses"]["loss"] for h in one[0][0]["history"]]
+    for rec in recs:
+        losses = [h["losses"]["loss"] for h in rec["history"]]
+        if len(losses) != EP_EPOCHS or not all(
+                abs(a - b) <= EP_LOSS_RTOL * abs(b)
+                for a, b in zip(losses, want)):
+            raise AssertionError(f"S={EP_SHARDS} rank {rec['rank']}: "
+                                 f"losses {losses} vs S=1 {want}")
+    print(f"  losses at S={EP_SHARDS} within {EP_LOSS_RTOL} relative of "
+          f"S=1's {want}", flush=True)
+    if len(calls) != 2:
+        raise AssertionError(f"the S=1 k-means init launched kernel 2 "
+                             f"{len(calls)} times")
+    cases = {f"edge_parallel_kmeans_l{i + 1}": launch_case(
+        f"kernel 2 in the S=1 k-means init's encode, layer {i + 1}", K2,
+        f"edge_parallel_kmeans_l{i + 1}", call)
+        for i, call in enumerate(calls)}
+    del one, calls, recs
+    torch.cuda.empty_cache()
+    ep_gates(ds, ep_config(), dev)
+    return cases
+
+
 # ------------------------------------------------------------ phase vq
 
 def vq_configs():
@@ -4644,8 +4875,17 @@ def main():
         k1_hp = halo_pretrain_run(dev, paths, hp_rem, hp_side)
 
     with phase("ofa"):
+        # phase edge_parallel's S = 2 run beside this phase (a card that
+        # this phase's host work leaves idle), its ranks started here
+        mesh.prestart(EP_SHARDS, "cuda")
+        ep_two = beside.submit(ep_launch, ds, EP_SHARDS)
         ofa_run(dev, paths, ofa_prep.result())
         del ofa_prep
+
+    with phase("edge_parallel"):
+        torch.cuda.empty_cache()
+        k2_ep = edge_parallel_run(ds, dev, paths, ep_two)
+        del ep_two
     shared.close()
     line = []
     for k in kernels:
@@ -4680,7 +4920,7 @@ def main():
             cases = {**k2_ood, "kg_eval": k2_kg,
                      "xe": (typed_errs[K2], typed_times[K2]),
                      "stray": loc_stray, "locsplit_local": loc_k2,
-                     "halo_rem": k2_halo}
+                     "halo_rem": k2_halo, **k2_ep}
             entry.update(case_fields(cases))
         line.append(entry)
     for entry in line:

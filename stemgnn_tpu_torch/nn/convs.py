@@ -39,15 +39,16 @@ class SAGEConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_feat=None, edge_mask=None,
                 layout=None, edge_table=None, bf16_messages: bool = True,
-                plain: bool = False, drop_hash=None):
+                plain: bool = False, drop_hash=None, shard_ranks=None):
         """out = lin_l(mean_j relu(x_j + xe)) + lin_r(x)
-        (encoder.py:82-87)."""
+        (encoder.py:82-87); ``shard_ranks``: the edges are this rank's
+        shard of an edge-partitioned graph (``ops.spmm.sage_aggregate``)."""
         agg = sage_aggregate(x, senders, receivers, edge_feat=edge_feat,
                              edge_mask=edge_mask, num_nodes=x.shape[0],
                              reduce="mean", relu=True, layout=layout,
                              edge_table=edge_table,
                              bf16_messages=bf16_messages, plain=plain,
-                             drop_hash=drop_hash)
+                             drop_hash=drop_hash, shard_ranks=shard_ranks)
         return self.lin_l(agg) + self.lin_r(x)
 
 

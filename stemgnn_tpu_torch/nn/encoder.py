@@ -93,7 +93,7 @@ class Encoder(nn.Module):
                 node_mask=None, layout=None, edge_table=None,
                 plain: bool = False, generator=None, drop_hash=None,
                 compute_dtype=None, gumbel=None, return_aux: bool = False,
-                reduce=None):
+                reduce=None, edge_shard_ranks=None):
         """Forward pass (encoder.py:283-323): ``z``, or ``(z, aux)`` with
         ``return_aux``.  ``plain`` makes the fused path run its kernels'
         plain versions (see ops.fused_sage).  ``drop_hash=(seed, p)`` drops
@@ -107,8 +107,19 @@ class Encoder(nn.Module):
         layers their training noise, one [N, K] tensor a layer (drawn from
         ``generator`` when None).  ``reduce`` sums BatchNorm's batch
         moments across ranks (the data-parallel step; JAX's
-        ``axis_name``)."""
+        ``axis_name``).  ``edge_shard_ranks``: the edges given are this
+        rank's shard of an edge-partitioned graph whose nodes every rank
+        holds (JAX's ``edge_shard_axis``, encoder.py:83, 148): each sage
+        layer sums the shards' partial aggregations over these ranks, and
+        BatchNorm needs no sum (the nodes are replicated).  JAX passes it
+        to the sage layers alone, so another backbone or an MoE layer
+        would aggregate one shard: they raise here."""
         cfg = self.cfg
+        if edge_shard_ranks is not None and (cfg.backbone != "sage"
+                                             or any(self.flags)):
+            raise ValueError("the edge-sharded encoder supports sage "
+                             "layers only (no MoE layer, no gcn / gin / "
+                             "gat)")
         bf16 = (compute_dtype or cfg.compute_dtype) == "bfloat16"
         if bf16 and cfg.backbone != "sage":
             raise ValueError("compute_dtype=bfloat16 supports the sage "
@@ -144,7 +155,8 @@ class Encoder(nn.Module):
                           edge_mask=edge_mask, layout=layout,
                           edge_table=edge_table,
                           bf16_messages=cfg.fused_bf16_messages or bf16,
-                          plain=plain, drop_hash=drop_hash)
+                          plain=plain, drop_hash=drop_hash,
+                          shard_ranks=edge_shard_ranks)
             else:
                 z = layer(z, senders, receivers, edge_mask=edge_mask)
             if cfg.normalize != "none":

@@ -19,6 +19,11 @@ The pair-hash edge dropout (``drop_hash=(seed, p)``) rides the layout path
 as the fused form; without a layout its per-edge keep is derived from the
 same hash and folded into ``edge_mask`` (JAX spmm.py:98-110), so both paths
 drop the same edges.
+
+``shard_ranks`` takes the edge-partitioned full-graph mode (JAX's
+``shard_axis``, spmm.py:84-94): the edges given are this rank's shard,
+``x`` is replicated, and ``parallel.edge_partition.sharded_sage_aggregate``
+sums the shards' partial sums over the ranks.
 """
 
 from __future__ import annotations
@@ -152,13 +157,24 @@ def sage_aggregate(x, senders, receivers, edge_feat=None, edge_mask=None,
                    num_nodes: Optional[int] = None, reduce: str = "mean",
                    relu: bool = True, layout=None, edge_table=None,
                    bf16_messages: bool = True, plain: bool = False,
-                   drop_hash=None):
+                   drop_hash=None, shard_ranks=None):
     """Dispatching front end: the fused layout path when ``layout`` is given
     (``edge_table`` [T, D] supplies the per-edge-type features), else the
     gather + scatter path over ``edge_feat``.  ``plain`` makes the fused
     path run its kernels' plain versions.  ``drop_hash``: ``(seed, p)`` (or,
     with a layout, an ``ops.fused_sage.DropView``) drops the edge pairs the
-    pair hash picks."""
+    pair hash picks.  ``shard_ranks``: the edges are this rank's shard of
+    an edge-partitioned graph, summed over these ranks (module
+    docstring); it takes neither a layout nor the edge dropout."""
+    if shard_ranks is not None:
+        if layout is not None or drop_hash is not None:
+            raise ValueError("the edge-sharded aggregation takes no layout "
+                             "and no drop_hash")
+        from stemgnn_tpu_torch.parallel.edge_partition import \
+            sharded_sage_aggregate
+        return sharded_sage_aggregate(x, senders, receivers, edge_mask,
+                                      edge_feat, ranks=shard_ranks,
+                                      reduce=reduce, relu=relu)
     if layout is not None:
         if edge_feat is not None and edge_table is None:
             raise ValueError("the layout path takes edge features as "

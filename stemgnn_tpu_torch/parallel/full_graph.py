@@ -1,7 +1,31 @@
-"""The halo full-graph node finetune over ``torch.distributed`` ranks
-(counterpart of the halo half of ``stemgnn_tpu/parallel/full_graph.py``:
-``prepare_halo_graph`` :124, ``make_halo_steps`` :186-332,
-``run_finetune_halo_parallel`` :334-475).
+"""The full-graph node finetunes over ``torch.distributed`` ranks
+(counterpart of ``stemgnn_tpu/parallel/full_graph.py``): the v1
+edge-partitioned finetune (``prepare_sharded_graph`` :34,
+``make_edge_parallel_steps`` :68-121, ``run_finetune_edge_parallel``
+:478-539) and the halo finetune (``prepare_halo_graph`` :124,
+``make_halo_steps`` :186-332, ``run_finetune_halo_parallel`` :334-475).
+
+**v1** (:func:`run_finetune_edge_parallel`): every rank holds every node
+and the parameters and one receiver-sorted shard of the edges
+(``parallel.edge_partition``); each sage layer sums the shards' partial
+aggregations over the ranks, so ``z`` and the loss are the same on every
+rank.  The step is JAX's: AdamW (``optax.adamw(lr, weight_decay=0.01)``),
+the head-mean cross entropy over the train nodes plus the decoder's
+Jacobian penalty, the gradients and the float buffers averaged across
+ranks (JAX's ``pmean``).  A weight after the aggregation gets the same
+gradient on every rank; the aggregation's backward sums the ranks'
+identical cotangents again, so a rank's gradient before it is ``S`` times
+its shard's share, and the mean over the ranks is the single-device
+gradient.  Dropout and the VQ's draws come from a generator seeded alike
+on every rank (JAX hands every device the same key), so the ranks'
+parameters stay bit-equal.  A codebook that is not initted is
+k-means-initialized on rank 0 from ``train.graph_setup.fused_full_graph``
+(on CUDA its layout: kernel 2 once an encoder layer) and broadcast; the
+shards' sums themselves are gathers and ``index_add_``, no kernel, as
+JAX leaves them to XLA.  The entry point is the library function (no CLI
+reaches it in JAX): :func:`launch_edge_parallel_finetune`.
+
+**Halo** (:func:`run_finetune_halo_parallel`):
 
 Every rank runs :func:`run_finetune_halo_parallel` on the whole dataset:
 it builds the partition (all shards, numpy) and its own shard's tensors and
@@ -49,8 +73,14 @@ import numpy as np
 import torch
 
 from stemgnn_tpu_torch.core.config import FinetuneConfig
-from stemgnn_tpu_torch.models.task import (decoder_jacobian_penalty,
-                                           task_logits, task_model_init)
+from stemgnn_tpu_torch.core.graph import round_up
+from stemgnn_tpu_torch.models.task import (activation_loss,
+                                           decoder_jacobian_penalty,
+                                           maybe_kmeans_init_vq, task_logits,
+                                           task_model_init)
+from stemgnn_tpu_torch.ops import scatter
+from stemgnn_tpu_torch.parallel.edge_partition import \
+    partition_edges_by_destination
 from stemgnn_tpu_torch.parallel.halo import (all_reduce_sum,
                                              broadcast_module,
                                              build_halo_layouts,
@@ -62,7 +92,7 @@ from stemgnn_tpu_torch.parallel.halo import (all_reduce_sum,
 from stemgnn_tpu_torch.train.finetune_loop import _split_params, make_optimizer
 from stemgnn_tpu_torch.utils.early_stop import EarlyStopping
 from stemgnn_tpu_torch.utils.logger import Logger
-from stemgnn_tpu_torch.utils.metrics import task2metric
+from stemgnn_tpu_torch.utils.metrics import evaluate, task2metric
 from stemgnn_tpu_torch.vq.quantize import adopt_ema_embed, vq_kmeans_init
 
 
@@ -175,11 +205,14 @@ def layout_launches(lay) -> dict:
 
 class SpanTimer:
     """CUDA-event spans of named regions on one device (nothing on the
-    CPU), read at :meth:`take`."""
+    CPU), read at :meth:`take`; ``counts`` holds the spans of each name
+    that the last :meth:`take` read (on any device)."""
 
     def __init__(self, device):
         self.on = device.type == "cuda"
         self.spans = {}
+        self.calls = {}
+        self.counts = {}
 
     def __call__(self, name):
         timer = self
@@ -191,6 +224,7 @@ class SpanTimer:
                     self.a.record()
 
             def __exit__(self, *exc):
+                timer.calls[name] = timer.calls.get(name, 0) + 1
                 if timer.on:
                     b = torch.cuda.Event(enable_timing=True)
                     b.record()
@@ -202,7 +236,7 @@ class SpanTimer:
             torch.cuda.synchronize()
         out = {k: sum(a.elapsed_time(b) for a, b in v)
                for k, v in self.spans.items()}
-        self.spans = {}
+        self.spans, self.counts, self.calls = {}, self.calls, {}
         return out
 
 
@@ -478,4 +512,270 @@ def launch_halo_finetune(ds, cfg: FinetuneConfig, num_ranks: int,
         print(f"Halo full-graph finetune: "
               f"{mesh.describe_world(num_ranks, device_type)}", flush=True)
     return mesh.launch(_halo_rank, num_ranks, device_type, ds, cfg,
+                       pretrained, kw)
+
+
+# ------------------------------------------------------------------- v1
+
+@dataclasses.dataclass
+class ShardedGraph:
+    """This rank's share of the edge-partitioned graph: every node
+    (replicated, padded to a multiple of 128) and its own edge shard, on
+    its device, with the host seconds of the build."""
+    node_feat: torch.Tensor            # [n_pad, D] f32
+    node_mask: torch.Tensor            # [n_pad] bool
+    senders: torch.Tensor              # [E_shard] int64
+    receivers: torch.Tensor            # [E_shard] int64
+    edge_mask: torch.Tensor            # [E_shard] bool
+    edge_feat: Optional[torch.Tensor]  # [E_shard, D], or [1, D]: one type
+    n_pad: int
+    build_s: float = 0.0
+
+
+def prepare_sharded_graph(ds, ranks) -> ShardedGraph:
+    """This rank's :class:`ShardedGraph` (JAX ``prepare_sharded_graph``,
+    :34-55): the partition of ``ds``'s edges over ``ranks.world`` shards
+    (all of them, numpy, then this rank's), the padded features and node
+    mask.  The edge features are the type table's rows of the shard's edge
+    types, ``ds.edge_features()``'s values: one row that every edge adds
+    when the dataset has one edge type, else gathered per edge."""
+    t0 = time.perf_counter()
+    dev = ranks.device
+    n = ds.num_nodes
+    n_pad = round_up(n, 128)
+    feats = np.zeros((n_pad, ds.node_text_feat.shape[1]), np.float32)
+    feats[:n] = ds.node_features()
+    ei = np.asarray(ds.edge_index)
+    shards = partition_edges_by_destination(
+        ei[0].astype(np.int32), ei[1].astype(np.int32), ranks.world,
+        edge_feat=np.asarray(ds.xe, np.int32))
+    me = ranks.rank
+
+    def mine(key, dtype):
+        return torch.from_numpy(np.ascontiguousarray(
+            shards[key][me])).to(dtype).to(dev)
+    table = torch.as_tensor(np.asarray(ds.edge_text_feat),
+                            dtype=torch.float32).to(dev)
+    edge_feat = (table[:1] if table.shape[0] == 1
+                 else table.index_select(0, mine("edge_feat", torch.long)))
+    sg = ShardedGraph(
+        node_feat=torch.from_numpy(feats).to(dev),
+        node_mask=(torch.arange(n_pad) < n).to(dev),
+        senders=mine("senders", torch.long),
+        receivers=mine("receivers", torch.long),
+        edge_mask=mine("edge_mask", torch.bool), edge_feat=edge_feat,
+        n_pad=n_pad)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    sg.build_s = time.perf_counter() - t0
+    return sg
+
+
+def _encode_sharded(model, sg: ShardedGraph, ranks, generator=None):
+    """The encoder over this rank's shard, in the model's mode (JAX
+    ``_encode_sharded``, :58-66)."""
+    return model.encoder(sg.node_feat, sg.senders, sg.receivers,
+                         edge_feat=sg.edge_feat, edge_mask=sg.edge_mask,
+                         node_mask=sg.node_mask, generator=generator,
+                         edge_shard_ranks=ranks)
+
+
+def make_edge_parallel_steps(cfg: FinetuneConfig, sg: ShardedGraph, ranks,
+                             y):
+    """``(train_step, eval_step)`` over this rank's shard (JAX
+    ``make_edge_parallel_steps``, :68-121); ``y`` [n_pad] the labels."""
+
+    def train_step(model, opt, train_mask, generator=None):
+        """One AdamW step; the loss parts, equal on every rank."""
+        model.train()
+        z = _encode_sharded(model, sg, ranks, generator)
+        logits, _ = task_logits(model, cfg, z, mask=sg.node_mask,
+                                generator=generator)
+        act = activation_loss(logits, y, "single", mask=train_mask)
+        jac = decoder_jacobian_penalty(model, cfg)
+        loss = act + jac
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        # one all_reduce of every gradient, one of the float buffers
+        mean_across([p.grad for p in params], ranks)
+        mean_across([b for b in model.buffers() if b.is_floating_point()],
+                    ranks)
+        opt.step()
+        return {"loss": loss.detach(), "act_loss": act.detach(),
+                "jac_loss": jac.detach()}
+
+    def eval_step(model):
+        """[n_pad, C] class probabilities from the head-mean logits."""
+        model.eval()
+        with torch.no_grad():
+            z = _encode_sharded(model, sg, ranks)
+            logits, _ = task_logits(model, cfg, z, mask=sg.node_mask)
+            return torch.softmax(logits.mean(1), dim=-1)
+
+    return train_step, eval_step
+
+
+def run_finetune_edge_parallel(ds, cfg: FinetuneConfig, ranks,
+                               pretrained=None, verbose: bool = False,
+                               model=None):
+    """Full-graph node finetune of ``cfg.repeat`` splits with the edges
+    sharded over ``ranks`` (JAX ``run_finetune_edge_parallel``, :478-539);
+    every rank calls it with the same arguments.  ``pretrained`` is None
+    or ``{"encoder", "vq"}`` modules; ``model`` a task model that every
+    split starts from in place of a new one (both copied per split).
+
+    Returns this rank's record: the Logger; per epoch the loss parts,
+    accuracies, wall, the step's and the evaluation's device ms and their
+    all-reduces' count and ms (CUDA events), and the idle share ``1 -
+    (step + evaluation - all-reduces) / wall``; the shard's sizes and the
+    build's host seconds; rank 0's k-means inits (host seconds and the
+    kernels' launches on the full graph's layout); the
+    parameters' digest after training; on CUDA the peak device GB; the
+    host clock (``time.time``) at entry, at the first epoch and after
+    training (``span``)."""
+    from stemgnn_tpu_torch.parallel.halo_pretrain import params_digest
+    from stemgnn_tpu_torch.train.graph_setup import fused_full_graph
+    t_entry = time.time()
+    device = ranks.device
+    if cfg.task != "node":
+        raise ValueError("the edge-parallel finetune supports the node task")
+    timer = SpanTimer(device)
+    timed = dataclasses.replace(ranks, timer=timer, owns_group=False)
+    sg = prepare_sharded_graph(ds, ranks)
+    n, n_pad = ds.num_nodes, sg.n_pad
+    y_np = np.zeros(n_pad, np.int64)
+    y_np[:n] = np.asarray(ds.labels)[:n]
+    y = torch.from_numpy(y_np).to(device)
+    train_step, eval_step = make_edge_parallel_steps(cfg, sg, timed, y)
+    rec = dict(rank=ranks.rank, world=ranks.world, device=str(device),
+               backend=ranks.backend, n_pad=n_pad,
+               edges_shard=int(sg.senders.shape[0]),
+               edges=int(sg.edge_mask.sum()), build_s=sg.build_s,
+               kmeans=[])
+    logger = Logger()
+    history = []
+    full_graph, t_train0, m = None, None, None
+    for idx, split in enumerate(ds.splits[:cfg.repeat]):
+        if model is not None:
+            m = copy.deepcopy(model)
+        else:
+            m = task_model_init(
+                cfg, None if pretrained is None
+                else copy.deepcopy(pretrained["encoder"]),
+                None if pretrained is None
+                else copy.deepcopy(pretrained["vq"]),
+                generator=torch.Generator().manual_seed(idx))
+        m.to(device)
+        if cfg.use_vq and not bool(m.vq.initted):
+            # rank 0 encodes the full graph, as JAX's one process does
+            if ranks.rank == 0:
+                t0 = time.perf_counter()
+                if full_graph is None:
+                    full_graph = fused_full_graph(ds, cfg, device=device)
+                plans = list(layout_plans(full_graph.layout))
+                for p in plans:
+                    p.launches.clear()
+                gen = torch.Generator(device=device).manual_seed(idx)
+                maybe_kmeans_init_vq(m, cfg, full_graph, generator=gen)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                rec["kmeans"].append(dict(
+                    split=idx, host_s=time.perf_counter() - t0,
+                    launches=layout_launches(full_graph.layout)))
+            broadcast_module(m.vq, ranks)
+        trainable, _ = _split_params(m, cfg)
+        opt = make_optimizer(trainable, cfg)
+        stopper = EarlyStopping(patience=cfg.early_stop)
+        masks = {}
+        for k in ("train", "valid", "test"):
+            mk = np.zeros(n_pad, bool)
+            mk[:n] = np.asarray(split[k])[:n]
+            masks[k] = mk
+        train_mask = torch.from_numpy(masks["train"]).to(device)
+        # the same draws on every rank (JAX hands every device one key)
+        gen = torch.Generator(device=device).manual_seed(idx)
+        t_train0 = t_train0 or time.time()
+        for epoch in range(cfg.epochs):
+            t_ep = time.perf_counter()
+            with timer("step_ms"):
+                parts = train_step(m, opt, train_mask, gen)
+            step = timer.take()
+            step["step_allreduces"] = timer.counts.get("allreduce_ms", 0)
+            step["step_allreduce_ms"] = step.pop("allreduce_ms", 0.0)
+            with timer("eval_ms"):
+                pred = eval_step(m)
+            pred = pred.cpu().numpy()
+            loss = {k: float(v) for k, v in parts.items()}
+            wall = time.perf_counter() - t_ep
+            spans = dict(step, **timer.take())
+            spans["eval_allreduces"] = timer.counts.get("allreduce_ms", 0)
+            spans["eval_allreduce_ms"] = spans.pop("allreduce_ms", 0.0)
+            result = {"train": evaluate(pred, y_np, masks["train"], cfg.task),
+                      "val": evaluate(pred, y_np, masks["valid"], cfg.task),
+                      "test": evaluate(pred, y_np, masks["test"], cfg.task),
+                      "metric": task2metric[cfg.task]}
+            logger.log(idx, epoch, {"loss": loss["loss"]}, result)
+            busy = (spans.get("step_ms", 0.0) + spans.get("eval_ms", 0.0)
+                    - spans["step_allreduce_ms"]
+                    - spans["eval_allreduce_ms"])
+            history.append(dict(
+                split=idx, epoch=epoch, losses=loss,
+                accs=[result["train"], result["val"], result["test"]],
+                epoch_ms=wall * 1e3,
+                idle=(1.0 - busy / (wall * 1e3) if device.type == "cuda"
+                      else None), **spans))
+            if verbose and ranks.rank == 0:
+                print(f"[edge-parallel split {idx}] epoch {epoch}: loss "
+                      f"{loss['loss']:.4f} | train {result['train']:.2f} "
+                      f"val {result['val']:.2f} test {result['test']:.2f} "
+                      f"| {wall * 1e3:.1f} ms", flush=True)
+            if stopper(result):
+                break
+        if verbose and ranks.rank == 0:
+            b = logger.get_single_best(idx)
+            print(f"[edge-parallel split {idx}] best val={b['val']:.2f} "
+                  f"test={b['test']:.2f}", flush=True)
+    rec.update(logger=logger, history=history,
+               span=(t_entry, t_train0, time.time()),
+               digest=None if m is None else params_digest(m))
+    if device.type == "cuda":
+        rec["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    return rec
+
+
+def _edge_rank(ranks, ds, cfg, pretrained, kw):
+    """One rank of :func:`launch_edge_parallel_finetune`, with the kernels'
+    launches of its run (``ops.scatter.launch_counts``, zeroed before it)."""
+    for name in scatter.launch_counts:
+        scatter.launch_counts[name] = 0
+    rec = run_finetune_edge_parallel(ds, cfg, ranks, pretrained=pretrained,
+                                     **kw)
+    rec["launches"] = dict(scatter.launch_counts)
+    return rec
+
+
+def launch_edge_parallel_finetune(ds, cfg: FinetuneConfig, num_ranks: int,
+                                  device_type: str = "cuda", pretrained=None,
+                                  **kw) -> list:
+    """Run :func:`run_finetune_edge_parallel` on ``num_ranks`` ranks and
+    return their records in rank order: this process as one rank of
+    torchrun's world when its environment is set (a list of one record),
+    else ranks spawned here (``mesh.spawn``; one rank runs in this
+    process; ``mesh.launch`` checks the world).  On the card unless
+    ``device_type="cpu"``: without CUDA a CUDA run raises.  The first line
+    printed names the backend, the world size and each rank's device."""
+    from stemgnn_tpu_torch.parallel import mesh
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the edge-parallel finetune runs on CUDA and "
+                           "CUDA is not available; pass device_type='cpu' "
+                           "to run its ranks on the CPU")
+    env = mesh.env_world()
+    if env is None or env["rank"] == 0:
+        print(f"Edge-parallel full-graph finetune: "
+              f"{mesh.describe_world(num_ranks, device_type)}", flush=True)
+    return mesh.launch(_edge_rank, num_ranks, device_type, ds, cfg,
                        pretrained, kw)

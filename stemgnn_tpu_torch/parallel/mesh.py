@@ -75,7 +75,8 @@ class Ranks:
     ``owns_group``: :func:`init_ranks` created the default group
     (:meth:`close` destroys it).  ``timer``: None, or a function of a span
     name returning a context manager, which times every all_to_all under
-    ``exchange_ms``.  Every collective is the identity at world size 1."""
+    ``exchange_ms`` and every all_reduce under ``allreduce_ms``.  Every
+    collective is the identity at world size 1."""
     rank: int
     world: int
     device: torch.device
@@ -93,7 +94,10 @@ class Ranks:
     def all_reduce(self, t):
         """Sum ``t`` over the ranks, in place; returns ``t``."""
         if self.world > 1:
-            dist.all_reduce(t, group=self.group)
+            span = (self.timer("allreduce_ms") if self.timer is not None
+                    else contextlib.nullcontext())
+            with span:
+                dist.all_reduce(t, group=self.group)
         return t
 
     def all_to_all(self, blocks):

@@ -47,7 +47,10 @@ def test_port_and_smoke_import_without_jax_or_the_jax_package():
                     "ofa.datasets", "ofa.fewshot", "ofa.multi", "ofa.tasks",
                     "ofa.heads", "ofa.train", "zoo.resolver", "zoo.mlp",
                     "zoo.convs_rel", "zoo.stack", "zoo.pooling",
-                    "zoo.predictors", "zoo.losses"):
+                    "zoo.predictors", "zoo.losses",
+                    "parallel.edge_partition", "train.trainer", "utils.grid",
+                    "utils.timer", "utils.graph_utils",
+                    "utils.ckpt_manager"):
             assert "stemgnn_tpu_torch." + mod in names, names
         print(len(names))
     """)
@@ -514,3 +517,34 @@ def test_multi_gpu_pretrain_does_not_slide_to_the_cpu(flags):
     assert "CUDA is not available" in proc.stderr, proc.stderr
     assert "--device cpu" in proc.stderr
     assert "Pre-training on" not in proc.stdout
+
+
+def test_edge_parallel_finetune_does_not_slide_to_the_cpu():
+    """``launch_edge_parallel_finetune`` without a card and without
+    ``device_type="cpu"`` raises naming the CPU request before a rank is
+    spawned or a line printed, and without JAX or the JAX package."""
+    proc = _run("""
+        import torch
+        assert not torch.cuda.is_available()
+        from stemgnn_tpu_torch.core.config import (EncoderConfig,
+                                                   FinetuneConfig, VQConfig)
+        from stemgnn_tpu_torch.data.synthetic import synthetic_node_dataset
+        from stemgnn_tpu_torch.parallel.full_graph import \\
+            launch_edge_parallel_finetune
+        ds = synthetic_node_dataset(num_nodes=60, num_classes=3, feat_dim=8,
+                                    num_splits=1, train_per_split=10,
+                                    val_per_split=10)
+        cfg = FinetuneConfig(
+            encoder=EncoderConfig(input_dim=8, hidden_dim=8, num_layers=2),
+            vq=VQConfig(dim=8, codebook_size=4, codebook_dim=4, heads=2),
+            num_classes=3, epochs=1, repeat=1)
+        bad = [m for m in sys.modules
+               if m == "stemgnn_tpu" or m.startswith("stemgnn_tpu.")
+               or (m.startswith("jax") and sys.modules[m] is not None)]
+        assert not bad, bad
+        launch_edge_parallel_finetune(ds, cfg, 2)
+    """)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr, proc.stderr
+    assert "device_type='cpu'" in proc.stderr
+    assert "Edge-parallel full-graph finetune" not in proc.stdout
