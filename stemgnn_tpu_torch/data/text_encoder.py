@@ -45,6 +45,7 @@ from stemgnn_tpu_torch.nn.distilbert import (DistilBertConfig,
 from stemgnn_tpu_torch.nn.llama import (LlamaConfig,
                                         import_hf_llama_state_dict,
                                         llama_mean_pool)
+from stemgnn_tpu_torch.utils import trace
 
 ENCODER_DIMS = {"hash": 768, "tfidf": 768, "ST": 768, "e5": 1024,
                 "llama2_7b": 4096, "llama2_13b": 5120}
@@ -185,8 +186,8 @@ class _LanguageModelEncoder:
 
     def _run(self, items, tokenize) -> np.ndarray:
         hist = {"texts": len(items), "tokens": 0, "positions": 0,
-                "tokenize_ms": [], "device_ms": []}
-        cuda = self.device.type == "cuda"
+                "tokenize_ms": []}
+        rec = trace.Recorder(self.device)
         outs = []
         t_all = time.perf_counter()
         for i in range(0, len(items), self.batch_size):
@@ -200,17 +201,10 @@ class _LanguageModelEncoder:
             mask_t = (None if mask is None else
                       torch.from_numpy(np.asarray(mask, np.int64)).to(
                           self.device))
-            if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-            with torch.no_grad():
+            with trace.span("sg:text.embed", rec), torch.no_grad():
                 emb = self._embed(ids_t, mask_t)
-            if cuda:
-                stop.record()
             outs.append(emb.cpu().numpy())
-            if cuda:
-                hist["device_ms"].append(start.elapsed_time(stop))
+        hist["device_ms"] = rec.ms("sg:text.embed")
         hist["wall_s"] = time.perf_counter() - t_all
         self.history = hist
         return (np.concatenate(outs, axis=0) if outs

@@ -37,11 +37,11 @@ from stemgnn_tpu_torch.core.graph import host_to_device
 from stemgnn_tpu_torch.data.dataset import TAGDataset
 from stemgnn_tpu_torch.models.task import (maybe_kmeans_init_vq,
                                            task_model_init)
-from stemgnn_tpu_torch.train.finetune_loop import (_Events,
-                                                   _make_node_steps,
+from stemgnn_tpu_torch.train.finetune_loop import (_make_node_steps,
                                                    _split_params,
                                                    make_optimizer)
 from stemgnn_tpu_torch.train.graph_setup import fused_full_graph
+from stemgnn_tpu_torch.utils import trace
 from stemgnn_tpu_torch.utils.convert import from_jax_pytree
 from stemgnn_tpu_torch.utils.metrics import eval_acc
 
@@ -138,18 +138,16 @@ def train_node_with_buckets(ds: TAGDataset, cfg: FinetuneConfig,
 
     best = {"val": -np.inf, "epoch": -1, "state": None, "bucket_acc": None,
             "split_acc": None}
-    events = _Events(device)
+    rec = trace.Recorder(device)
     bad = 0
     for epoch in range(cfg.epochs):
-        events.start("step_ms")
-        losses = train_step(model, opt, train_mask, graph, y, gen,
-                            plain=plain)
-        events.stop("step_ms")
+        with trace.span("sg:finetune.train_step", rec):
+            losses = train_step(model, opt, train_mask, graph, y, gen,
+                                plain=plain)
         if epoch % eval_every:
             continue
-        events.start("eval_ms")
-        pred = eval_step(model, graph, plain=plain)
-        events.stop("eval_ms")
+        with trace.span("sg:finetune.eval", rec):
+            pred = eval_step(model, graph, plain=plain)
         pred = pred.cpu().numpy()
         split_acc = {k: eval_acc(pred, y_np, m) * 100
                      for k, m in masks.items()}
@@ -168,11 +166,21 @@ def train_node_with_buckets(ds: TAGDataset, cfg: FinetuneConfig,
         if verbose and epoch % 50 == 0:
             print(f"  epoch {epoch}: loss={float(losses['loss']):.4f} "
                   f"val={split_acc['valid']:.2f}")
-    events.into(stats)
+    _device_ms_into(stats, rec, step_ms="sg:finetune.train_step",
+                    eval_ms="sg:finetune.eval")
 
     best.update(model=model, masks=masks, bucket_masks=bucket_masks, y=y_np,
                 stats=stats, graph=graph, graph_of=(ds, use_layout, gwin))
     return best
+
+
+def _device_ms_into(stats: dict, rec: trace.Recorder, **keys):
+    """Each call's device ms of span ``keys[key]`` appended to the list
+    ``stats[key]`` (nothing off CUDA)."""
+    for key, name in keys.items():
+        ms = rec.ms(name)
+        if ms:
+            stats.setdefault(key, []).extend(ms)
 
 
 def snapshot_model(best: dict):
@@ -226,12 +234,11 @@ def predict_snapshot_on(ds: TAGDataset, cfg: FinetuneConfig, best: dict, *,
     device = next(model.parameters()).device
     graph = _graph_for(ds, cfg, best, device, use_layout, gwin)
     _, _, eval_step = _make_node_steps(cfg, "node")
-    events = _Events(device)
-    events.start("reeval_ms")
-    pred = eval_step(model, graph, plain=plain)
-    events.stop("reeval_ms")
+    rec = trace.Recorder(device)
+    with trace.span("sg:finetune.eval", rec):
+        pred = eval_step(model, graph, plain=plain)
     pred = pred.cpu().numpy()
-    events.into(best["stats"])
+    _device_ms_into(best["stats"], rec, reeval_ms="sg:finetune.eval")
     return pred
 
 

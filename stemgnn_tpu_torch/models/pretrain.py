@@ -47,6 +47,7 @@ from stemgnn_tpu_torch.nn.decoders import InnerProductDecoder
 from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.layers import Linear
 from stemgnn_tpu_torch.ops.spmm import gather_rows
+from stemgnn_tpu_torch.utils import trace
 from stemgnn_tpu_torch.vq.quantize import VectorQuantize
 
 EPS = 1e-15
@@ -135,6 +136,40 @@ def _l2n(t):
                            min=1e-12)
 
 
+def _recon_losses(model: PretrainModel, cfg: PretrainConfig, query_l,
+                  orig_g, draws: dict, bs: int, seed_mask):
+    """The feature, topology and topo-sem reconstruction terms of the
+    quantized ``query_l`` (:func:`pretrain_forward`)."""
+    # feat recon (pt_model.py:42-43): MSE over the first bs seed nodes
+    recon = model.feat_dec(query_l[:bs]).float()
+    se = (recon - orig_g.node_feat[:bs].float()) ** 2
+    denom = torch.clamp(seed_mask.sum() * se.shape[-1], min=1.0)
+    feat = (se * seed_mask[:, None]).sum() / denom
+
+    zero = torch.zeros((), device=query_l.device)
+    topo = topo_sem = zero
+    if cfg.topo_recon_ratio > 0.0:
+        slots = draws["slots"]
+        w = orig_g.edge_mask[slots].float()
+        w_sum = torch.clamp(w.sum(), min=1.0)
+        pos_s, pos_r = orig_g.senders[slots], orig_g.receivers[slots]
+        pos_p = model.topo_dec(query_l, pos_s, pos_r).float()
+        neg_s, neg_r = draws["neg"]
+        neg_p = model.topo_dec(query_l, neg_s, neg_r).float()
+        pos_loss = -(w * torch.log(pos_p + EPS)).sum() / w_sum
+        neg_loss = -torch.log(1.0 - neg_p + EPS).mean()
+        topo = pos_loss + neg_loss
+        # topo-sem recon (pt_model.py:68-83): edge-feature MSE
+        target = _edge_targets(orig_g, slots)
+        if target is not None:
+            zz = torch.cat([gather_rows(query_l, pos_s),
+                            gather_rows(query_l, pos_r)], dim=-1)
+            pred = model.topo_sem_dec(zz).float()
+            se_e = ((pred - target) ** 2).mean(-1)
+            topo_sem = (w * se_e).sum() / w_sum
+    return feat, topo, topo_sem
+
+
 def pretrain_forward(model: PretrainModel, teacher: Encoder,
                      cfg: PretrainConfig, aug_g, orig_g, *, bs: int,
                      draws: dict, drop_seed=None, generator=None,
@@ -158,60 +193,42 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
     VQ's statistics across ranks; the losses stay this rank's (JAX's
     ``axis_name``).
     The third value is the aux: the VQ's result (``vq``) and the student's
-    MoE router statistics (``moe_stats``)."""
+    MoE router statistics (``moe_stats``).
+
+    Spans (``utils.trace``): the student encoder in
+    ``sg:pretrain.student``, the VQ in ``sg:vq``, the teacher in
+    ``sg:pretrain.teacher``, and the decoders, the projector and the loss
+    terms in ``sg:pretrain.losses`` (twice: before and after the
+    teacher)."""
     model.train()
     teacher.train()
     use_hash = (orig_g.layout is not None and cfg.edge_p > 0
                 and drop_seed is not None)
     # the sage layers take the dropout as drop_hash over the layout; an MoE
     # layer reads the augmented view's edge mask, which carries it
-    z, enc_aux = model.encoder(
-        aug_g.node_feat, aug_g.senders, aug_g.receivers,
-        edge_feat=aug_g.edge_feat, edge_mask=aug_g.edge_mask,
-        node_mask=aug_g.node_mask, layout=aug_g.layout,
-        edge_table=aug_g.edge_table, plain=plain, generator=generator,
-        drop_hash=(drop_seed, cfg.edge_p) if use_hash else None,
-        gumbel=draws.get("gumbel"), return_aux=True, reduce=reduce)
+    with trace.span("sg:pretrain.student"):
+        z, enc_aux = model.encoder(
+            aug_g.node_feat, aug_g.senders, aug_g.receivers,
+            edge_feat=aug_g.edge_feat, edge_mask=aug_g.edge_mask,
+            node_mask=aug_g.node_mask, layout=aug_g.layout,
+            edge_table=aug_g.edge_table, plain=plain, generator=generator,
+            drop_hash=(drop_seed, cfg.edge_p) if use_hash else None,
+            gumbel=draws.get("gumbel"), return_aux=True, reduce=reduce)
     vq_res = model.vq(z, mask=aug_g.node_mask,
                       ortho_ids=draws.get("ortho_ids"), generator=generator,
                       gumbel=draws.get("vq_gumbel"),
                       expire_idx=draws.get("vq_expire"), reduce=reduce)
-    query = vq_res["quantize"]
-    seed_mask = orig_g.node_mask[:bs].float()
-    # loss_bf16: the decoders read a bf16 copy of the query
-    query_l = query.to(torch.bfloat16) if cfg.loss_bf16 else query
-
-    # feat recon (pt_model.py:42-43): MSE over the first bs seed nodes
-    recon = model.feat_dec(query_l[:bs]).float()
-    se = (recon - orig_g.node_feat[:bs].float()) ** 2
-    denom = torch.clamp(seed_mask.sum() * se.shape[-1], min=1.0)
-    feat = (se * seed_mask[:, None]).sum() / denom
-
-    zero = torch.zeros((), device=query.device)
-    topo = topo_sem = zero
-    if cfg.topo_recon_ratio > 0.0:
-        slots = draws["slots"]
-        w = orig_g.edge_mask[slots].float()
-        w_sum = torch.clamp(w.sum(), min=1.0)
-        pos_s, pos_r = orig_g.senders[slots], orig_g.receivers[slots]
-        pos_p = model.topo_dec(query_l, pos_s, pos_r).float()
-        neg_s, neg_r = draws["neg"]
-        neg_p = model.topo_dec(query_l, neg_s, neg_r).float()
-        pos_loss = -(w * torch.log(pos_p + EPS)).sum() / w_sum
-        neg_loss = -torch.log(1.0 - neg_p + EPS).mean()
-        topo = pos_loss + neg_loss
-        # topo-sem recon (pt_model.py:68-83): edge-feature MSE
-        target = _edge_targets(orig_g, slots)
-        if target is not None:
-            zz = torch.cat([gather_rows(query_l, pos_s),
-                            gather_rows(query_l, pos_r)], dim=-1)
-            pred = model.topo_sem_dec(zz).float()
-            se_e = ((pred - target) ** 2).mean(-1)
-            topo_sem = (w * se_e).sum() / w_sum
+    with trace.span("sg:pretrain.losses"):
+        seed_mask = orig_g.node_mask[:bs].float()
+        # loss_bf16: the decoders read a bf16 copy of the query
+        query_l = (vq_res["quantize"].to(torch.bfloat16) if cfg.loss_bf16
+                   else vq_res["quantize"])
+        feat, topo, topo_sem = _recon_losses(model, cfg, query_l, orig_g,
+                                             draws, bs, seed_mask)
 
     # sem recon (pt_model.py:86-102): cosine alignment to the teacher's
     # encoding of the clean graph, detached
-    with torch.no_grad():
+    with trace.span("sg:pretrain.teacher"), torch.no_grad():
         tz = teacher(orig_g.node_feat, orig_g.senders, orig_g.receivers,
                      edge_feat=orig_g.edge_feat, edge_mask=orig_g.edge_mask,
                      node_mask=orig_g.node_mask, layout=orig_g.layout,
@@ -221,17 +238,18 @@ def pretrain_forward(model: PretrainModel, teacher: Encoder,
                                     else None),
                      gumbel=draws.get("teacher_gumbel"),
                      reduce=reduce).float()
-    hproj = model.sem_projector(query_l).float()
-    cos = 1.0 - (_l2n(tz[:bs]) * _l2n(hproj[:bs])).sum(-1)
-    sem = (cos * seed_mask).sum() / torch.clamp(seed_mask.sum(), min=1.0)
-
-    commit = vq_res["loss"]
-    env = enc_aux["env_reg"]
-    losses = {"feat_recon_loss": feat, "topo_recon_loss": topo,
-              "topo_sem_recon_loss": topo_sem, "sem_recon_loss": sem,
-              "commit_loss": commit, "env_reg_loss": env}
-    total = (cfg.feat_lambda * feat + cfg.topo_lambda * topo
-             + cfg.topo_sem_lambda * topo_sem + cfg.sem_lambda * sem
-             + commit + cfg.lamda_env * env)
+    with trace.span("sg:pretrain.losses"):
+        hproj = model.sem_projector(query_l).float()
+        cos = 1.0 - (_l2n(tz[:bs]) * _l2n(hproj[:bs])).sum(-1)
+        sem = (cos * seed_mask).sum() / torch.clamp(seed_mask.sum(),
+                                                    min=1.0)
+        commit = vq_res["loss"]
+        env = enc_aux["env_reg"]
+        losses = {"feat_recon_loss": feat, "topo_recon_loss": topo,
+                  "topo_sem_recon_loss": topo_sem, "sem_recon_loss": sem,
+                  "commit_loss": commit, "env_reg_loss": env}
+        total = (cfg.feat_lambda * feat + cfg.topo_lambda * topo
+                 + cfg.topo_sem_lambda * topo_sem + cfg.sem_lambda * sem
+                 + commit + cfg.lamda_env * env)
     return total, losses, {"vq": vq_res,
                            "moe_stats": enc_aux["moe_stats"]}

@@ -31,6 +31,7 @@ from stemgnn_tpu_torch.core.graph import (Graph, graph_to_device,
                                            host_to_device, round_up)
 from stemgnn_tpu_torch.ofa.prompt import collate_prompted
 from stemgnn_tpu_torch.train.optim import Optimizer
+from stemgnn_tpu_torch.utils import trace
 from stemgnn_tpu_torch.utils.metrics import _binary_auc
 from stemgnn_tpu_torch.zoo.mlp import MLP
 from stemgnn_tpu_torch.zoo.stack import GNNStack
@@ -98,37 +99,6 @@ def make_batches(dataset, idxs, batch_size: int, node_bucket: int = 1024,
     return batches
 
 
-class _Timer:
-    """Device milliseconds of a run of calls: CUDA events on the card,
-    the host's clock on the CPU; read once at the end."""
-
-    def __init__(self, device):
-        self.cuda = device.type == "cuda"
-        self.spans = []
-
-    def __enter__(self):
-        if self.cuda:
-            self.start = torch.cuda.Event(enable_timing=True)
-            self.start.record()
-        else:
-            self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        if self.cuda:
-            stop = torch.cuda.Event(enable_timing=True)
-            stop.record()
-            self.spans.append((self.start, stop))
-        else:
-            self.spans.append((time.perf_counter() - self.t0) * 1e3)
-        return False
-
-    def ms(self):
-        if self.cuda:
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in self.spans]
-        return list(self.spans)
-
-
 def ofa_train_eval(dataset, train_idx: Sequence[int],
                    eval_idx: Sequence[int], *, dim: int, kind: str = "gine",
                    num_layers: int = 2, epochs: int = 10, lr: float = 1e-3,
@@ -158,7 +128,7 @@ def ofa_train_eval(dataset, train_idx: Sequence[int],
     model = model.to(dev)
     opt = Optimizer(model.parameters(), lr, weight_decay=weight_decay)
     host_ms, eval_host_ms = [], []
-    steps, evals = _Timer(dev), _Timer(dev)
+    rec = trace.Recorder(dev)
     losses = []
 
     train_batches = make_batches(dataset, np.asarray(train_idx), batch_size,
@@ -168,7 +138,7 @@ def ofa_train_eval(dataset, train_idx: Sequence[int],
         order = rng_np.permutation(len(train_batches))
         for bi in order:
             b = train_batches[bi]
-            with steps:
+            with trace.span("sg:ofa.train_step", rec):
                 opt.zero_grad()
                 loss = bce_loss(model(b.g), b.valid, b.labels)
                 loss.backward()
@@ -184,7 +154,7 @@ def ofa_train_eval(dataset, train_idx: Sequence[int],
     outs = []
     with torch.no_grad():
         for b in eval_batches:
-            with evals:
+            with trace.span("sg:ofa.eval", rec):
                 s = torch.where(b.true_mask, model(b.g),
                                 torch.full((), -torch.inf, device=dev))
             outs.append(s.cpu().numpy())
@@ -195,8 +165,11 @@ def ofa_train_eval(dataset, train_idx: Sequence[int],
     if stats is not None:
         stats.update(
             losses=[float(x) for x in losses], host_ms=host_ms,
-            eval_host_ms=eval_host_ms, step_ms=steps.ms(),
-            eval_ms=evals.ms(), wall_s=time.perf_counter() - t_call,
+            eval_host_ms=eval_host_ms,
+            # device ms on the card, the host's clock on the CPU
+            step_ms=rec.ms("sg:ofa.train_step", device=rec.cuda),
+            eval_ms=rec.ms("sg:ofa.eval", device=rec.cuda),
+            wall_s=time.perf_counter() - t_call,
             samples=len(train_idx) * epochs + len(eval_idx))
     return loss, metric
 

@@ -104,7 +104,6 @@ ported and raises.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from stemgnn_tpu_torch.ops.edge_layout import EdgeLayout, HubDense, LocSplit
 from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep
@@ -114,6 +113,7 @@ from stemgnn_tpu_torch.ops.scatter import (gathered_scatter_rows_sorted,
                                            masked_scatter_rows_sorted_ref,
                                            scatter_rows_sorted,
                                            scatter_rows_sorted_ref)
+from stemgnn_tpu_torch.utils import trace
 
 
 def table_row(edge_table, mdtype):
@@ -281,20 +281,28 @@ def masked_hub_blocks_dense(hub: HubDense, seed, p: float):
 
 class _StepMasks:
     """What a step's edge masks over one layout compute once and share: a
-    memo of named results (each computed inside a profiler range of its
-    kind), and 1 / the kept in-degree from the subclass's ``kept_deg``."""
+    memo of named results, and 1 / the kept in-degree from the subclass's
+    ``kept_deg``.  Each result is first computed in an
+    ``sg:agg.masks.<kind>`` span (``utils.trace``); the masks it computes
+    on the way count to it, so the kinds' spans never nest."""
 
     def __init__(self, layout: EdgeLayout):
         self.layout = layout
         self._memo = {}
+        self._building = False
 
     def _get(self, key, fn):
         if key not in self._memo:
-            # one profiler range per kind of mask (profile_pretrain reads
-            # their device time)
-            kind = key if isinstance(key, str) else key[0]
-            with record_function("drop_hash:" + kind):
+            if self._building:
                 self._memo[key] = fn()
+                return self._memo[key]
+            kind = key if isinstance(key, str) else key[0]
+            self._building = True
+            try:
+                with trace.span("sg:agg.masks." + kind):
+                    self._memo[key] = fn()
+            finally:
+                self._building = False
         return self._memo[key]
 
     def inv_deg(self):
@@ -454,7 +462,8 @@ def _hub_split(src, hub: HubDense, order: str, layout: EdgeLayout, *,
     if drop is not None:
         blocks = drop.hub(hub, order)[:2]
         keep = drop.keep(hub.tail, order)
-    init = hub_partials(src, hub, t0, relu, blocks, out_dtype)
+    with trace.span("sg:agg.hub"):
+        init = hub_partials(src, hub, t0, relu, blocks, out_dtype)
     sp = _direction_split(hub.tail, order)
     if sp is not None and drop is None:
         return _split(src, sp, order, layout.num_nodes_padded, relu=relu,
@@ -509,11 +518,12 @@ def _typed_forward(x, layout, table, reduce, mdtype, plain, keep=None):
     hub = layout.hub_r
     if hub is not None and hub.hub_xe is not None \
             and mdtype == torch.bfloat16 and keep is None:
-        xh = torch.relu(src.index_select(0, hub.hub_ids)
-                        + tb.index_select(0, hub.hub_xe))
-        # bf16 partials under a bf16 output, as JAX's hub_bf16_acc
-        return _typed_tail(src, tb, hub.tail, n_pad,
-                           init=_mm(hub.cnt, xh).to(out_dtype),
+        with trace.span("sg:agg.hub"):
+            xh = torch.relu(src.index_select(0, hub.hub_ids)
+                            + tb.index_select(0, hub.hub_xe))
+            # bf16 partials under a bf16 output, as JAX's hub_bf16_acc
+            init = _mm(hub.cnt, xh).to(out_dtype)
+        return _typed_tail(src, tb, hub.tail, n_pad, init=init,
                            scale=inv_deg(layout) if reduce == "mean"
                            else None, out_dtype=out_dtype, plain=plain)
     # no epilogue: the f32 sums, then the mean, then the cast
@@ -618,7 +628,8 @@ def _backward(g, x, layout, edge_table, reduce, mdtype, plain, drop=None,
 
 class _FusedSage(torch.autograd.Function):
     """The aggregation with its VJP, factored or typed (JAX ``custom_vjp``
-    ``f``/``f_fwd``/``f_bwd``)."""
+    ``f``/``f_fwd``/``f_bwd``); the backward runs in an ``sg:agg`` span,
+    as ``ops.spmm.sage_aggregate``'s forward does."""
 
     @staticmethod
     def forward(ctx, x, edge_table, layout, reduce, mdtype, plain, drop,
@@ -632,6 +643,11 @@ class _FusedSage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with trace.span("sg:agg"):
+            return _FusedSage._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         x, edge_table = ctx.saved_tensors
         dx = dtable = None
         # no launch when x needs no gradient (layer 1's node features),

@@ -35,6 +35,7 @@ import torch
 from stemgnn_tpu_torch.ops import segment
 from stemgnn_tpu_torch.ops.fused_sage import fused_sage_aggregate
 from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep
+from stemgnn_tpu_torch.utils import trace
 
 
 class _GatherRows(torch.autograd.Function):
@@ -165,7 +166,17 @@ def sage_aggregate(x, senders, receivers, edge_feat=None, edge_mask=None,
     with a layout, an ``ops.fused_sage.DropView``) drops the edge pairs the
     pair hash picks.  ``shard_ranks``: the edges are this rank's shard of
     an edge-partitioned graph, summed over these ranks (module
-    docstring); it takes neither a layout nor the edge dropout."""
+    docstring); it takes neither a layout nor the edge dropout.  The
+    forward runs in an ``sg:agg`` span (``utils.trace``)."""
+    with trace.span("sg:agg"):
+        return _sage_aggregate(x, senders, receivers, edge_feat, edge_mask,
+                               num_nodes, reduce, relu, layout, edge_table,
+                               bf16_messages, plain, drop_hash, shard_ranks)
+
+
+def _sage_aggregate(x, senders, receivers, edge_feat, edge_mask, num_nodes,
+                    reduce, relu, layout, edge_table, bf16_messages, plain,
+                    drop_hash, shard_ranks):
     if shard_ranks is not None:
         if layout is not None or drop_hash is not None:
             raise ValueError("the edge-sharded aggregation takes no layout "

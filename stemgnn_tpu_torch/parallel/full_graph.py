@@ -89,7 +89,9 @@ from stemgnn_tpu_torch.parallel.halo import (all_reduce_sum,
                                              part_to_device,
                                              relabel_dataset_balanced,
                                              remote_nodes, shard_of)
-from stemgnn_tpu_torch.train.finetune_loop import _split_params, make_optimizer
+from stemgnn_tpu_torch.train.finetune_loop import (SPAN_KEYS, _split_params,
+                                                   make_optimizer)
+from stemgnn_tpu_torch.utils import trace
 from stemgnn_tpu_torch.utils.early_stop import EarlyStopping
 from stemgnn_tpu_torch.utils.logger import Logger
 from stemgnn_tpu_torch.utils.metrics import evaluate, task2metric
@@ -203,41 +205,14 @@ def layout_launches(lay) -> dict:
     return out
 
 
-class SpanTimer:
-    """CUDA-event spans of named regions on one device (nothing on the
-    CPU), read at :meth:`take`; ``counts`` holds the spans of each name
-    that the last :meth:`take` read (on any device)."""
-
-    def __init__(self, device):
-        self.on = device.type == "cuda"
-        self.spans = {}
-        self.calls = {}
-        self.counts = {}
-
-    def __call__(self, name):
-        timer = self
-
-        class _Span:
-            def __enter__(self):
-                if timer.on:
-                    self.a = torch.cuda.Event(enable_timing=True)
-                    self.a.record()
-
-            def __exit__(self, *exc):
-                timer.calls[name] = timer.calls.get(name, 0) + 1
-                if timer.on:
-                    b = torch.cuda.Event(enable_timing=True)
-                    b.record()
-                    timer.spans.setdefault(name, []).append((self.a, b))
-        return _Span()
-
-    def take(self) -> dict:
-        if self.on:
-            torch.cuda.synchronize()
-        out = {k: sum(a.elapsed_time(b) for a, b in v)
-               for k, v in self.spans.items()}
-        self.spans, self.counts, self.calls = {}, self.calls, {}
-        return out
+def take_spans(timer: trace.Recorder):
+    """``(ms, calls)`` of the spans ``timer`` recorded since the last take,
+    by history key (``SPAN_KEYS``): the device ms (CUDA only) and the
+    calls (on any device)."""
+    spans = timer.take()
+    ms = {SPAN_KEYS[k]: t["device_ms"] for k, t in spans.items()
+          if t["device_ms"] is not None}
+    return ms, {SPAN_KEYS[k]: t["calls"] for k, t in spans.items()}
 
 
 def _encode(model, hg: HaloGraph, ranks, generator=None):
@@ -386,7 +361,7 @@ def run_finetune_halo_parallel(ds, cfg: FinetuneConfig, ranks,
         return out
 
     y = torch.from_numpy(block(ds.labels).astype(np.int64)).to(device)
-    timer = SpanTimer(device)
+    timer = trace.Recorder(device)
     timed = dataclasses.replace(ranks, timer=timer, owns_group=False)
     train_step, _, metrics_step = make_halo_steps(cfg, hg, timed, y)
     d_in = hg.x.shape[1]
@@ -433,19 +408,19 @@ def run_finetune_halo_parallel(ds, cfg: FinetuneConfig, ranks,
         t_train0 = t_train0 or time.time()
         for epoch in range(cfg.epochs):
             t_ep = time.perf_counter()
-            with timer("step_ms"):
+            with trace.span("sg:finetune.train_step", timer):
                 parts = train_step(model, opt, train_mask, gen)
             parts.pop("moe_stats", None)
             if (epoch + 1) % eval_every and epoch + 1 < cfg.epochs:
                 walls.append(time.perf_counter() - t_ep)
                 continue
-            with timer("eval_ms"):
+            with trace.span("sg:finetune.eval", timer):
                 accs = metrics_step(model, masks3)
             accs = accs.cpu().tolist()
             loss = {k: float(v) for k, v in parts.items()}
             wall = time.perf_counter() - t_ep
             walls.append(wall)
-            spans = timer.take()
+            spans = take_spans(timer)[0]
             busy = (spans.get("step_ms", 0.0) + spans.get("eval_ms", 0.0)
                     - spans.get("exchange_ms", 0.0))
             result = {"train": accs[0], "val": accs[1], "test": accs[2],
@@ -643,7 +618,7 @@ def run_finetune_edge_parallel(ds, cfg: FinetuneConfig, ranks,
     device = ranks.device
     if cfg.task != "node":
         raise ValueError("the edge-parallel finetune supports the node task")
-    timer = SpanTimer(device)
+    timer = trace.Recorder(device)
     timed = dataclasses.replace(ranks, timer=timer, owns_group=False)
     sg = prepare_sharded_graph(ds, ranks)
     n, n_pad = ds.num_nodes, sg.n_pad
@@ -701,18 +676,19 @@ def run_finetune_edge_parallel(ds, cfg: FinetuneConfig, ranks,
         t_train0 = t_train0 or time.time()
         for epoch in range(cfg.epochs):
             t_ep = time.perf_counter()
-            with timer("step_ms"):
+            with trace.span("sg:finetune.train_step", timer):
                 parts = train_step(m, opt, train_mask, gen)
-            step = timer.take()
-            step["step_allreduces"] = timer.counts.get("allreduce_ms", 0)
+            step, calls = take_spans(timer)
+            step["step_allreduces"] = calls.get("allreduce_ms", 0)
             step["step_allreduce_ms"] = step.pop("allreduce_ms", 0.0)
-            with timer("eval_ms"):
+            with trace.span("sg:finetune.eval", timer):
                 pred = eval_step(m)
             pred = pred.cpu().numpy()
             loss = {k: float(v) for k, v in parts.items()}
             wall = time.perf_counter() - t_ep
-            spans = dict(step, **timer.take())
-            spans["eval_allreduces"] = timer.counts.get("allreduce_ms", 0)
+            ms, calls = take_spans(timer)
+            spans = dict(step, **ms)
+            spans["eval_allreduces"] = calls.get("allreduce_ms", 0)
             spans["eval_allreduce_ms"] = spans.pop("allreduce_ms", 0.0)
             result = {"train": evaluate(pred, y_np, masks["train"], cfg.task),
                       "val": evaluate(pred, y_np, masks["valid"], cfg.task),

@@ -56,9 +56,8 @@ from stemgnn_tpu_torch.ops.fused_sage import (DropView, direction_keep,
 from stemgnn_tpu_torch.ops.pairhash import pair_hash_keep
 from stemgnn_tpu_torch.parallel import mesh
 from stemgnn_tpu_torch.parallel.data_parallel import replicated_update
-from stemgnn_tpu_torch.parallel.full_graph import (SpanTimer,
-                                                   layout_launches,
-                                                   layout_plans)
+from stemgnn_tpu_torch.parallel.full_graph import (layout_launches,
+                                                   layout_plans, take_spans)
 from stemgnn_tpu_torch.parallel.halo import (broadcast_module,
                                              build_halo_drop_gids,
                                              build_halo_layouts,
@@ -69,6 +68,7 @@ from stemgnn_tpu_torch.parallel.halo import (broadcast_module,
                                              rank_sum,
                                              remote_nodes, shard_of)
 from stemgnn_tpu_torch.train import augment
+from stemgnn_tpu_torch.utils import trace
 from stemgnn_tpu_torch.vq.codebook import orthogonal_subset
 
 
@@ -503,7 +503,7 @@ def run_pretrain_halo(merged, cfg: PretrainConfig, ranks, num_shards: int,
     nb = hg.nb
     n_pad = S * nb
     opt = make_pretrain_optimizer(model, cfg)
-    timer = SpanTimer(dev)
+    timer = trace.Recorder(dev)
     timed = dataclasses.replace(edge, timer=timer)
     base = cfg.seed * 65_536 + data
     gen_data = torch.Generator(device=dev).manual_seed(base)
@@ -537,7 +537,7 @@ def run_pretrain_halo(merged, cfg: PretrainConfig, ranks, num_shards: int,
         draws = (draw_fn(hg, data, edge.rank) if draw_fn is not None
                  else draw_halo_step(cfg, hg, gen_data, gen_rank))
         t1 = time.perf_counter()
-        with timer("step_ms"):
+        with trace.span("sg:pretrain.step", timer):
             losses = halo_pretrain_step(model, teacher, opt, cfg, hg, seed_w,
                                         draws, timed, ranks, gen_rank)
         t2 = time.perf_counter()
@@ -549,7 +549,7 @@ def run_pretrain_halo(merged, cfg: PretrainConfig, ranks, num_shards: int,
         t_seed += t1 - t_ep
         t_step += t2 - t1
         t_read += t3 - t2
-        spans = timer.take()
+        spans = take_spans(timer)[0]
         entry = dict(losses=metrics, epoch_ms=metrics["epoch_s"] * 1e3,
                      launches={k: layout_launches(v) for k, v in lays.items()},
                      **spans)

@@ -52,6 +52,8 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from stemgnn_tpu_torch.utils import trace
+
 
 def host_rank_limit() -> int:
     """The ranks this host can hold: one process per CPU core it lets this
@@ -73,17 +75,18 @@ class Ranks:
     """One rank's view of the run: its rank, the world size, its device,
     the backend and the process group of the edge axis (all ranks).
     ``owns_group``: :func:`init_ranks` created the default group
-    (:meth:`close` destroys it).  ``timer``: None, or a function of a span
-    name returning a context manager, which times every all_to_all under
-    ``exchange_ms`` and every all_reduce under ``allreduce_ms``.  Every
-    collective is the identity at world size 1."""
+    (:meth:`close` destroys it).  ``timer``: None, or a
+    ``utils.trace.Recorder`` that times every all_to_all in an
+    ``sg:mesh.exchange`` span and every all_reduce in an
+    ``sg:mesh.allreduce`` span.  Every collective is the identity at world
+    size 1."""
     rank: int
     world: int
     device: torch.device
     backend: str
     group: Optional[object] = None
     owns_group: bool = False
-    timer: Optional[Callable] = None
+    timer: Optional[trace.Recorder] = None
 
     def describe(self) -> str:
         shared = (" (ranks share the card)" if self.backend == "gloo"
@@ -94,9 +97,7 @@ class Ranks:
     def all_reduce(self, t):
         """Sum ``t`` over the ranks, in place; returns ``t``."""
         if self.world > 1:
-            span = (self.timer("allreduce_ms") if self.timer is not None
-                    else contextlib.nullcontext())
-            with span:
+            with trace.span("sg:mesh.allreduce", self.timer):
                 dist.all_reduce(t, group=self.group)
         return t
 
@@ -106,9 +107,7 @@ class Ranks:
         rank's block to itself does not travel: it comes back zero."""
         if self.world == 1:
             return blocks.clone()
-        span = (self.timer("exchange_ms") if self.timer is not None
-                else contextlib.nullcontext())
-        with span:
+        with trace.span("sg:mesh.exchange", self.timer):
             others = [j for j in range(self.world) if j != self.rank]
             src = blocks[others].contiguous()
             recv = torch.empty_like(src)

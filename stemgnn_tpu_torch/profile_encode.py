@@ -117,10 +117,12 @@ def kernel_table(prof, reps: int, wall_ms: float, top: int, unit: str,
     """Print the device busy share of a profiled window of ``reps`` runs and
     its ``top`` kernels by device time per run, then the port's own kernels
     (``csrc/``) that the top rows leave out; return the events.  The
-    annotation ``ranges`` span their kernels and stay out of the sums."""
+    annotation ``ranges`` and the program's spans (``sg:*``,
+    ``utils.trace``) span their kernels and stay out of the sums."""
     events = prof.key_averages()
     kernels = sorted((e for e in events
-                      if _on_device(e) and e.key not in ranges),
+                      if _on_device(e) and e.key not in ranges
+                      and not e.key.startswith("sg:")),
                      key=_device_us, reverse=True)
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     print(f"profiled {reps} {unit}s: wall {wall_ms:.3f} ms, device "

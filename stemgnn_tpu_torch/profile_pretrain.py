@@ -12,13 +12,15 @@ decoders) and its EMA teacher, and runs ``train.pretrain_loop``'s step at
 
   * host stage times and the layout;
   * the kernel launches of one step;
-  * the step's time by CUDA events (mean of ``--reps``), split into the
-    forward with the losses (the draws and augmentation included), the
-    backward, and AdamW with the clip plus the teacher's EMA update;
+  * the step's device ms (mean of ``--reps``) in each span the step
+    itself records (``utils.trace``): the student (the draws, the
+    augmented view and the student encoder), the VQ, the losses, the
+    teacher, the backward, and the update (AdamW with the clip, the EMA
+    codebook and the teacher's EMA update);
   * the step's device time by kernel (``torch.profiler``), the device's
     busy share, and the shares of kernel 1, kernel 2 (and their second
     pass), the GEMMs, the other (elementwise, reduction, copy) kernels, and
-    the dropout's masks (the ``drop_hash:*`` ranges, whose kernels the
+    the dropout's masks (the ``sg:agg.masks.*`` spans, whose kernels the
     other rows also count);
   * the masked hub blocks of both directions by CUDA events as the step
     forms them (the blocks' nonzero pairs hashed) and in the dense form
@@ -41,7 +43,7 @@ loop's own history, the host ms a batch of the sampler, of the layout build
 and of the transfer, the wall ms a step, the device ms a step (CUDA events
 recorded in the loop) and the device's idle share, plus the kernel launches
 a step and peak device memory; one batch gives the step's split by stage
-(CUDA events); and two runs under ``torch.profiler`` that differ by
+(its spans); and two runs under ``torch.profiler`` that differ by
 ``--reps`` steps give the device ms a step by kernel group.
 
 Needs a CUDA device.
@@ -64,10 +66,7 @@ from stemgnn_tpu_torch.data.merge import merge_datasets
 from stemgnn_tpu_torch.data.registry import load_dataset
 from stemgnn_tpu_torch.data.sampler import (CSCGraph, NeighborBatchIterator,
                                             get_train_node_idx)
-from stemgnn_tpu_torch.models.pretrain import (PretrainModel,
-                                               ema_update_teacher,
-                                               make_teacher,
-                                               pretrain_forward)
+from stemgnn_tpu_torch.models.pretrain import PretrainModel, make_teacher
 from stemgnn_tpu_torch.ops import scatter as sc
 from stemgnn_tpu_torch.ops.fused_sage import (hub_partials,
                                               masked_hub_blocks,
@@ -76,18 +75,21 @@ from stemgnn_tpu_torch.ops.fused_sage import (hub_partials,
 from stemgnn_tpu_torch.profile_encode import (_device_us, _on_device,
                                               card_line, kernel_table)
 from stemgnn_tpu_torch.train.graph_setup import describe_layout
-from stemgnn_tpu_torch.train.pretrain_loop import (augmented, batch_graph,
-                                                   draw_step,
+from stemgnn_tpu_torch.utils import trace
+from stemgnn_tpu_torch.train.pretrain_loop import (batch_graph,
                                                    make_pretrain_optimizer,
                                                    make_pretrain_step,
                                                    pretrain_graph,
                                                    run_pretrain, table_dtype)
 
-STAGES = ("forward+losses", "backward", "AdamW+clip+EMA")
+# the spans that partition the step (train.pretrain_loop.make_pretrain_step)
+STAGES = ("sg:pretrain.student", "sg:vq", "sg:pretrain.losses",
+          "sg:pretrain.teacher", "sg:train.backward", "sg:train.update")
 # the minibatch mode: the reference's batches (configs/pretrain.yaml)
 MB_BATCH, MB_FANOUT = 1024, 10
-# the profiler ranges of ops.fused_sage.DropView's masks
-DROP_RANGES = ("drop_hash:hub", "drop_hash:keep", "drop_hash:inv_deg")
+# the spans of ops.fused_sage.DropView's masks
+DROP_RANGES = ("sg:agg.masks.hub", "sg:agg.masks.keep",
+               "sg:agg.masks.kept_deg")
 # device kernels by name, in the order they are matched
 GROUPS = (("kernel 1", ("scatter_rows_kernel",)),
           ("kernel 2", ("gathered_rows_kernel",)),
@@ -172,6 +174,7 @@ def group_shares(prof, reps: int):
         us = _device_us(e) / reps
         if e.key in DROP_RANGES:
             ranges[e.key] = ranges.get(e.key, 0.0) + us / 1e3
+        if e.key.startswith("sg:"):         # the program's spans
             continue
         for name, needles in GROUPS:
             if any(n in e.key for n in needles):
@@ -181,27 +184,17 @@ def group_shares(prof, reps: int):
 
 
 def stage_ms(cfg, model, teacher, opt, g, gen, bs: int, reps: int):
-    """The step's device ms by stage (CUDA events, mean of ``reps``):
-    forward with the losses (draws and augmentation included), backward,
-    and AdamW with the clip plus the teacher's EMA update."""
-    out = np.zeros(len(STAGES))
-    for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        draws = draw_step(cfg, g, gen)
-        opt.zero_grad()
-        loss, _, _ = pretrain_forward(
-            model, teacher, cfg, augmented(cfg, g, draws), g, bs=bs,
-            draws=draws, drop_seed=draws["drop_seed"], generator=gen)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        opt.step()
-        ema_update_teacher(teacher, model.encoder, cfg.sem_encoder_decay)
-        ev[3].record()
-        torch.cuda.synchronize()
-        out += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-    return out / reps
+    """The device ms of each of :data:`STAGES`, mean of ``reps`` steps of
+    ``train.pretrain_loop.make_pretrain_step`` (the spans it records under
+    ``utils.trace.enabled``)."""
+    step = make_pretrain_step(cfg, bs, generator=gen)
+    trace.take()
+    with trace.enabled():
+        for _ in range(reps):
+            step(model, teacher, opt, g)
+    spans = trace.take()
+    return np.array([spans.get(s, {}).get("device_ms") or 0.0
+                     for s in STAGES]) / reps
 
 
 def print_groups(per: dict, ranges: dict, busy: float):
@@ -276,8 +269,8 @@ def minibatch_main(args, dev):
                           args.reps)
         print(f"[{route}] one batch of {ig.n_node} nodes / {ig.n_edge} "
               f"edges (padded {ig.num_nodes_padded} / "
-              f"{ig.num_edges_padded}): step {stages.sum():.3f} ms (CUDA "
-              f"events, mean of {args.reps}): " + ", ".join(
+              f"{ig.num_edges_padded}): step {stages.sum():.3f} ms (its "
+              f"spans, mean of {args.reps}): " + ", ".join(
                   f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stages)),
               flush=True)
         del model, teacher, opt, g, node_table, edge_table
@@ -362,7 +355,7 @@ def main(argv=None):
                                  for k, v in losses.items()))
 
     stages = stage_ms(cfg, model, teacher, opt, g, gen, bs, args.reps)
-    print(f"pretrain step: {stages.sum():.3f} ms (CUDA events, mean of "
+    print(f"pretrain step: {stages.sum():.3f} ms (its spans, mean of "
           f"{args.reps}): " + ", ".join(
               f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stages)),
           flush=True)
@@ -377,7 +370,7 @@ def main(argv=None):
     events = kernel_table(prof, args.reps, wall_ms, args.top, "step",
                           ranges=DROP_RANGES)
     busy = sum(_device_us(e) for e in events if _on_device(e)
-               and e.key not in DROP_RANGES) / 1e3 / args.reps
+               and not e.key.startswith("sg:")) / 1e3 / args.reps
     print_groups(*group_shares(prof, args.reps), busy)
 
     seed = torch.tensor(12345, device=dev)

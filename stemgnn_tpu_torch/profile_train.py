@@ -14,8 +14,9 @@ finetune instead: ``kg_synthetic`` (11 relation types) at WN18RR's size,
 ``--backbone gcn|gin|gat`` and ``--moe_layers last|all`` (3 experts,
 ``lamda_env`` 0.1) profile the other encoders, whose aggregations are
 gathers and ``index_add_`` (no layout for gcn, gin and gat).  Prints the
-step's time and its stages (forward
-with the loss, backward, optimizer) by CUDA events, the evaluation's time,
+step's device time and its stages (forward with the loss, backward,
+update), from the spans the step itself records (``utils.trace``), the
+evaluation's,
 the kernel launches of one step, the step's device time by kernel from
 ``torch.profiler``, the device's busy share of the profiled window, and the
 card's name and power limit.  Needs a CUDA device.
@@ -42,8 +43,10 @@ from stemgnn_tpu_torch.train.finetune_loop import (_make_node_steps,
                                                    make_optimizer)
 from stemgnn_tpu_torch.train.graph_setup import (describe_layout,
                                                  fused_full_graph)
+from stemgnn_tpu_torch.utils import trace
 
-STAGES = ("forward+loss", "backward", "optimizer")
+# the spans that partition the step (train.finetune_loop._make_node_steps)
+STAGES = ("sg:finetune.forward", "sg:train.backward", "sg:train.update")
 # WN18RR's entity and triple counts (the generator keeps its 11 relations)
 WN18RR_ENTITIES, WN18RR_TRIPLES = 40_943, 93_003
 
@@ -98,7 +101,7 @@ def main(argv=None):
         cfg, generator=torch.Generator().manual_seed(args.seed)).to(dev)
     trainable, _ = _split_params(model, cfg)
     opt = make_optimizer(trainable, cfg)
-    loss_fn, train_step, eval_step = _make_node_steps(cfg, args.task)
+    _, train_step, eval_step = _make_node_steps(cfg, args.task)
     # the task's rows: the nodes, or the edges of a link task
     n, n_pad = ((ds.num_nodes, g.num_nodes_padded) if args.task == "node"
                 else (ds.num_edges, g.num_edges_padded))
@@ -119,33 +122,21 @@ def main(argv=None):
     step()
     print(f"kernel launches of one training step: {sc.launch_counts}")
 
-    # stage times: CUDA events between the stages of each step
-    stage_ms = np.zeros(len(STAGES))
-    for _ in range(args.reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        loss, _ = loss_fn(model, mask, g, y, gen)
-        ev[1].record()
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        ev[2].record()
-        opt.step()
-        ev[3].record()
-        torch.cuda.synchronize()
-        stage_ms += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-    stage_ms /= args.reps
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(args.reps):
-        eval_step(model, g)
-    stop.record()
-    torch.cuda.synchronize()
-    eval_ms = start.elapsed_time(stop) / args.reps
-    print(f"training step: {stage_ms.sum():.3f} ms (CUDA events, mean of "
-          f"{args.reps}): " + ", ".join(
-              f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stage_ms))
-          + f"; evaluation {eval_ms:.3f} ms", flush=True)
+    # the step's own spans
+    trace.take()
+    with trace.enabled():
+        for _ in range(args.reps):
+            step()
+        for _ in range(args.reps):
+            eval_step(model, g)
+    spans = trace.take()
+
+    def ms(name):
+        return (spans.get(name, {}).get("device_ms") or 0.0) / args.reps
+    print(f"training step: {ms('sg:finetune.train_step'):.3f} ms (its "
+          f"spans, mean of {args.reps}): " + ", ".join(
+              f"{s} {ms(s):.3f} ms" for s in STAGES)
+          + f"; evaluation {ms('sg:finetune.eval'):.3f} ms", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

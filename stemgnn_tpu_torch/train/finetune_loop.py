@@ -82,6 +82,7 @@ from stemgnn_tpu_torch.train.infer import (layerwise_encode,
                                            layerwise_eval_predict)
 from stemgnn_tpu_torch.train.pretrain_loop import _tables, batch_graph
 from stemgnn_tpu_torch.utils import checkpoint as ckpt
+from stemgnn_tpu_torch.utils import trace
 from stemgnn_tpu_torch.utils.convert import task_model_to_jax
 from stemgnn_tpu_torch.utils.early_stop import EarlyStopping
 from stemgnn_tpu_torch.utils.logger import Logger
@@ -90,6 +91,11 @@ from stemgnn_tpu_torch.utils.metrics import (device_multitask_auc, evaluate,
 from stemgnn_tpu_torch.vq.quantize import adopt_ema_embed, vq_kmeans_init
 
 _LOSS_KEYS = ("loss", "act_loss", "jac_loss", "env_loss")
+# history keys of the spans the loops time (device ms)
+SPAN_KEYS = {"sg:finetune.train_step": "step_ms",
+             "sg:finetune.eval": "eval_ms", "sg:pretrain.step": "step_ms",
+             "sg:mesh.exchange": "exchange_ms",
+             "sg:mesh.allreduce": "allreduce_ms"}
 
 
 def _split_params(model, cfg: FinetuneConfig):
@@ -148,25 +154,32 @@ def print_moe_usage(moe_stats):
 def _apply(opt, loss, model=None, cfg: Optional[FinetuneConfig] = None):
     """One optimizer step on ``loss``; with ``model`` and ``cfg`` and a
     trained EMA codebook the VQ's EMA target then replaces its ``embed``
-    (JAX finetune_loop.py:130-133)."""
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    # optax decays a leaf the loss does not reach (the BatchNorm parameters
-    # under normalize "none", an unused VQ projection) with its zero
-    # gradient; torch's AdamW would skip a parameter without one
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-    opt.step()
-    if cfg is not None and cfg.use_vq and not cfg.freeze_vq \
-            and cfg.vq.ema_update:
-        adopt_ema_embed(model.vq)
+    (JAX finetune_loop.py:130-133).  Spans (``utils.trace``):
+    ``sg:train.backward`` and ``sg:train.update``."""
+    with trace.span("sg:train.backward"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+    with trace.span("sg:train.update"):
+        # optax decays a leaf the loss does not reach (the BatchNorm
+        # parameters under normalize "none", an unused VQ projection) with
+        # its zero gradient; torch's AdamW would skip a parameter without
+        # one
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        opt.step()
+        if cfg is not None and cfg.use_vq and not cfg.freeze_vq \
+                and cfg.vq.ema_update:
+            adopt_ema_embed(model.vq)
 
 
 def _make_node_steps(cfg: FinetuneConfig, task_kind: str = "node"):
     """``(loss_fn, train_step, eval_step)`` for the full-batch node or link
-    task.  ``plain`` runs the aggregation kernels' plain versions."""
+    task.  ``plain`` runs the aggregation kernels' plain versions.  Spans
+    (``utils.trace``): ``sg:finetune.train_step`` around the step, its
+    forward in ``sg:finetune.forward`` and :func:`_apply`'s; the
+    evaluation in ``sg:finetune.eval``."""
 
     def rows(model, graph, generator=None, plain=False, gumbel=None):
         """The task's rows, their mask and the encoder's aux: nodes, or
@@ -194,16 +207,18 @@ def _make_node_steps(cfg: FinetuneConfig, task_kind: str = "node"):
 
     def train_step(model, opt, train_mask, graph, y, generator=None,
                    plain=False, gumbel=None):
-        _, parts = loss_fn(model, train_mask, graph, y, generator, plain,
-                           gumbel)
-        _apply(opt, parts["loss"], model, cfg)
-        return {k: (v if k == "moe_stats" else v.detach())
-                for k, v in parts.items()}
+        with trace.span("sg:finetune.train_step"):
+            with trace.span("sg:finetune.forward"):
+                _, parts = loss_fn(model, train_mask, graph, y, generator,
+                                   plain, gumbel)
+            _apply(opt, parts["loss"], model, cfg)
+            return {k: (v if k == "moe_stats" else v.detach())
+                    for k, v in parts.items()}
 
     def eval_step(model, graph, plain=False):
         """Class probabilities [rows, C] from the head-mean logits."""
         model.eval()
-        with torch.no_grad():
+        with trace.span("sg:finetune.eval"), torch.no_grad():
             z, row_mask, _ = rows(model, graph, plain=plain)
             logits, _ = task_logits(model, cfg, z, mask=row_mask)
             return torch.softmax(logits.mean(1), dim=-1)
@@ -226,40 +241,14 @@ def _make_minibatch_train_step(cfg: FinetuneConfig, task_kind: str):
         return _loss_parts(model, cfg, rows, y_batch, mask, mask, aux)
 
     def step(model, opt, g, y_batch, mask, li=None, ri=None, generator=None):
-        _, parts = loss_fn(model, g, y_batch, mask, li, ri, generator)
-        _apply(opt, parts["loss"], model, cfg)
-        return {k: v.detach() for k, v in parts.items()}
+        with trace.span("sg:finetune.train_step"):
+            with trace.span("sg:finetune.forward"):
+                _, parts = loss_fn(model, g, y_batch, mask, li, ri,
+                                   generator)
+            _apply(opt, parts["loss"], model, cfg)
+            return {k: v.detach() for k, v in parts.items()}
 
     return loss_fn, step
-
-
-class _Events:
-    """Device milliseconds of named regions by CUDA events, read at the
-    end; nothing is recorded on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.on = device.type == "cuda"
-        self.pairs = {}
-
-    def start(self, name):
-        if self.on:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.pairs.setdefault(name, []).append([ev, None])
-
-    def stop(self, name):
-        if self.on:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.pairs[name][-1][1] = ev
-
-    def into(self, stats: dict):
-        if self.on:
-            torch.cuda.synchronize()
-        for name, pairs in self.pairs.items():
-            stats.setdefault(name, []).extend(
-                a.elapsed_time(b) for a, b in pairs)
-        self.pairs = {}
 
 
 class _ModelSaver:
@@ -304,36 +293,30 @@ def _minibatch_epoch(ds, cfg: FinetuneConfig, task_kind: str, masks: dict,
     the resident feature tables and the device.  Returns the epoch's mean
     loss parts and its history: the batches, the host ms a batch of the
     sampler (``host/sample_ms``) and of the id copies and feature gather
-    (``host/transfer_ms``); on CUDA the device ms a batch step
-    (``device_ms``, CUDA events around each step) and the idle share
-    (``idle``: one minus the steps' event time over the epoch's wall, which
-    ends in the epoch's one readback)."""
+    (``host/transfer_ms``), the ``sg:batch.sample`` and
+    ``sg:batch.transfer`` spans; on CUDA the device ms a batch step
+    (``device_ms``, the ``sg:finetune.train_step`` spans' CUDA events) and
+    the idle share (``idle``: one minus the steps' event time over the
+    epoch's wall, which ends in the epoch's one readback)."""
     device = ctx["device"]
     node_table, edge_table = ctx["tables"]
     labels = np.asarray(ds.labels)
     bs = cfg.batch_size
     fanouts = ([cfg.fanout if task_kind == "node" else cfg.link_fanout]
                * cfg.encoder.num_layers)
-    host = {"sample": 0.0, "transfer": 0.0}
-    spans, sums, n_batches = [], None, 0
+    rec = trace.Recorder(device)
+    sums, n_batches = None, 0
     t_epoch = time.perf_counter()
 
     def run(ig, y_batch, mask, li=None, ri=None):
         nonlocal sums, n_batches
-        t0 = time.perf_counter()
-        g = batch_graph(ig, node_table, edge_table, device, False)
-        moved = [host_to_device(a, device) for a in (y_batch, mask)] + [
-            None if a is None else host_to_device(a, device)
-            for a in (li, ri)]
-        host["transfer"] += time.perf_counter() - t0
-        if ctx["timed"]:
-            span = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            span[0].record()
-        parts = step(model, opt, g, *moved, generator=generator)
-        if ctx["timed"]:
-            span[1].record()
-            spans.append(span)
+        with trace.span("sg:batch.transfer", rec):
+            g = batch_graph(ig, node_table, edge_table, device, False)
+            moved = [host_to_device(a, device) for a in (y_batch, mask)] + [
+                None if a is None else host_to_device(a, device)
+                for a in (li, ri)]
+        with trace.span("sg:finetune.train_step", rec):
+            parts = step(model, opt, g, *moved, generator=generator)
         # summed on the device and read once an epoch
         sums = parts if sums is None else {k: sums[k] + v
                                            for k, v in parts.items()}
@@ -345,9 +328,8 @@ def _minibatch_epoch(ds, cfg: FinetuneConfig, task_kind: str, masks: dict,
                                    fanouts, rng_np, drop_last=False)
         batches = iter(it)
         while True:
-            ts = time.perf_counter()
-            item = next(batches, None)
-            host["sample"] += time.perf_counter() - ts
+            with trace.span("sg:batch.sample", rec):
+                item = next(batches, None)
             if item is None:
                 break
             ig, n_seeds, nodes = item
@@ -355,44 +337,44 @@ def _minibatch_epoch(ds, cfg: FinetuneConfig, task_kind: str, masks: dict,
             y_batch[:n_seeds] = labels[nodes[:n_seeds]]
             run(ig, y_batch, np.arange(bs) < n_seeds)
     else:
-        ts = time.perf_counter()
-        edge_ids = np.nonzero(np.asarray(masks["train"]))[0]
-        rng_np.shuffle(edge_ids)
-        # one iterator of 2 * bs seeds for stable buckets; its probes are
-        # the real endpoint sets, which are degree-biased
-        probe = [_endpoints(ds, edge_ids[i * bs:(i + 1) * bs])
-                 for i in range(min(12, max(len(edge_ids) // max(bs, 1),
-                                            1)))]
-        it = NeighborBatchIterator(ctx["csc"], ds.x, ds.xe,
-                                   np.arange(ds.num_nodes), 2 * bs, fanouts,
-                                   rng_np, shuffle=False, probe_chunks=probe)
-        host["sample"] += time.perf_counter() - ts
+        with trace.span("sg:batch.sample", rec):
+            edge_ids = np.nonzero(np.asarray(masks["train"]))[0]
+            rng_np.shuffle(edge_ids)
+            # one iterator of 2 * bs seeds for stable buckets; its probes
+            # are the real endpoint sets, which are degree-biased
+            probe = [_endpoints(ds, edge_ids[i * bs:(i + 1) * bs])
+                     for i in range(min(12, max(
+                         len(edge_ids) // max(bs, 1), 1)))]
+            it = NeighborBatchIterator(ctx["csc"], ds.x, ds.xe,
+                                       np.arange(ds.num_nodes), 2 * bs,
+                                       fanouts, rng_np, shuffle=False,
+                                       probe_chunks=probe)
         for i in range(0, len(edge_ids), bs):
-            ts = time.perf_counter()
-            chunk = edge_ids[i:i + bs]
-            u = np.asarray(ds.edge_index[0])[chunk]
-            v = np.asarray(ds.edge_index[1])[chunk]
-            uniq, inv = np.unique(np.concatenate([u, v]),
-                                  return_inverse=True)
-            ig, _, _ = it.make_batch(uniq)
-            li = np.zeros(bs, np.int64)
-            ri = np.zeros(bs, np.int64)
-            li[:len(chunk)] = inv[:len(chunk)]
-            ri[:len(chunk)] = inv[len(chunk):]
-            y_batch = np.zeros(bs, np.int64)
-            y_batch[:len(chunk)] = labels[chunk]
-            host["sample"] += time.perf_counter() - ts
+            with trace.span("sg:batch.sample", rec):
+                chunk = edge_ids[i:i + bs]
+                u = np.asarray(ds.edge_index[0])[chunk]
+                v = np.asarray(ds.edge_index[1])[chunk]
+                uniq, inv = np.unique(np.concatenate([u, v]),
+                                      return_inverse=True)
+                ig, _, _ = it.make_batch(uniq)
+                li = np.zeros(bs, np.int64)
+                ri = np.zeros(bs, np.int64)
+                li[:len(chunk)] = inv[:len(chunk)]
+                ri[:len(chunk)] = inv[len(chunk):]
+                y_batch = np.zeros(bs, np.int64)
+                y_batch[:len(chunk)] = labels[chunk]
             run(ig, y_batch, np.arange(bs) < len(chunk), li, ri)
     loss = {k: 0.0 for k in _LOSS_KEYS}
     if n_batches:
         vals = torch.stack([sums[k] for k in _LOSS_KEYS]).cpu().tolist()
         loss = {k: v / n_batches for k, v in zip(_LOSS_KEYS, vals)}
     hist = {"batches": n_batches, "epoch_s": time.perf_counter() - t_epoch}
-    hist.update({f"host/{k}_ms": 1e3 * v / max(n_batches, 1)
-                 for k, v in host.items()})
-    if spans:
-        busy_ms = sum(a.elapsed_time(b) for a, b in spans)
-        hist["device_ms"] = busy_ms / len(spans)
+    spans = rec.totals()
+    hist.update({f"host/{k}_ms": spans.get(f"sg:batch.{k}", {}).get(
+        "host_ms", 0.0) / max(n_batches, 1) for k in ("sample", "transfer")})
+    busy_ms = spans.get("sg:finetune.train_step", {}).get("device_ms")
+    if busy_ms is not None:
+        hist["device_ms"] = busy_ms / n_batches
         hist["idle"] = 1.0 - busy_ms / (1e3 * hist["epoch_s"])
     return loss, hist
 
@@ -502,9 +484,12 @@ def _make_graph_steps(cfg: FinetuneConfig, batch_size: int, eval_bs: int,
 
     def train_step(model, opt, g, y, valid, gmask, generator=None,
                    plain=False):
-        _, parts = loss_fn(model, g, y, valid, gmask, generator, plain)
-        _apply(opt, parts["loss"], model, cfg)
-        return {k: v.detach() for k, v in parts.items()}
+        with trace.span("sg:finetune.train_step"):
+            with trace.span("sg:finetune.forward"):
+                _, parts = loss_fn(model, g, y, valid, gmask, generator,
+                                   plain)
+            _apply(opt, parts["loss"], model, cfg)
+            return {k: v.detach() for k, v in parts.items()}
 
     def predict(model, g, plain=False):
         model.eval()
@@ -651,8 +636,7 @@ def _run_graph_task(graphs, labels, split, cfg: FinetuneConfig,
 
     logger = Logger()
     saver = _ModelSaver(save_model_to, cfg, verbose)
-    events = _Events(device)
-    timed = device.type == "cuda"
+    rec = trace.Recorder(device)
     out = {}
     for idx in range(cfg.repeat):
         model = task_model_init(
@@ -685,42 +669,36 @@ def _run_graph_task(graphs, labels, split, cfg: FinetuneConfig,
         epoch_losses, history = [], []
         for epoch in range(cfg.epochs):
             t0 = time.perf_counter()
-            host = {"sample": 0.0, "transfer": 0.0}
-            spans, parts, n_b = [], None, 0
+            parts, n_b = None, 0
             batches = make_batches("train", batch_size, rng_np)
             while True:
-                ts = time.perf_counter()
-                item = next(batches, None)
-                host["sample"] += time.perf_counter() - ts
+                with trace.span("sg:batch.sample", rec):
+                    item = next(batches, None)
                 if item is None:
                     break
                 g, lab, n_real = item
-                ts = time.perf_counter()
-                g = to_device(g)
-                y = host_to_device(np.nan_to_num(lab * 2.0 - 1.0).astype(
-                    np.float32), device)
-                valid = host_to_device(~np.isnan(lab), device)
-                host["transfer"] += time.perf_counter() - ts
-                if timed:
-                    span = (torch.cuda.Event(enable_timing=True),
-                            torch.cuda.Event(enable_timing=True))
-                    span[0].record()
-                parts = train_step(model, opt, g, y, valid,
-                                   gmask_all < n_real, gen)
-                if timed:
-                    span[1].record()
-                    spans.append(span)
+                with trace.span("sg:batch.transfer", rec):
+                    g = to_device(g)
+                    y = host_to_device(np.nan_to_num(
+                        lab * 2.0 - 1.0).astype(np.float32), device)
+                    valid = host_to_device(~np.isnan(lab), device)
+                with trace.span("sg:finetune.train_step", rec):
+                    parts = train_step(model, opt, g, y, valid,
+                                       gmask_all < n_real, gen)
                 n_b += 1
             loss = {k: 0.0 for k in _LOSS_KEYS}
             if parts is not None:
                 vals = torch.stack([parts[k] for k in _LOSS_KEYS]).tolist()
                 loss = dict(zip(_LOSS_KEYS, vals))
             hist = {"batches": n_b, "epoch_s": time.perf_counter() - t0}
-            hist.update({f"host/{k}_ms": 1e3 * v / max(n_b, 1)
-                         for k, v in host.items()})
-            if spans:
-                busy_ms = sum(a.elapsed_time(b) for a, b in spans)
-                hist["device_ms"] = busy_ms / len(spans)
+            spans = rec.take()
+            hist.update({f"host/{k}_ms": spans.get(f"sg:batch.{k}", {}).get(
+                "host_ms", 0.0) / max(n_b, 1)
+                for k in ("sample", "transfer")})
+            busy_ms = spans.get("sg:finetune.train_step", {}).get(
+                "device_ms")
+            if busy_ms is not None:
+                hist["device_ms"] = busy_ms / n_b
                 hist["idle"] = 1.0 - busy_ms / (1e3 * hist["epoch_s"])
             epoch_losses.append(loss)
             history.append(hist)
@@ -738,13 +716,14 @@ def _run_graph_task(graphs, labels, split, cfg: FinetuneConfig,
                 if k not in ev_splits:
                     result[key] = float("nan")
                     continue
-                events.start(f"eval_ms/{k}")
-                result[key], preds[k] = evaluate_split(model, k)
-                events.stop(f"eval_ms/{k}")
-            events.into(hist)
-            hist.update({k: v[0] for k, v in hist.items()
-                         if isinstance(v, list)})
-            if timed:
+                with trace.span(f"sg:finetune.eval.{k}", rec):
+                    result[key], preds[k] = evaluate_split(model, k)
+            spans = rec.take()
+            for k in ev_splits:
+                ms = spans[f"sg:finetune.eval.{k}"]["device_ms"]
+                if ms is not None:
+                    hist[f"eval_ms/{k}"] = ms
+            if rec.cuda:
                 hist["eval_ms"] = sum(hist[f"eval_ms/{k}"]
                                       for k in ev_splits)
             hist.update(eval_s=time.perf_counter() - t_ev, eval_route=route)
@@ -849,13 +828,13 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
                "tables": _tables({"node_text_feat": ds.node_text_feat,
                                   "edge_text_feat": ds.edge_text_feat},
                                  device),
-               "device": device, "timed": device.type == "cuda"}
+               "device": device}
     # JAX draws every split's batches from one generator: default_rng(0)
     # (its FinetuneConfig has no seed field)
     rng_np = np.random.default_rng(0)
     # the MoE usage lines of the full-batch epochs (finetune.py:239-254)
     moe_print_interval = max(1, cfg.epochs // 20)
-    events = _Events(device)
+    rec = trace.Recorder(device)
     out = {}
     for idx, split in enumerate(splits):
         model = task_model_init(
@@ -885,28 +864,27 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
                 loss, hist = _minibatch_epoch(ds, cfg, task, masks, rng_np,
                                               mb_step, model, opt, ctx, gen)
             else:
-                events.start("step_ms")
-                losses = train_step(model, opt, train_mask, graph, y, gen)
-                events.stop("step_ms")
+                with trace.span("sg:finetune.train_step", rec):
+                    losses = train_step(model, opt, train_mask, graph, y,
+                                        gen)
                 moe_stats = losses.pop("moe_stats", None)
                 if moe_stats and epoch % moe_print_interval == 0:
                     print_moe_usage(moe_stats)
-            events.start("eval_ms")
-            if cfg.eval_chunked:
-                pred = layerwise_eval_predict(
-                    model, cfg, ds, task, n_pad,
-                    edge_block=cfg.eval_edge_block, device=device)
-            else:
-                pred = eval_step(model, graph)
-            events.stop("eval_ms")
+            with trace.span("sg:finetune.eval", rec):
+                if cfg.eval_chunked:
+                    pred = layerwise_eval_predict(
+                        model, cfg, ds, task, n_pad,
+                        edge_block=cfg.eval_edge_block, device=device)
+                else:
+                    pred = eval_step(model, graph)
             pred = np.asarray(pred.cpu()) if torch.is_tensor(pred) else pred
             if not minibatch:
                 loss = {k: float(v) for k, v in losses.items()}
             epoch_s.append(time.perf_counter() - t0)
             epoch_losses.append(loss)
-            events.into(hist)
-            hist = {k: v[0] if isinstance(v, list) else v
-                    for k, v in hist.items()}
+            for name, t in rec.take().items():
+                if t["device_ms"] is not None:
+                    hist[SPAN_KEYS[name]] = t["device_ms"]
             history.append(hist)
             result = {"train": evaluate(pred, y_np, masks["train"], cfg.task),
                       "val": evaluate(pred, y_np, masks["valid"], cfg.task),

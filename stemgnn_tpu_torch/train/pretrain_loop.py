@@ -54,8 +54,8 @@ from stemgnn_tpu_torch.train.optim import Optimizer
 from stemgnn_tpu_torch.utils import checkpoint as ckpt
 from stemgnn_tpu_torch.utils.convert import (load_pretrain_trees,
                                              pretrain_to_jax)
-from stemgnn_tpu_torch.utils.observability import (PreemptionHandler,
-                                                   ThroughputMeter)
+from stemgnn_tpu_torch.utils import trace
+from stemgnn_tpu_torch.utils.observability import PreemptionHandler
 from stemgnn_tpu_torch.vq.codebook import orthogonal_subset
 from stemgnn_tpu_torch.vq.quantize import adopt_ema_embed, vq_kmeans_init
 
@@ -116,22 +116,35 @@ def make_pretrain_step(cfg: PretrainConfig, bs: int, generator=None):
     graph).  ``draws`` (see :func:`draw_step`) replaces the step's own
     draws; ``generator`` feeds them and the encoders' dropout.  With
     ``ema_update`` the VQ's EMA codebook replaces ``embed`` after the
-    optimizer's step (JAX's step, pretrain_loop.py:79-82)."""
+    optimizer's step (JAX's step, pretrain_loop.py:79-82).
+
+    The step runs in an ``sg:pretrain.step`` span (``utils.trace``) whose
+    children partition it: ``sg:pretrain.student`` (the draws and the
+    augmented view here, the student encoder in ``pretrain_forward``),
+    ``sg:vq``, ``sg:pretrain.losses``, ``sg:pretrain.teacher``,
+    ``sg:train.backward`` and ``sg:train.update`` (the zero fill, clip,
+    AdamW, schedule, EMA codebook and EMA teacher)."""
 
     def step(model, teacher, opt, graph, draws=None):
-        if draws is None:
-            draws = draw_step(cfg, graph, generator)
-        opt.zero_grad()
-        loss, losses, _ = pretrain_forward(
-            model, teacher, cfg, augmented(cfg, graph, draws), graph, bs=bs,
-            draws=draws, drop_seed=draws["drop_seed"], generator=generator)
-        loss.backward()
-        opt.step()
-        if cfg.vq.ema_update:
-            adopt_ema_embed(model.vq)
-        ema_update_teacher(teacher, model.encoder, cfg.sem_encoder_decay)
-        return {**{k: v.detach() for k, v in losses.items()},
-                "loss": loss.detach()}
+        with trace.span("sg:pretrain.step"):
+            with trace.span("sg:pretrain.student"):
+                if draws is None:
+                    draws = draw_step(cfg, graph, generator)
+                opt.zero_grad()
+                aug = augmented(cfg, graph, draws)
+            loss, losses, _ = pretrain_forward(
+                model, teacher, cfg, aug, graph, bs=bs, draws=draws,
+                drop_seed=draws["drop_seed"], generator=generator)
+            with trace.span("sg:train.backward"):
+                loss.backward()
+            with trace.span("sg:train.update"):
+                opt.step()
+                if cfg.vq.ema_update:
+                    adopt_ema_embed(model.vq)
+                ema_update_teacher(teacher, model.encoder,
+                                   cfg.sem_encoder_decay)
+            return {**{k: v.detach() for k, v in losses.items()},
+                    "loss": loss.detach()}
 
     return step
 
@@ -149,31 +162,28 @@ def batch_layouts_on(cfg: PretrainConfig) -> bool:
 
 
 def batch_graph(ig, node_table, edge_table, device, with_layout: bool,
-                timings: Optional[dict] = None):
+                recorder: Optional[trace.Recorder] = None):
     """One sampled batch (an ``IndexedGraph`` of numpy ids) as a padded
     ``Graph`` on ``device``: ids moved in pinned non-blocking copies,
     features gathered from the resident tables.  ``with_layout`` also builds
     the batch's edge layout on the host (``build_edge_layout`` with no hubs,
     as JAX's ``batch_layout``), its tensors copied to ``device`` the same
-    way.  ``timings`` accumulates the host seconds of ``layout`` (build and
-    copies) and ``transfer`` (the ids and the feature gather)."""
-    t0 = time.perf_counter()
+    way.  Spans (``utils.trace``, into ``recorder`` too where given):
+    ``sg:batch.layout`` (build and copies) and ``sg:batch.transfer`` (the
+    ids and the feature gather)."""
     lay = None
-    if with_layout:
-        lay = build_edge_layout(ig.senders, ig.receivers,
-                                ig.num_nodes_padded, xe_ids=ig.xe_ids,
-                                edge_mask=ig.edge_mask,
-                                feat_dim_hint=int(node_table.shape[1]),
-                                device=device)
-    t1 = time.perf_counter()
-    graph = materialize_graph(indexed_to_device(ig, device), node_table,
-                              edge_table)
+    with trace.span("sg:batch.layout", recorder):
+        if with_layout:
+            lay = build_edge_layout(ig.senders, ig.receivers,
+                                    ig.num_nodes_padded, xe_ids=ig.xe_ids,
+                                    edge_mask=ig.edge_mask,
+                                    feat_dim_hint=int(node_table.shape[1]),
+                                    device=device)
+    with trace.span("sg:batch.transfer", recorder):
+        graph = materialize_graph(indexed_to_device(ig, device), node_table,
+                                  edge_table)
     if lay is not None:
         graph = dataclasses.replace(graph, layout=lay, edge_table=edge_table)
-    if timings is not None:
-        timings["layout"] = timings.get("layout", 0.0) + t1 - t0
-        timings["transfer"] = (timings.get("transfer", 0.0)
-                               + time.perf_counter() - t1)
     return graph
 
 
@@ -267,19 +277,19 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
     and saves.  Returns ``(model, teacher, history)``: per epoch the mean
     losses, each step's total loss (``step_losses``), the epoch's wall
     seconds (``epoch_s``, ending in the epoch's one readback), the
-    throughput rates and the host milliseconds a batch of sampling,
-    layout building and transfer (``host/*_ms``).  On CUDA also the device
-    ms a step (``device_ms``: CUDA events recorded around each step, read
-    after the readback) and the device's idle share (``idle``: one minus
-    the steps' summed event time over ``epoch_s``; the batch copies and
-    the feature gather between steps count as idle, a wait inside a step
-    as busy)."""
+    epoch's padded edges, padded nodes and steps over ``epoch_s``
+    (``throughput/*``) and the host milliseconds a batch of sampling,
+    layout building and transfer (``host/*_ms``: the ``sg:batch.*``
+    spans).  On CUDA also the device ms a step (``device_ms``: the
+    ``sg:pretrain.step`` spans' CUDA events, read after the readback) and
+    the device's idle share (``idle``: one minus the steps' summed event
+    time over ``epoch_s``; the batch copies and the feature gather between
+    steps count as idle, a wait inside a step as busy)."""
     if mesh is not None and not hasattr(mesh, "all_reduce"):
         raise TypeError(f"mesh must be the ranks of parallel.mesh, got "
                         f"{type(mesh).__name__}")
     world, me = (1, 0) if mesh is None else (mesh.world, mesh.rank)
     device = torch.device(device)
-    timed = device.type == "cuda"
     with_layout = batch_layouts_on(cfg) and mesh is None
     verbose = verbose and me == 0
     etf = merged.get("edge_text_feat")
@@ -330,7 +340,7 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
     ptr = np.asarray(merged["ptr"])
 
     preempt = PreemptionHandler()
-    meter = ThroughputMeter()
+    rec = trace.Recorder(device)
     history = []
     total_steps = 0
     try:
@@ -343,33 +353,26 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
             # a step would make the host wait for every step
             sums = None
             totals = []                 # each step's total loss
-            steps_epoch = 0
-            host = {"sample": 0.0}
-            spans = []                  # (start, end) CUDA events a step
+            steps_epoch = edges = nodes = 0
+            rec.clear()
             while True:
-                ts = time.perf_counter()
-                group = [next(batches, None) for _ in range(world)]
-                host["sample"] += time.perf_counter() - ts
+                with trace.span("sg:batch.sample", rec):
+                    group = [next(batches, None) for _ in range(world)]
                 if group[-1] is None:
                     break
                 ig = group[me][0]
                 graph = batch_graph(ig, node_table, edge_table, device,
-                                    with_layout, host)
-                if timed:
-                    span = (torch.cuda.Event(enable_timing=True),
-                            torch.cuda.Event(enable_timing=True))
-                    span[0].record()
-                losses = step(model, teacher, opt, graph,
-                              None if draw_fn is None else draw_fn(graph))
-                if timed:
-                    span[1].record()
-                    spans.append(span)
+                                    with_layout, rec)
+                with trace.span("sg:pretrain.step", rec):
+                    losses = step(model, teacher, opt, graph,
+                                  None if draw_fn is None
+                                  else draw_fn(graph))
                 sums = losses if sums is None else {
                     k: sums[k] + v for k, v in losses.items()}
                 totals.append(losses["loss"])
                 steps_epoch += 1
-                meter.update(sum(g[0].num_edges_padded for g in group),
-                             sum(g[0].num_nodes_padded for g in group))
+                edges += sum(g[0].num_edges_padded for g in group)
+                nodes += sum(g[0].num_nodes_padded for g in group)
                 total_steps += 1
                 if (max_steps is not None and total_steps >= max_steps) \
                         or preempt.should_stop:
@@ -387,13 +390,19 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
                 mean = {k: v / steps_epoch for k, v in zip(keys, vals)}
                 mean["step_losses"] = vals[len(keys):]
             mean["epoch_s"] = time.perf_counter() - t0
-            if spans:
-                busy_ms = sum(a.elapsed_time(b) for a, b in spans)
-                mean["device_ms"] = busy_ms / len(spans)
+            spans = rec.totals()
+            busy_ms = spans.get("sg:pretrain.step", {}).get("device_ms")
+            if busy_ms is not None:
+                mean["device_ms"] = busy_ms / steps_epoch
                 mean["idle"] = 1.0 - busy_ms / (1e3 * mean["epoch_s"])
-            mean.update(meter.rates())
-            mean.update({f"host/{k}_ms": 1e3 * v / max(steps_epoch, 1)
-                         for k, v in host.items()})
+            dt = max(mean["epoch_s"], 1e-9)
+            mean.update({"throughput/edges_per_s": edges / dt,
+                         "throughput/nodes_per_s": nodes / dt,
+                         "throughput/steps_per_s": steps_epoch / dt})
+            mean.update({f"host/{k}_ms": spans.get(
+                f"sg:batch.{k}", {}).get("host_ms", 0.0)
+                / max(steps_epoch, 1)
+                for k in ("sample", "layout", "transfer")})
             history.append(mean)
             if verbose:
                 msg = " ".join(

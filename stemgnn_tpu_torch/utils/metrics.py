@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stemgnn_tpu_torch.utils import trace
+
 task2metric = {"node": "acc", "link": "acc", "graph": "auc"}
 
 
@@ -66,11 +68,14 @@ def eval_auc(pred, y):
 
 
 def evaluate(pred, y, mask=None, task: str = "node"):
+    """The task's metric x100 of host predictions, in an
+    ``sg:metrics.score`` span (``utils.trace``)."""
     metric = task2metric[task]
-    if metric == "acc":
-        return eval_acc(pred, y, mask) * 100
-    if metric == "auc":
-        return eval_auc(pred, y) * 100
+    with trace.span("sg:metrics.score"):
+        if metric == "acc":
+            return eval_acc(pred, y, mask) * 100
+        if metric == "auc":
+            return eval_auc(pred, y) * 100
     raise ValueError(f"Metric {metric} is not supported.")
 
 

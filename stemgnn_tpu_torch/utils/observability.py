@@ -1,11 +1,10 @@
 """The parts of ``stemgnn_tpu/utils/observability.py`` that the port uses:
 the wandb sweep round-trip of the evaluation scripts, and the pretrain
-loop's throughput meter and preemption latch."""
+loop's preemption latch."""
 
 from __future__ import annotations
 
 import signal
-import time
 
 
 def apply_wandb_sweep_config(args, project: str, debug: bool = False):
@@ -46,31 +45,6 @@ def apply_wandb_sweep_config(args, project: str, debug: bool = False):
         setattr(args, k, v)
         print(f"[wandb sweep] {k}: {cur!r} -> {v!r}")
     return args
-
-
-class ThroughputMeter:
-    """Edges, nodes and steps per second since construction (or
-    :meth:`reset`), on the host clock."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.t0 = time.perf_counter()
-        self.edges = 0
-        self.nodes = 0
-        self.steps = 0
-
-    def update(self, num_edges: int, num_nodes: int = 0):
-        self.edges += int(num_edges)
-        self.nodes += int(num_nodes)
-        self.steps += 1
-
-    def rates(self) -> dict:
-        dt = max(time.perf_counter() - self.t0, 1e-9)
-        return {"throughput/edges_per_s": self.edges / dt,
-                "throughput/nodes_per_s": self.nodes / dt,
-                "throughput/steps_per_s": self.steps / dt}
 
 
 class PreemptionHandler:

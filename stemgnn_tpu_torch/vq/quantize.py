@@ -57,6 +57,7 @@ from torch import nn
 from stemgnn_tpu_torch.core.config import VQConfig
 from stemgnn_tpu_torch.nn import init as inits
 from stemgnn_tpu_torch.nn.layers import Linear
+from stemgnn_tpu_torch.utils import trace
 from stemgnn_tpu_torch.vq import codebook as cb
 
 _AFFINE = ("codebook_mean", "codebook_var", "batch_mean", "batch_var")
@@ -113,10 +114,15 @@ class VectorQuantize(nn.Module):
             return q.permute(1, 0, 2).reshape(n, h * d)
         return q.reshape(q.shape[1] // cfg.heads, cfg.heads * q.shape[2])
 
-    def forward(self, z, mask=None, freeze_codebook: bool = False,
-                with_quantize: bool = True, ortho_ids=None, generator=None,
-                gumbel=None, expire_idx=None, reduce=None,
-                commit_reduce=None):
+    def forward(self, z, *args, **kwargs):
+        """:meth:`_forward` in an ``sg:vq`` span (``utils.trace``)."""
+        with trace.span("sg:vq"):
+            return self._forward(z, *args, **kwargs)
+
+    def _forward(self, z, mask=None, freeze_codebook: bool = False,
+                 with_quantize: bool = True, ortho_ids=None, generator=None,
+                 gumbel=None, expire_idx=None, reduce=None,
+                 commit_reduce=None):
         """Quantize z [N, dim]: returns ``quantize`` [N, dim] f32 (None
         unless ``with_quantize``), ``indices`` [N, H], ``codes`` [N, H*d],
         ``distances`` and ``loss`` (in training the weighted commitment
