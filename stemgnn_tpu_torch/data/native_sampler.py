@@ -1,84 +1,43 @@
 """ctypes binding of the native (C++) neighbour sampler (counterpart of
 ``stemgnn_tpu/data/native_sampler.py``).
 
-The port builds its own copy of the sampler, ``csrc/sampler.cpp``, with
-``g++ -O3 -march=native -std=c++17 -fPIC -shared`` into ``_build/`` beside
-this package at first use, keyed by a hash of the source, the flags and the
-host CPU's features, and loads it with ``ctypes``;
+The port builds its own copy of the sampler, ``csrc/sampler.cpp``, at first
+use through ``utils.native_build`` (``g++ -O3 -march=native``, into
+``_build/`` beside this package, keyed by a hash of the source, the flags
+and the host CPU's features), and loads it with ``ctypes``;
 :func:`sample_subgraph_native` has the contract of the numpy
 :func:`~stemgnn_tpu_torch.data.sampler.sample_subgraph`.
 
 There is no quiet fallback: the numpy sampler draws other batches from the
 same seed, so a failed build or load raises with the compiler's output
-(JAX's shim drops to the numpy path instead).  ``CXX`` names the compiler
-and ``BUILD_DIR`` the output directory; both are read at build time.
+(JAX's shim drops to the numpy path instead).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import platform
-import subprocess
 from typing import Optional, Sequence
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "sampler.cpp")
-BUILD_DIR = os.path.join(_PKG, "_build")
-CXX = "g++"
-CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
+from stemgnn_tpu_torch.utils import native_build
+
+SOURCE = os.path.join(native_build.CSRC, "sampler.cpp")
 
 _libs: dict = {}
 
 
-def _host_cpu() -> bytes:
-    """The host CPU's feature flags (``-march=native`` compiles for them),
-    or its machine name where ``/proc/cpuinfo`` is not readable."""
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("flags"):
-                    return line.encode()
-    except OSError:
-        pass
-    return platform.machine().encode()
-
-
 def library_path() -> str:
-    """``BUILD_DIR/sampler-<hash>.so``, the hash over the source, the flags
-    and the host CPU's features (a ``-march=native`` build runs only on a
-    CPU like the one it was built on)."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(_host_cpu())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"sampler-{h.hexdigest()[:16]}.so")
+    """``BUILD_DIR/sampler-<hash>.so`` (``native_build.library_path``)."""
+    return native_build.library_path(SOURCE)
 
 
 def build(force: bool = False) -> str:
     """Compile the sampler library unless it exists (or ``force``); return
     its path.  Raises ``RuntimeError`` with the compiler's output when the
     compiler is missing or fails."""
-    path = library_path()
-    if os.path.exists(path) and not force:
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [CXX, *CXX_FLAGS, "-o", tmp, SOURCE]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as ex:
-        raise RuntimeError(f"cannot build the native sampler: {' '.join(cmd)}"
-                           f" did not start ({ex})") from ex
-    if proc.returncode != 0 or not os.path.exists(tmp):
-        raise RuntimeError(f"cannot build the native sampler: {' '.join(cmd)}"
-                           f" exited {proc.returncode}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    os.replace(tmp, path)            # atomic against a concurrent build
-    return path
+    return native_build.build(SOURCE, "the native sampler", force=force)
 
 
 def load():

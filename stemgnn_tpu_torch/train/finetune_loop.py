@@ -87,7 +87,7 @@ from stemgnn_tpu_torch.utils.convert import task_model_to_jax
 from stemgnn_tpu_torch.utils.early_stop import EarlyStopping
 from stemgnn_tpu_torch.utils.logger import Logger
 from stemgnn_tpu_torch.utils.metrics import (device_multitask_auc, evaluate,
-                                             task2metric)
+                                             score_counts, task2metric)
 from stemgnn_tpu_torch.vq.quantize import adopt_ema_embed, vq_kmeans_init
 
 _LOSS_KEYS = ("loss", "act_loss", "jac_loss", "env_loss")
@@ -778,7 +778,8 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
     and per epoch its loss parts (``epoch_losses``), host seconds
     (``epoch_s``, each ending in a device sync) and ``history``: the
     evaluation's device ms (``eval_ms``, CUDA events), full batch the
-    training step's (``step_ms``) and, under
+    training step's (``step_ms``), the epoch's accuracy scorings by path
+    (``score_counts``, ``utils.metrics``) and, under
     minibatches, the batches and their host and device times (see
     ``_minibatch_epoch``); with ``save_model_to``, the predictions of the
     saved snapshot's evaluation (``best_pred``)."""
@@ -886,10 +887,13 @@ def run_finetune(ds, cfg: FinetuneConfig, pretrained=None, device="cuda",
                 if t["device_ms"] is not None:
                     hist[SPAN_KEYS[name]] = t["device_ms"]
             history.append(hist)
+            scored = dict(score_counts)
             result = {"train": evaluate(pred, y_np, masks["train"], cfg.task),
                       "val": evaluate(pred, y_np, masks["valid"], cfg.task),
                       "test": evaluate(pred, y_np, masks["test"], cfg.task),
                       "metric": task2metric[cfg.task]}
+            hist["score_counts"] = {k: v - scored[k]
+                                    for k, v in score_counts.items()}
             logger.log(idx, epoch, loss, result)
             saver.maybe_snap(model, float(result["val"]), pred)
             if verbose:

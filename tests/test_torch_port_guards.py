@@ -303,10 +303,11 @@ def test_native_sampler_raises_when_it_cannot_be_built():
         from stemgnn_tpu_torch.data import native_sampler
         from stemgnn_tpu_torch.data.sampler import (CSCGraph,
                                                     NeighborBatchIterator)
+        from stemgnn_tpu_torch.utils import native_build
         ei = np.array([[1, 2, 3], [0, 0, 1]])
         for cxx in ("/nonexistent/bin/g++", "false"):
-            native_sampler.CXX = cxx
-            native_sampler.BUILD_DIR = tempfile.mkdtemp()
+            native_build.CXX = cxx
+            native_build.BUILD_DIR = tempfile.mkdtemp()
             native_sampler._libs.clear()
             try:
                 NeighborBatchIterator(CSCGraph.from_edge_index(ei, 4),
