@@ -20,6 +20,7 @@ other batches.  Also hosts the weighted multi-dataset seed resampling
 
 from __future__ import annotations
 
+import collections
 import hashlib
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -30,6 +31,24 @@ from stemgnn_tpu_torch.core.graph import make_indexed_graph, round_up
 from stemgnn_tpu_torch.data import native_sampler
 
 _TRUNC_WARNED = False   # one bucket-saturation warning per process
+
+# every batch :meth:`NeighborBatchIterator.make_batch` built in this
+# process: the sampled nodes and edges, the padded node rows and edge slots
+# that hold them, and the batches clamped at the closure caps
+# (``truncations``) or that grew their bucket (``escalations``)
+batch_counts = collections.Counter(batches=0, nodes=0, node_rows=0, edges=0,
+                                   edge_slots=0, truncations=0,
+                                   escalations=0)
+
+
+def padded_row_share(since: Optional[dict] = None) -> float:
+    """The share of the padded node rows of the batches built since
+    ``since`` (a copy of :data:`batch_counts`; None: since the process
+    began) that hold no sampled node; 0 when none was built."""
+    since = since or {}
+    rows = batch_counts["node_rows"] - since.get("node_rows", 0)
+    nodes = batch_counts["nodes"] - since.get("nodes", 0)
+    return (rows - nodes) / rows if rows else 0.0
 
 
 @dataclass
@@ -138,7 +157,8 @@ class NeighborBatchIterator:
     Padding buckets: nodes to ``node_pad`` and edges to ``edge_pad`` when
     given, else probed from ``probe_chunks`` (default: chunks of the seeds).
     ``truncations`` counts batches clamped at the closure caps (edges
-    dropped), ``escalations`` bucket regrowths (no edge dropped)."""
+    dropped), ``escalations`` bucket regrowths (no edge dropped); the
+    module's :data:`batch_counts` adds up every iterator's batches."""
 
     def __init__(self, csc: CSCGraph, x_ids: np.ndarray,
                  xe_ids: Optional[np.ndarray], seeds: np.ndarray,
@@ -290,7 +310,8 @@ class NeighborBatchIterator:
                       f"cap ({len(nodes)}/{self._worst_n} nodes, "
                       f"{len(es)}/{self._worst_e} edges) — truncating "
                       f"(counted in .truncations; warning printed once)")
-        if len(nodes) > self.node_pad or len(es) > self.edge_pad:
+        escalated = len(nodes) > self.node_pad or len(es) > self.edge_pad
+        if escalated:
             # grow with headroom, shared through the CSC cache
             self.escalations += 1
             if len(nodes) > self.node_pad:
@@ -316,4 +337,9 @@ class NeighborBatchIterator:
         ig = make_indexed_graph(self.x_ids[nodes], es, ed, xe_ids=xe,
                                 node_pad_to=self.node_pad,
                                 edge_pad_to=self.edge_pad)
+        batch_counts.update(batches=1, nodes=ig.n_node,
+                            node_rows=ig.num_nodes_padded, edges=ig.n_edge,
+                            edge_slots=ig.num_edges_padded,
+                            truncations=int(clamped),
+                            escalations=int(escalated))
         return ig, len(seed_chunk), nodes

@@ -28,8 +28,9 @@ def _mask_like(data, mask, identity):
     if mask is None:
         return data
     m = mask.reshape(mask.shape + (1,) * (data.dim() - mask.dim()))
-    return torch.where(m, data, torch.as_tensor(identity, dtype=data.dtype,
-                                                device=data.device))
+    # a fill on the device: a host scalar copied in would wait for the
+    # stream (a pageable copy), and with it the host for every queued kernel
+    return torch.where(m, data, data.new_full((), identity))
 
 
 def take_clamped(table, ids):

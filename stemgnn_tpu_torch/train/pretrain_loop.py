@@ -13,13 +13,14 @@ its draws instead (the parity tests hand it JAX's).
 The loop (:func:`run_pretrain`): per epoch, weighted seed resampling over
 the merged multi-dataset graph, neighbour-sampled padded batches of ids
 (``data.sampler``), materialized on the device from the resident node and
-edge tables, one step a batch, the losses summed on the device and read
-once an epoch, and encoder/VQ checkpoints in the JAX package's format plus
-the port's own resume bundle.  With ``fused_minibatch="on"`` each batch
-also gets its own edge layout, built on the host (no hubs), so the
-student's dropout tails run ``scatter_rows_sorted`` and the teacher's clean
-pass ``gathered_scatter_rows_sorted``; ``"auto"`` resolves to off, as in
-JAX, and the step gathers and scatters with ``index_select``/``index_add_``.
+edge tables, one step a batch (a call of :class:`MinibatchPretrain`), the
+losses summed on the device and read once an epoch, and encoder/VQ
+checkpoints in the JAX package's format plus the port's own resume bundle.
+With ``fused_minibatch="on"`` each batch also gets its own edge layout,
+built on the host (no hubs), so the student's dropout tails run
+``scatter_rows_sorted`` and the teacher's clean pass
+``gathered_scatter_rows_sorted``; ``"auto"`` resolves to off, as in JAX,
+and the step gathers and scatters with ``index_select``/``index_add_``.
 The host never waits for the device inside an epoch: batches reach the card
 through pinned buffers with non-blocking copies.  With ``mesh`` (the ranks
 of ``--data_parallel``) each rank takes its own batch of each group of
@@ -40,7 +41,8 @@ from stemgnn_tpu_torch.core.config import FinetuneConfig, PretrainConfig
 from stemgnn_tpu_torch.core.graph import (indexed_to_device,
                                           materialize_graph)
 from stemgnn_tpu_torch.data.sampler import (CSCGraph, NeighborBatchIterator,
-                                            get_train_node_idx)
+                                            batch_counts, get_train_node_idx,
+                                            padded_row_share)
 from stemgnn_tpu_torch.models.pretrain import (PretrainModel,
                                                ema_update_teacher,
                                                make_teacher, negative_edges,
@@ -247,6 +249,77 @@ def maybe_kmeans_seed_vq(model: PretrainModel, cfg: PretrainConfig, merged,
                           generator=generator, means=means)
 
 
+class MinibatchPretrain:
+    """One minibatch pretrain step a call: the body of :func:`run_pretrain`'s
+    epoch, which the loop and any other caller (a benchmark) share.
+
+    A call takes the epoch's next group of ``world`` seed batches
+    (``sg:batch.sample``), makes batch ``rank`` of it a padded graph on the
+    device (:func:`batch_graph`: ``sg:batch.layout``, ``sg:batch.transfer``)
+    and runs ``step`` on it (``sg:pretrain.step``), all into ``recorder``
+    where given.  It returns the step's losses, or None when the epoch has
+    no full group left; with ``roll_over`` it then starts the next epoch
+    itself and steps on that epoch's first batch.
+
+    ``merged`` is the payload of ``data.merge`` (``x``, ``xe``, ``ptr``;
+    its feature arrays are not read) and ``csc`` its graph by destination:
+    ``node_table`` and ``edge_table`` (or None) are the resident feature
+    tables the batches gather from, made by the caller.  ``rng`` (numpy)
+    draws each epoch's seeds (:meth:`new_epoch`: ``get_train_node_idx`` by
+    ``weights``, batches of ``cfg.batch_size`` with ``drop_last``) and the
+    sampler's neighbours.  ``draw_fn(graph)`` replaces the step's own
+    random draws.  After a call, ``group`` holds the sampler's batches
+    (``(IndexedGraph, seed count, global node ids)`` each) and ``batch``
+    this rank's: ``ig``, ``seeds``, ``nodes``, the device ``graph`` and the
+    ``draws`` handed to the step (None when it drew its own)."""
+
+    def __init__(self, merged, cfg: PretrainConfig, step, node_table,
+                 edge_table, *, weights: Sequence[float], rng,
+                 csc: CSCGraph, device="cuda", world: int = 1, rank: int = 0,
+                 with_layout: bool = False,
+                 recorder: Optional[trace.Recorder] = None, draw_fn=None):
+        self.merged, self.cfg, self.step = merged, cfg, step
+        self.node_table, self.edge_table = node_table, edge_table
+        self.weights, self.rng, self.csc = weights, rng, csc
+        self.device, self.world, self.rank = torch.device(device), world, rank
+        self.with_layout, self.recorder = with_layout, recorder
+        self.draw_fn = draw_fn
+        self.ptr = np.asarray(merged["ptr"])
+        self._batches = None
+        self.group = self.batch = None
+
+    def new_epoch(self):
+        """Draw the next epoch's seeds and start its batches."""
+        seeds = get_train_node_idx(self.ptr, self.weights, self.rng)
+        self._batches = iter(_batches(self.merged, self.cfg, self.csc, seeds,
+                                      self.cfg.batch_size, self.rng,
+                                      drop_last=True))
+
+    def _next_group(self):
+        if self._batches is None:
+            return None
+        with trace.span("sg:batch.sample", self.recorder):
+            group = [next(self._batches, None) for _ in range(self.world)]
+        return None if group[-1] is None else group
+
+    def __call__(self, model, teacher, opt, roll_over: bool = False):
+        group = self._next_group()
+        if group is None and roll_over:
+            self.new_epoch()
+            group = self._next_group()
+        if group is None:
+            return None
+        ig, n_seeds, nodes = group[self.rank]
+        graph = batch_graph(ig, self.node_table, self.edge_table,
+                            self.device, self.with_layout, self.recorder)
+        self.group = group
+        with trace.span("sg:pretrain.step", self.recorder):
+            draws = None if self.draw_fn is None else self.draw_fn(graph)
+            self.batch = dict(ig=ig, seeds=n_seeds, nodes=nodes,
+                              graph=graph, draws=draws)
+            return self.step(model, teacher, opt, graph, draws)
+
+
 def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
                  save_root: Optional[str] = None,
                  max_steps: Optional[int] = None, verbose: bool = True,
@@ -280,7 +353,9 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
     epoch's padded edges, padded nodes and steps over ``epoch_s``
     (``throughput/*``) and the host milliseconds a batch of sampling,
     layout building and transfer (``host/*_ms``: the ``sg:batch.*``
-    spans).  On CUDA also the device ms a step (``device_ms``: the
+    spans) and the share of the epoch's padded node rows that hold no
+    sampled node (``batch/pad_share``, from ``data.sampler.batch_counts``).
+    On CUDA also the device ms a step (``device_ms``: the
     ``sg:pretrain.step`` spans' CUDA events, read after the readback) and
     the device's idle share (``idle``: one minus the steps' summed event
     time over ``epoch_s``; the batch copies and the feature gather between
@@ -337,17 +412,21 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
             broadcast_module(model.vq, mesh)
         step = make_dp_pretrain_step(cfg, cfg.batch_size, mesh,
                                      generator=gen)
-    ptr = np.asarray(merged["ptr"])
+
+    rec = trace.Recorder(device)
+    unit = MinibatchPretrain(merged, cfg, step, node_table, edge_table,
+                             weights=weights, rng=rng_np, csc=csc,
+                             device=device, world=world, rank=me,
+                             with_layout=with_layout, recorder=rec,
+                             draw_fn=draw_fn)
 
     preempt = PreemptionHandler()
-    rec = trace.Recorder(device)
     history = []
     total_steps = 0
     try:
         for epoch in range(start_epoch + 1, cfg.epochs + 1):
-            seeds = get_train_node_idx(ptr, weights, rng_np)
-            batches = iter(_batches(merged, cfg, csc, seeds, cfg.batch_size,
-                                    rng_np, drop_last=True))
+            unit.new_epoch()
+            counts0 = dict(batch_counts)
             t0 = time.perf_counter()
             # losses summed ON the device and read once an epoch: a float()
             # a step would make the host wait for every step
@@ -356,23 +435,15 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
             steps_epoch = edges = nodes = 0
             rec.clear()
             while True:
-                with trace.span("sg:batch.sample", rec):
-                    group = [next(batches, None) for _ in range(world)]
-                if group[-1] is None:
+                losses = unit(model, teacher, opt)
+                if losses is None:
                     break
-                ig = group[me][0]
-                graph = batch_graph(ig, node_table, edge_table, device,
-                                    with_layout, rec)
-                with trace.span("sg:pretrain.step", rec):
-                    losses = step(model, teacher, opt, graph,
-                                  None if draw_fn is None
-                                  else draw_fn(graph))
                 sums = losses if sums is None else {
                     k: sums[k] + v for k, v in losses.items()}
                 totals.append(losses["loss"])
                 steps_epoch += 1
-                edges += sum(g[0].num_edges_padded for g in group)
-                nodes += sum(g[0].num_nodes_padded for g in group)
+                edges += sum(g[0].num_edges_padded for g in unit.group)
+                nodes += sum(g[0].num_nodes_padded for g in unit.group)
                 total_steps += 1
                 if (max_steps is not None and total_steps >= max_steps) \
                         or preempt.should_stop:
@@ -403,12 +474,14 @@ def run_pretrain(merged, cfg: PretrainConfig, *, weights: Sequence[float],
                 f"sg:batch.{k}", {}).get("host_ms", 0.0)
                 / max(steps_epoch, 1)
                 for k in ("sample", "layout", "transfer")})
+            mean["batch/pad_share"] = padded_row_share(counts0)
             history.append(mean)
             if verbose:
                 msg = " ".join(
                     f"{k}={v:.4f}" for k, v in mean.items()
                     if not k.startswith(("throughput", "host", "step",
-                                         "epoch", "device", "idle")))
+                                         "epoch", "device", "idle",
+                                         "batch")))
                 print(f"[pretrain] epoch {epoch}/{cfg.epochs} "
                       f"({mean['epoch_s']:.1f}s, {steps_epoch} steps) "
                       f"{msg}", flush=True)

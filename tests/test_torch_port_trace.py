@@ -6,6 +6,7 @@ on the CPU."""
 
 import os
 import re
+import sys
 import threading
 
 import numpy as np
@@ -36,6 +37,20 @@ def _empty_recorder():
     trace.take()
     yield
     trace.take()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_pyg_stub_modules():
+    """Remove stub ``torch_geometric`` modules that an earlier test's
+    reference-cache import (the JAX package's) left in ``sys.modules``:
+    their ``__getattr__`` answers ``__file__`` with a class, which breaks
+    the ``inspect.getmodule`` that ``torch.compile`` and ``torch.profiler``
+    run when they register a custom op."""
+    for name in [k for k in sys.modules
+                 if k == "torch_geometric"
+                 or k.startswith("torch_geometric.")]:
+        if vars(sys.modules[name]).get("__pyg_stub__") is True:
+            del sys.modules[name]
 
 
 @pytest.fixture(scope="module")
