@@ -17,8 +17,22 @@ files through the language-model text encoders.  Phases, each
 announced before it starts and timed when it ends:
 
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the three kernels from ``stemgnn_tpu_torch/csrc``,
+  2. build   — nvcc builds the four kernels from ``stemgnn_tpu_torch/csrc``,
                one compiler per source, started together;
+  2b. gemm   — ``split_tf32_gemm`` (``Linear``'s f32 products on the
+               tensor cores): small ragged cases of the forward, dX and dW
+               (split-K, bias) against its plain version and an f64
+               product, dW's bits on a rerun, ``Linear`` on the card against
+               the CPU (a training step: the forward on torch.matmul's
+               bits, both gradients on the kernel; a no_grad forward on
+               the kernel; the counters); then at the
+               main path's shapes (arxiv's 169,344 rows, the minibatch
+               buckets' 37,888 and 70,784) each product's ms beside its
+               bounds at 165 TFLOP/s (the split) and 67 TFLOP/s (f32
+               cores), ``library_ms`` (``torch.matmul`` f32, TF32 off) and
+               the max / mean error normalised by ``|A| |B|`` against f64,
+               of the kernel and of cuBLAS; the rule's sweep over rows and
+               widths (kernel vs ``torch.matmul``, the three products);
   3. kernel  — ``scatter_rows_sorted`` vs its plain version over the row
                plan: small cases (sentinel padding over large padded
                messages, empty node blocks and rows, every relu/init/scale/
@@ -408,6 +422,7 @@ from stemgnn_tpu_torch.nn.encoder import Encoder
 from stemgnn_tpu_torch.nn.layers import Linear
 from stemgnn_tpu_torch.ops import fused_sage
 from stemgnn_tpu_torch.ops import scatter as sc
+from stemgnn_tpu_torch.ops import split_gemm as sg
 from stemgnn_tpu_torch.models.pretrain import (PretrainModel, make_teacher,
                                                pretrain_forward)
 from stemgnn_tpu_torch.ops.edge_layout import build_edge_layout, row_plan
@@ -492,6 +507,19 @@ MP_LOSSES = ("feat_recon_loss", "topo_recon_loss", "topo_sem_recon_loss",
 MB_BATCH, MB_FANOUT, MB_STEPS, MB_FT_EPOCHS = 1024, 10, 6, 1
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside tensor cores
+SPLIT_FLOPS = 495e12 / 3   # TF32 tensor cores, three products per f32 one
+# phase gemm: Linear's (rows, d_in, d_out) on the main paths (the SAGE
+# layers and decoders, the VQ's project_in / project_out) at arxiv's rows
+# and the minibatch buckets'; the rows a forward or dX error reads
+GEMM_SHAPES = [(r, a, b) for r in (169344, 37888, 70784)
+               for a, b in ((768, 768), (768, 3072), (3072, 768))]
+GEMM_ERR_ROWS = 32768
+# the small cases' largest error normalised by |A| |B|, against the plain
+# version and against f64 (TF32 alone reads ~1e-4)
+GEMM_TOL = 1e-5
+GEMM_SWEEP_ROWS = (1024, 2048, 4096, 8192, 16384)
+GEMM_SWEEP_WIDTHS = ((768, 768), (768, 3072), (3072, 768), (3072, 160),
+                     (768, 40), (64, 768), (768, 64), (128, 128))
 K1, K2 = "scatter_rows_sorted", "gathered_scatter_rows_sorted"
 K3 = "masked_scatter_rows_sorted"
 # each kernel's wrapper and plain version, and the names of its arrays
@@ -694,12 +722,14 @@ def read_counts():
 
 
 def expect_counts(tag, got, want):
-    """``want`` names the kernels expected to launch; every other kernel
-    must not."""
-    want = {k: want.get(k, 0) for k in got}
+    """``want`` names the scatter kernels expected to launch; every other
+    scatter kernel must not.  ``Linear``'s split GEMM launches are printed,
+    not checked (phase gemm checks its route)."""
+    scat = {k: v for k, v in got.items() if k != sg.KERNEL}
+    want = {k: want.get(k, 0) for k in scat}
     print(f"  {tag}: launches {got}", flush=True)
-    if got != want:
-        raise AssertionError(f"{tag}: expected launches {want}, got {got}")
+    if scat != want:
+        raise AssertionError(f"{tag}: expected launches {want}, got {scat}")
 
 
 def _epilogue_opts(rng_t, n_pad, d, init, scale, gate, gate_dtype, dev):
@@ -4559,6 +4589,175 @@ def check_grads(tag, got, want):
         raise AssertionError(f"gradients disagree with {tag}")
 
 
+def gemm_operands(rows, d_in, d_out, gen, dev):
+    """A Linear's activation x, weight w and output gradient dy, seeded."""
+    x = torch.randn(rows, d_in, generator=gen, device=dev)
+    w = torch.randn(d_in, d_out, generator=gen, device=dev) / d_in ** 0.5
+    dy = torch.randn(rows, d_out, generator=gen, device=dev)
+    return x, w, dy
+
+
+def gemm_products(x, w, dy):
+    """A Linear's three products: {name: (A, B, the kernel's call,
+    torch.matmul's)}, each computing A @ B."""
+    return {
+        "fwd": (x, w, lambda: sg.matmul(x, w), lambda: x @ w),
+        "dX": (dy, w.t(), lambda: sg.matmul(dy, w, b_transposed=True),
+               lambda: dy @ w.t()),
+        "dW": (x.t(), dy, lambda: sg.matmul(x, dy, a_transposed=True),
+               lambda: x.t() @ dy)}
+
+
+def gemm_error(c, a, b, rows=None):
+    """Max and mean of ``|c - a b| / (|a| |b|)``, both products in f64,
+    over the first ``rows`` rows (all of them where None)."""
+    if rows is not None and rows < a.shape[0]:
+        a, c = a[:rows], c[:rows]
+    a64, b64 = a.double(), b.double()
+    den = (a64.abs() @ b64.abs()).clamp_min(1e-300)
+    err = (c.double() - a64 @ b64).abs() / den
+    return float(err.max()), float(err.mean())
+
+
+def gemm_small_cases(dev):
+    """Ragged shapes (edges of tiles, split-K, bias) against the plain
+    version and f64; dW's bits on a rerun; Linear on the card against the
+    CPU, and its counters."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for rows, d_in, d_out in ((1001, 68, 132), (4099, 100, 36),
+                              (9000, 12, 8), (300, 4, 4), (5003, 260, 516)):
+        x, w, dy = gemm_operands(rows, d_in, d_out, gen, dev)
+        for name, (a, b, kern, lib) in gemm_products(x, w, dy).items():
+            got = kern()
+            plain = sg.split_matmul_ref(a, b)
+            den = (a.double().abs() @ b.double().abs()).clamp_min(1e-300)
+            vs_plain = float(((got.double() - plain.double()).abs()
+                              / den).max())
+            e_max, _ = gemm_error(got, a, b)
+            l_max, _ = gemm_error(lib(), a, b)
+            tag = (f"split gemm {name} [{a.shape[0]},{a.shape[1]}]x"
+                   f"[{b.shape[0]},{b.shape[1]}]")
+            print(f"  {tag}: vs plain {vs_plain:.2e}, vs f64 {e_max:.2e} "
+                  f"(cuBLAS f32 {l_max:.2e})", flush=True)
+            if vs_plain > GEMM_TOL or e_max > GEMM_TOL:
+                raise AssertionError(f"{tag}: the kernel disagrees")
+        bias = torch.randn(d_out, generator=gen, device=dev)
+        check_close(f"split gemm fwd + bias rows={rows}",
+                    sg.matmul(x, w, bias=bias), x @ w + bias, 1e-5, 1e-5)
+        dw = sg.matmul(x, dy, a_transposed=True)
+        if not torch.equal(dw, sg.matmul(x, dy, a_transposed=True)):
+            raise AssertionError(f"split gemm dW rows={rows}: a rerun "
+                                 f"differs")
+    lin = Linear(768, 768, generator=torch.Generator().manual_seed(SEED))
+    x = torch.randn(sg.ROWS_MIN * 2, 768,
+                    generator=torch.Generator().manual_seed(SEED))
+    up = torch.randn(x.shape[0], 768,
+                     generator=torch.Generator().manual_seed(SEED + 1))
+    card = copy.deepcopy(lin).to(dev)
+    xc = x.to(dev).requires_grad_(True)
+    x.requires_grad_(True)
+    (lin(x) * up).sum().backward()
+    launches = sc.launch_counts[sg.KERNEL]
+    flops = dict(sg.flop_counts)
+    yc = card(xc)
+    (yc * up.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    n_launch = sc.launch_counts[sg.KERNEL] - launches
+    n_flops = {k: sg.flop_counts[k] - flops[k] for k in flops}
+    one = 2 * x.shape[0] * 768 * 768
+    with torch.no_grad():
+        y_eval = card(x.to(dev))
+    torch.cuda.synchronize()
+    n_eval = sc.launch_counts[sg.KERNEL] - launches - n_launch
+    print(f"  Linear(768, 768) on {x.shape[0]} rows: a training step "
+          f"{n_launch} launches, FLOPs {n_flops} (want 2 launches, "
+          f"{2 * one:.4e} kernel FLOPs and {one:.4e} training forward); a "
+          f"forward under no_grad {n_eval} launch", flush=True)
+    if (n_launch != 2 or n_eval != 1 or n_flops["kernel"] != 2 * one
+            or n_flops["training_forward"] != one):
+        raise AssertionError("Linear on the card did not take its routes")
+    if not torch.equal(yc.detach(), x.to(dev) @ card.w + card.b):
+        raise AssertionError("a training forward left torch.matmul's bits")
+    for tag, got, want_t in (("out", yc, lin(x)), ("eval", y_eval, lin(x)),
+                             ("dx", xc.grad, x.grad),
+                             ("dw", card.w.grad, lin.w.grad),
+                             ("db", card.b.grad, lin.b.grad)):
+        want_t = want_t.detach()
+        err = max_err(got.detach().cpu(), want_t) / float(want_t.abs().max())
+        print(f"  Linear on the card vs the CPU: {tag}: max error "
+              f"{err:.2e} of the largest value", flush=True)
+        if err > GEMM_TOL:
+            raise AssertionError(f"Linear on the card vs the CPU: {tag} "
+                                 f"disagrees")
+
+
+def gemm_main_shapes(dev):
+    """Each product of each main-path shape (GEMM_SHAPES): ms, the bounds,
+    library_ms and the max / mean errors against f64 of the kernel, of its
+    plain version (forward and dX only) and of cuBLAS.  Returns the rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = []
+    for rows, d_in, d_out in GEMM_SHAPES:
+        x, w, dy = gemm_operands(rows, d_in, d_out, gen, dev)
+        flops = 2 * rows * d_in * d_out
+        for name, (a, b, kern, lib) in gemm_products(x, w, dy).items():
+            err_rows = None if name == "dW" else GEMM_ERR_ROWS
+            row = {"shape": [rows, d_in, d_out], "product": name,
+                   "ms": cuda_ms(kern, 10),
+                   "bound_ms": flops / SPLIT_FLOPS * 1e3,
+                   "f32_bound_ms": flops / F32_FLOPS * 1e3,
+                   "library_ms": cuda_ms(lib, 10),
+                   "err": gemm_error(kern(), a, b, err_rows),
+                   "library_err": gemm_error(lib(), a, b, err_rows)}
+            if err_rows is not None:
+                row["plain_err"] = gemm_error(
+                    sg.split_matmul_ref(a[:err_rows], b), a, b, err_rows)
+            if name == "fwd":
+                row["plain_ms"] = cuda_ms(lambda: sg.split_matmul_ref(a, b),
+                                          3)
+            row["splits"] = (sg._splits(d_in, d_out, rows, dev)[0]
+                             if name == "dW" else 1)
+            row["tflops"] = flops / row["ms"] / 1e9
+            print(f"  split gemm {name} {row['shape']}: "
+                  + ", ".join(f"{k} {v}" for k, v in row.items()
+                              if k not in ("shape", "product")),
+                  flush=True)
+            for key in ("max", "mean"):
+                i = 0 if key == "max" else 1
+                if row["err"][i] > 2 * row["library_err"][i]:
+                    raise AssertionError(
+                        f"split gemm {name} {row['shape']}: {key} error "
+                        f"{row['err'][i]:.3e} over twice cuBLAS's")
+            out.append(row)
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+def gemm_sweep(dev):
+    """The rule's sweep: kernel ms and torch.matmul ms of a Linear's three
+    products (forward + dX + dW) over GEMM_SWEEP_ROWS x GEMM_SWEEP_WIDTHS,
+    whatever the rule says."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for d_in, d_out in GEMM_SWEEP_WIDTHS:
+        cells = []
+        for rows in GEMM_SWEEP_ROWS:
+            x, w, dy = gemm_operands(rows, d_in, d_out, gen, dev)
+            prods = gemm_products(x, w, dy).values()
+            k_ms = sum(cuda_ms(kern, 20) for _, _, kern, _ in prods)
+            l_ms = sum(cuda_ms(lib, 20) for _, _, _, lib in prods)
+            cells.append(f"{rows}: {k_ms:.4f} / {l_ms:.4f}")
+        print(f"  sweep [{d_in} -> {d_out}] rows: kernel / library ms "
+              f"(fwd + dX + dW): " + "; ".join(cells), flush=True)
+
+
+def gemm_run(dev):
+    gemm_small_cases(dev)
+    rows = gemm_main_shapes(dev)
+    gemm_sweep(dev)
+    return rows
+
+
 def bound_ms(nbytes, flops):
     b, f = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
     return max(b, f), ("bytes" if b >= f else "operations")
@@ -4607,6 +4806,12 @@ def main():
                   f"the compiler's report beside it, .ptxas.log)\n"
                   f"{ptxas_summary(info['log'])}", flush=True)
             sc.load_library(name)
+
+    with phase("gemm"):
+        info = sc.build_info[sg.KERNEL]
+        print(f"  {sg.KERNEL}: {info['seconds']:.2f} s\n"
+              f"{ptxas_summary(info['log'])}", flush=True)
+        gemm_rows = gemm_run(dev)
 
     with phase("kernel"):
         kernel1_small_cases(dev)
@@ -4939,6 +5144,14 @@ def main():
         **case_fields({"path": k3_path, **{
             case: t for (name, case), t in mp_cases.items()
             if name == K3}})})
+    line.append({
+        "name": sg.KERNEL, "route": "cuda",
+        "source": f"stemgnn_tpu_torch/csrc/{sg.KERNEL}.cu",
+        "replaces": "none: XLA's f32 dot (nn/layers.Linear)",
+        "launches": paths["pretrain"].get(sg.KERNEL, 0),
+        "launches_by_path": {p: c.get(sg.KERNEL, 0)
+                             for p, c in paths.items()},
+        "shapes": gemm_rows})
     print(json.dumps({"kernels": line}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(card, flush=True)

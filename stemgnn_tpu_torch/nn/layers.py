@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from stemgnn_tpu_torch.nn import init as inits
+from stemgnn_tpu_torch.ops import split_gemm
 
 
 class Linear(nn.Module):
@@ -32,11 +33,12 @@ class Linear(nn.Module):
                   if bias else None)
 
     def forward(self, x):
-        # compute in the activation dtype, as the JAX package does
-        y = x @ self.w.to(x.dtype)
-        if self.b is not None:
-            y = y + self.b.to(x.dtype)
-        return y
+        # compute in the activation dtype, as the JAX package does; f32
+        # products on the card take the split-TF32 kernel where its rule
+        # accepts them (ops/split_gemm.py)
+        return split_gemm.linear(
+            x, self.w.to(x.dtype),
+            None if self.b is None else self.b.to(x.dtype))
 
 
 class BatchNorm(nn.Module):

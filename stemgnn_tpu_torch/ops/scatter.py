@@ -102,6 +102,8 @@ KERNELS = {
     "scatter_rows_sorted": [_P] * 12 + [_I] * 9 + [_P],
     "gathered_scatter_rows_sorted": [_P] * 16 + [_I] * 10 + [_P],
     "masked_scatter_rows_sorted": [_P] * 13 + [_I] * 8 + [_P],
+    # Linear's f32 products (ops/split_gemm.py, which launches it)
+    "split_tf32_gemm": [_P] * 5 + [_I] * 10 + [_P],
 }
 
 # column layouts of the row walk (csrc/row_walk.cuh ``ColMode``) and the

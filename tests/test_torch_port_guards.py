@@ -195,11 +195,25 @@ def test_kernel_wrapper_raises_instead_of_running_the_plain_version():
             print("raised:", ex)
         else:
             raise SystemExit("load_library succeeded without CUDA")
+        # Linear's split GEMM: the same
+        from stemgnn_tpu_torch.ops import split_gemm as sg
+        try:
+            sg.matmul(m, torch.empty(8, 8, device="meta"))
+        except ValueError as ex:
+            print("raised:", ex)
+        else:
+            raise SystemExit("the wrapper returned a result")
+        try:
+            sc.load_library(sg.KERNEL)
+        except RuntimeError as ex:
+            print("raised:", ex)
+        else:
+            raise SystemExit("load_library succeeded without CUDA")
         assert set(sc.launch_counts.values()) == {0}, sc.launch_counts
-        assert len(sc.launch_counts) == 3, sc.launch_counts
+        assert len(sc.launch_counts) == 4, sc.launch_counts
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.count("raised:") == 6
+    assert proc.stdout.count("raised:") == 8
 
 
 def test_pretrain_modules_import_without_jax_or_the_jax_package():
